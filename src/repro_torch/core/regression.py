@@ -1,0 +1,58 @@
+"""Closed-form simple linear regression in sufficient-statistic form.
+
+Each regression is five running statistics ``(n, Sx, Sxx, Sy, Sxy)`` along
+the trailing axis, so banks of regressions (k segments x lanes x steps)
+evaluate as one elementwise expression.  Port of ``repro.core.regression``
+(the tensor half); callers pass inputs pre-shifted by the first observation
+(``u = x - x0``) so float32 does not cancel on byte-scale input sizes.
+"""
+
+from __future__ import annotations
+
+import torch
+
+# Statistic layout along the trailing axis.
+N, SX, SXX, SY, SXY = 0, 1, 2, 3, 4
+NUM_STATS = 5
+
+# Degenerate-fit guard: denominators below this fall back to the mean model.
+_EPS = 1e-9
+
+
+def empty_stats(*batch_shape: int, dtype=torch.float32, device=None) -> torch.Tensor:
+    """A bank of regressions with no observations."""
+    return torch.zeros((*batch_shape, NUM_STATS), dtype=dtype, device=device)
+
+
+def stats_terms(x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
+    """The ``(1, x, x*x, y, x*y)`` terms one observation adds; ``x`` and
+    ``y`` broadcast (one ``x`` against k segment peaks)."""
+    x, y = torch.broadcast_tensors(x, y)
+    return torch.stack([torch.ones_like(y), x, x * x, y, x * y], dim=-1)
+
+
+def update_stats(stats: torch.Tensor, x, y) -> torch.Tensor:
+    """Fold one observation ``(x, y)`` into each regression of the bank."""
+    x = torch.as_tensor(x, dtype=stats.dtype, device=stats.device)
+    y = torch.as_tensor(y, dtype=stats.dtype, device=stats.device)
+    return stats + stats_terms(x, y)
+
+
+def fit(stats: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """Solve each regression: ``(intercept, slope)``.  With fewer than two
+    observations or all x identical the slope is 0 and the intercept the
+    mean of y (0 when empty)."""
+    n = stats[..., N]
+    sx, sxx, sy, sxy = stats[..., SX], stats[..., SXX], stats[..., SY], stats[..., SXY]
+    denom = n * sxx - sx * sx
+    safe = denom.abs() > _EPS
+    zero = torch.zeros((), dtype=stats.dtype, device=stats.device)
+    slope = torch.where(safe, (n * sxy - sx * sy) / torch.where(safe, denom, torch.ones_like(denom)), zero)
+    intercept = torch.where(n > 0, (sy - slope * sx) / torch.clamp(n, min=1.0), zero)
+    return intercept, slope
+
+
+def predict(stats: torch.Tensor, x) -> torch.Tensor:
+    """Evaluate each regression of the bank at ``x`` (broadcasting)."""
+    intercept, slope = fit(stats)
+    return intercept + slope * torch.as_tensor(x, dtype=stats.dtype, device=stats.device)

@@ -1,0 +1,103 @@
+"""Build and load the CUDA kernels under ``csrc/``, and check their arguments.
+
+Each source compiles with ``nvcc`` into a shared library with a plain C
+interface, loaded with ``ctypes``.  Libraries land in ``_build/`` beside this
+file (listed in ``.gitignore``), named by a hash of the source and the flags,
+so a changed source rebuilds and an unchanged one loads at once.  All
+missing libraries build in parallel, one ``nvcc`` each.  A failed build
+raises; there is no fallback.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import threading
+from pathlib import Path
+
+import torch
+
+CSRC = Path(__file__).resolve().parent / "csrc"
+BUILD_DIR = Path(__file__).resolve().parent / "_build"
+SOURCES = ("segmax", "wastage")
+# sm_90a is Hopper's full instruction set.  -fmad=false keeps every f32
+# multiply and add rounded on its own, as PyTorch's elementwise ops round
+# them, so a kernel and its plain version agree bit for bit where their
+# arithmetic is the same.  -Xptxas -v reports registers and spills.
+NVCC_FLAGS = (
+    "-gencode",
+    "arch=compute_90a,code=sm_90a",
+    "-std=c++17",
+    "-O3",
+    "-fmad=false",
+    "-shared",
+    "-Xcompiler",
+    "-fPIC",
+    "-Xptxas",
+    "-v",
+)
+
+_lock = threading.Lock()
+_libs: dict[str, ctypes.CDLL] = {}
+build_logs: dict[str, str] = {}  # compiler output of the builds this process ran
+
+
+def _nvcc() -> str:
+    nvcc = shutil.which("nvcc") or os.path.join(os.environ.get("CUDA_HOME", "/usr/local/cuda"), "bin", "nvcc")
+    if not os.path.exists(nvcc):
+        raise RuntimeError("nvcc not found: put the CUDA toolkit's bin directory on PATH or set CUDA_HOME")
+    return nvcc
+
+
+def library_path(name: str) -> Path:
+    digest = hashlib.sha256((CSRC / f"{name}.cu").read_bytes() + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
+    return BUILD_DIR / f"lib{name}-{digest}.so"
+
+
+def build_all() -> list[str]:
+    """Compile every missing library, all at once; returns the names built."""
+    with _lock:
+        todo = [n for n in SOURCES if not library_path(n).exists()]
+        if not todo:
+            return []
+        BUILD_DIR.mkdir(parents=True, exist_ok=True)
+        nvcc = _nvcc()
+        procs = {}
+        for name in todo:
+            tmp = library_path(name).with_suffix(f".tmp{os.getpid()}")
+            cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
+            procs[name] = (tmp, subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
+        failed = []
+        for name, (tmp, proc) in procs.items():
+            log, _ = proc.communicate()
+            build_logs[name] = log
+            if proc.returncode == 0:
+                os.replace(tmp, library_path(name))
+            else:
+                failed.append(f"{name}.cu (exit {proc.returncode}):\n{log}")
+        if failed:
+            raise RuntimeError("kernel build failed: " + "\n".join(failed))
+        return todo
+
+
+def library(name: str) -> ctypes.CDLL:
+    """The loaded library of ``csrc/<name>.cu``, built on first use."""
+    lib = _libs.get(name)
+    if lib is None:
+        build_all()
+        with _lock:
+            lib = _libs.get(name) or ctypes.CDLL(str(library_path(name)))
+            _libs[name] = lib
+    return lib
+
+
+def check_arg(name: str, t: torch.Tensor, dtype: torch.dtype, ndim: int, device: torch.device) -> None:
+    """Raise unless ``t`` is what a kernel's C interface takes."""
+    if t.dtype != dtype or t.dim() != ndim or not t.is_contiguous() or t.device != device:
+        raise ValueError(
+            f"{name}: need a contiguous {ndim}-d {dtype} tensor on {device}, "
+            f"got {t.dtype} {tuple(t.shape)} on {t.device} (contiguous={t.is_contiguous()})"
+        )

@@ -1,0 +1,441 @@
+"""The paper's online evaluation loop as two batched phases on tensors.
+
+Port of ``repro.sim.jax_sim``.  The reference walks a task's executions in
+one ``lax.scan``: each step predicts every method's allocation, replays the
+execution with retries, then folds the observation into the k-Segments
+carry.  The carry is updated only from observations (input size, runtime,
+segment peaks); replay outcomes never feed back into it.  So the port splits
+the scan in two:
+
+(a) **Predict.**  Every execution's ``(bounds, values)`` for every method,
+    for all executions at once.  The only sequential part is the fold of
+    the regression statistics, one execution after another in the scan's
+    order (``_cumsum``); errors, offsets and predictions are then
+    elementwise or running maxima over those prefixes, which are exact.
+(b) **Replay.**  All ``(lane, execution, method)`` rows together, in at
+    most ``MAX_RETRIES + 1`` rounds, each one wastage launch over the rows
+    still active, with the reference's selective / partial / cap-jump
+    bumps.
+
+Lanes are a batch dimension: task types of one padded bucket for the Fig. 7
+grid, or the segment counts ``k_eff`` of the Fig. 8 sweep.  The segmax and
+wastage kernels (``repro_torch.kernels.ops``) carry the two data-parallel
+loops: segment peaks at the start of (a), attempt scoring in each round of
+(b).
+
+Everything runs in float32, as the reference with x64 off.  Where the
+reference uses ``jnp.cumsum``, ``_cumsum`` adds in the order XLA's CPU
+lowering of it does (sequential within 16-wide blocks, the block totals
+scanned the same way, recursively), so those prefix sums equal the
+reference's bit for bit and are the same on the CPU and the card.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+
+from repro_torch.core import regression
+from repro_torch.core.predictor import retry_flags
+from repro_torch.device import resolve_device
+from repro_torch.kernels import ops
+
+MIB_PER_GIB = 1024.0
+MAX_RETRIES = 64
+
+# Method rows this engine scores, in output-row order.
+ENGINE_METHODS = (
+    "default",
+    "witt-lr",
+    "witt-lr-max",
+    "ppm",
+    "ppm-improved",
+    "ksegments-selective",
+    "ksegments-partial",
+)
+# Methods of the reference engine that the port does not have yet.
+NOT_PORTED = ("sizey", "ksplus")
+
+_XLA_SCAN_BLOCK = 16
+
+
+def _check_methods(methods) -> tuple[str, ...]:
+    for m in methods:
+        if m in NOT_PORTED:
+            raise ValueError(f"method {m!r} is not ported yet: see ROADMAP.md, Queue 1, item 1 (sizey and ksplus)")
+        if m not in ENGINE_METHODS:
+            raise ValueError(f"engine does not implement {m!r}; available: {ENGINE_METHODS}")
+    return tuple(methods)
+
+
+def _check_error_mode(error_mode: str, insample_window: int) -> None:
+    if error_mode not in ("progressive", "insample"):
+        raise ValueError(f"unknown error mode: {error_mode!r}")
+    if error_mode == "insample" and insample_window < 1:
+        raise ValueError("insample error mode needs an explicit history bound (insample_window >= 1)")
+    if error_mode == "progressive" and insample_window:
+        raise ValueError("insample_window only applies to error_mode='insample' (pass 0)")
+
+
+# ---------------------------------------------------------------------------
+# Prefix sums and running maxima along the last axis.
+# ---------------------------------------------------------------------------
+
+
+def _cumsum(a: torch.Tensor, block: int) -> torch.Tensor:
+    """Inclusive prefix sum along the last axis: sequential within blocks of
+    ``block``, plus the block totals' own prefix sum (the same way,
+    recursively).  ``block >= n`` is one sequential fold, the order of a
+    scan; ``block = 16`` is the order of XLA's CPU ``cumsum``."""
+    n = a.shape[-1]
+    if n <= block:
+        out = torch.empty_like(a)
+        acc = torch.zeros_like(a[..., 0])
+        for i in range(n):
+            acc = torch.add(acc, a[..., i], out=out[..., i])
+        return out
+    m = -(-n // block)
+    local = _cumsum(F.pad(a, (0, m * block - n)).reshape(*a.shape[:-1], m, block), block)
+    totals = _cumsum(local[..., -1], block)
+    local += _exclusive(totals)[..., None]
+    return local.reshape(*a.shape[:-1], m * block)[..., :n]
+
+
+def _exclusive(incl: torch.Tensor, fill: float = 0.0) -> torch.Tensor:
+    """Shift an inclusive prefix along the last axis by one, ``fill`` first."""
+    return torch.cat([torch.full_like(incl[..., :1], fill), incl[..., :-1]], dim=-1)
+
+
+def _xla_cumsum(a: torch.Tensor, dim: int = -1) -> torch.Tensor:
+    return _cumsum(a.movedim(dim, -1), _XLA_SCAN_BLOCK).movedim(-1, dim)
+
+
+def _running_max(a: torch.Tensor, dim: int, init: float) -> torch.Tensor:
+    """``out[i] = max(init, a[0..i-1])`` along ``dim`` (exclusive)."""
+    incl = torch.cummax(a.movedim(dim, -1), dim=-1).values
+    return torch.clamp(_exclusive(incl, -torch.inf), min=init).movedim(-1, dim)
+
+
+# ---------------------------------------------------------------------------
+# k-Segments prediction from a carry.
+# ---------------------------------------------------------------------------
+
+
+def _predict(rt_stats, rt_over, seg_stats, seg_under, u, k: int, k_eff, interval_s: float, floor_mib: float):
+    """k-Segments prediction (progressive or insample offsets), batched over
+    leading axes: rt_stats (..., 5), rt_over (...), seg_stats (..., k, 5),
+    seg_under (..., k), u (...), k_eff (...) int -> bounds, values (..., k).
+
+    ``k`` is the array width; ``k_eff <= k`` the live segment count.
+    Segments beyond ``k_eff`` get +inf boundaries (the hold-last-value
+    region)."""
+    dt = rt_stats.dtype
+    r_e = regression.predict(rt_stats, u) - torch.clamp(rt_over, min=0.0)
+    r_e = torch.clamp(r_e, min=interval_s)[..., None]
+    s = torch.arange(k, device=u.device)
+    ke = torch.as_tensor(k_eff, device=u.device)[..., None]
+    bounds = (s + 1).to(dt) * (r_e / ke.to(dt))
+    bounds = torch.where(s == ke - 1, r_e, bounds)  # exact last edge
+    bounds = torch.where(s >= ke, torch.inf, bounds)
+    v = regression.predict(seg_stats, u[..., None]) + torch.clamp(seg_under, min=0.0)
+    v0 = v[..., :1]
+    v = torch.cat([torch.where(v0 < 0, floor_mib, v0), v[..., 1:]], dim=-1)
+    v = torch.cummax(v, dim=-1).values
+    return bounds, torch.clamp(v, min=floor_mib)
+
+
+# ---------------------------------------------------------------------------
+# Prefix programs: step i is the model fitted on executions j < i.
+# ---------------------------------------------------------------------------
+
+
+def _witt_prefix_values(u, gpeak, floor_mib):
+    """Witt-LR allocation values of every step, batched over lanes:
+    u, gpeak (N, B) -> (val_std, val_max) (N, B).  ``e[i, j]`` is step i's
+    fit's error on execution j."""
+    B = u.shape[-1]
+    dt, dev = u.dtype, u.device
+    pref = _exclusive(_xla_cumsum(regression.stats_terms(u, gpeak), dim=-2).movedim(-2, -1)).movedim(-1, -2)
+    intercept, slope = regression.fit(pref)  # (N, B)
+    e = gpeak[..., None, :] - intercept[..., :, None] - slope[..., :, None] * u[..., None, :]  # (N, B, B)
+    steps = torch.arange(B, device=dev)
+    seen = steps[None, :] < steps[:, None]
+    zero = torch.zeros((), dtype=dt, device=dev)
+    n = torch.clamp(seen.sum(dim=1), min=1).to(dt)
+    mean = torch.where(seen, e, zero).sum(dim=-1) / n
+    var = torch.where(seen, e * e, zero).sum(dim=-1) / n - mean * mean
+    std = torch.where(steps >= 2, torch.sqrt(torch.clamp(var, min=0.0)), zero)  # Witt: >= 2 residuals
+    emax = torch.where(seen, e, -torch.inf).amax(dim=-1)
+    off_max = torch.clamp(torch.where(torch.isfinite(emax), emax, zero), min=0.0)
+    base = intercept + slope * u
+    return torch.clamp(base + std, min=floor_mib), torch.clamp(base + off_max, min=floor_mib)
+
+
+def _ppm_prefix_values(gpeak, rt_samples, cap_mib, floor_mib):
+    """Tovar PPM candidate selection for every observation prefix, batched
+    over lanes: gpeak, rt_samples (N, B) -> (val_orig, val_improved) (N, B).
+
+    Peaks are sorted once (stably); at step i sorted position m is a
+    candidate iff its execution came before i, and the expected-wastage
+    terms are masked prefix sums.  Every observed peak is a candidate."""
+    B = gpeak.shape[-1]
+    dt, dev = gpeak.dtype, gpeak.device
+    order = torch.argsort(gpeak, dim=-1, stable=True)
+    p = torch.gather(gpeak, -1, order)  # sorted candidate/peak values
+    rt = torch.gather(rt_samples, -1, order)
+    seen = order[..., None, :] < torch.arange(B, device=dev)[:, None]  # (N, B_steps, B_sorted)
+    seen_f = seen.to(dt)
+    C = _xla_cumsum(seen_f * rt[..., None, :])  # masked prefix runtime sums
+    S = _xla_cumsum(seen_f * (p * rt)[..., None, :])
+    pj = p[..., None, :]
+    waste_ok = pj * C - S  # successes: (q - p_i) * rt_i
+    rt_bad = C[..., -1:] - C
+    s_bad = S[..., -1:] - S
+    # original: a failed first attempt wastes q*rt, the retry at node cap (cap - p)*rt
+    waste_orig = waste_ok + pj * rt_bad + cap_mib * rt_bad - s_bad
+    # improved: smallest ladder level a = q * 2^ceil(log2(p/q)) >= p (capped)
+    # wastes (2a - q - p) * rt
+    q = torch.clamp(p, min=1e-6)[..., :, None]
+    ratio = pj / q
+    a = torch.clamp(q * torch.exp2(torch.ceil(torch.log2(torch.clamp(ratio, min=1.0)))), max=cap_mib)
+    pi = p[..., :, None]
+    zero = torch.zeros((), dtype=dt, device=dev)
+    w_pair = torch.where(pj > pi, (2.0 * a - pi - pj) * rt[..., None, :], zero)  # (N, B_cand, B_sorted)
+    # step i adds execution i-1's column: an exclusive prefix sum over the
+    # columns gathered into execution order
+    inv = torch.argsort(order, dim=-1)
+    contrib = torch.gather(w_pair, -1, inv[..., None, :].expand_as(w_pair)).transpose(-1, -2)  # (N, B_exec, B_cand)
+    waste_imp = waste_ok + _exclusive(_xla_cumsum(contrib, dim=-2).movedim(-2, -1)).movedim(-1, -2)
+    val_orig = torch.gather(p, -1, torch.argmin(torch.where(seen, waste_orig, torch.inf), dim=-1))
+    val_imp = torch.gather(p, -1, torch.argmin(torch.where(seen, waste_imp, torch.inf), dim=-1))
+    return torch.clamp(val_orig, min=floor_mib), torch.clamp(val_imp, min=floor_mib)
+
+
+# ---------------------------------------------------------------------------
+# Bounded-history insample offsets.
+# ---------------------------------------------------------------------------
+
+
+def _window_residuals(rt_stats, seg_stats, hu, hrt, hpk):
+    """Residuals of history rows under the fit of the given banks, batched:
+    rt_stats (..., 5), seg_stats (..., k, 5), hu/hrt (..., W), hpk (..., W, k)
+    -> (runtime over-prediction (..., W), segment under-prediction (..., W, k))."""
+    rt_pred = regression.predict(rt_stats[..., None, :], hu)
+    a, b = regression.fit(seg_stats)
+    seg_pred = a[..., None, :] + b[..., None, :] * hu[..., None]
+    return rt_pred - hrt, hpk - seg_pred
+
+
+def _window_offsets(rt_stats, seg_stats, hist, n_obs, ev):
+    """Insample error offsets at prediction time: masked extremes of the
+    window residuals under the current fit, combined with the frozen
+    extremes of evicted rows (-inf while nothing was evicted).
+
+    hist = (hu (..., W), hrt (..., W), hpk (..., W, k)) whose first
+    ``min(n_obs, W)`` slots are filled; ev = (ev_rt (...), ev_seg (..., k)).
+    Returns (rt_over (...), seg_under (..., k))."""
+    hu, hrt, hpk = hist
+    ev_rt, ev_seg = ev
+    W = hu.shape[-1]
+    rt_res, seg_res = _window_residuals(rt_stats, seg_stats, hu, hrt, hpk)
+    filled = torch.arange(W, device=hu.device) < torch.clamp(torch.as_tensor(n_obs, device=hu.device), max=W)[..., None]
+    rt_over = torch.maximum(torch.where(filled, rt_res, -torch.inf).amax(dim=-1), ev_rt)
+    seg_under = torch.maximum(torch.where(filled[..., None], seg_res, -torch.inf).amax(dim=-2), ev_seg)
+    return rt_over, seg_under
+
+
+def _ksegments_offsets(P_rt, P_seg, incl_rt, incl_seg, u, runtime, peaks, error_mode, insample_window):
+    """Offsets (rt_over (N, B), seg_under (N, B, k)) each step predicts with.
+
+    P_* are the banks before each step's observation, incl_* after it."""
+    B = u.shape[1]
+    dev = u.device
+    if error_mode == "progressive":
+        # score-then-update: running maxima of one-step-ahead errors, from 0
+        has_data = P_rt[..., regression.N] > 0
+        rt_err = regression.predict(P_rt, u) - runtime
+        seg_err = peaks - regression.predict(P_seg, u[..., None])
+        rt_over = _running_max(torch.where(has_data, rt_err, -torch.inf), dim=1, init=0.0)
+        seg_under = _running_max(torch.where(has_data[..., None], seg_err, -torch.inf), dim=1, init=0.0)
+        return rt_over, seg_under
+    W = insample_window
+    steps = torch.arange(B, device=dev)
+    # step i's window holds executions i-1, ..., i-W (lag order: max ignores order)
+    j = torch.clamp(steps[:, None] - 1 - torch.arange(W, device=dev)[None, :], min=0)  # (B, W)
+    hist = (u[:, j], runtime[:, j], peaks[:, j])
+    # step s >= W evicts execution s-W, frozen at its residual under the
+    # banks after folding s; step i sees the evictions of steps s < i
+    old = torch.clamp(steps - W, min=0)
+    ev_rt, ev_seg = _window_residuals(incl_rt, incl_seg, u[:, old, None], runtime[:, old, None], peaks[:, old, None])
+    evict = steps >= W
+    ev_rt = _running_max(torch.where(evict, ev_rt[..., 0], -torch.inf), dim=1, init=-torch.inf)
+    ev_seg = _running_max(torch.where(evict[:, None], ev_seg[..., 0, :], -torch.inf), dim=1, init=-torch.inf)
+    return _window_offsets(P_rt, P_seg, hist, steps, (ev_rt, ev_seg))
+
+
+# ---------------------------------------------------------------------------
+# The two phases.
+# ---------------------------------------------------------------------------
+
+
+def predict_lanes(u, y, lengths, series, default_mib, k_eff, *, methods, k, interval_s, floor_mib, cap_mib,
+                  error_mode, insample_window):
+    """Phase (a): bounds, values (N, B, M, k) of every method at every step
+    (arguments as ``simulate_lanes``)."""
+    N, B = u.shape
+    dt, dev = u.dtype, u.device
+    T = y.shape[1]
+    need = set(methods)
+    peaks = ops.segment_peaks(y, lengths, series.reshape(-1), k_eff.repeat_interleave(B), k).view(N, B, k)
+    zero = torch.zeros((), dtype=dt, device=dev)
+    gpeak = torch.where(torch.arange(T, device=dev) < lengths[:, None], y, zero).amax(dim=1)[series]
+    len_nb = lengths[series].to(dt)
+    has_obs = (torch.arange(B, device=dev) >= 1)[None, :, None]  # step 0 has no history
+    inf_bounds = torch.full((N, B, k), torch.inf, dtype=dt, device=dev)
+    default = default_mib[:, None, None].expand(N, B, k)
+
+    if need & {"ksegments-selective", "ksegments-partial"}:
+        runtime = len_nb * interval_s
+        terms = torch.cat(
+            [regression.stats_terms(u, runtime)[..., None, :], regression.stats_terms(u[..., None], peaks)], dim=2
+        )  # (N, B, 1 + k, 5)
+        incl = _cumsum(terms.movedim(1, -1), block=B).movedim(-1, 1)  # fold in execution order
+        P = _exclusive(incl.movedim(1, -1)).movedim(-1, 1)
+        rt_over, seg_under = _ksegments_offsets(
+            P[:, :, 0], P[:, :, 1:], incl[:, :, 0], incl[:, :, 1:], u, runtime, peaks, error_mode, insample_window
+        )
+        ks_b, ks_v = _predict(P[:, :, 0], rt_over, P[:, :, 1:], seg_under, u, k, k_eff[:, None], interval_s, floor_mib)
+        ks_b = torch.where(has_obs, ks_b, inf_bounds)
+        ks_v = torch.where(has_obs, ks_v, default)
+    per_step = {}
+    if need & {"witt-lr", "witt-lr-max"}:
+        per_step["witt-lr"], per_step["witt-lr-max"] = _witt_prefix_values(u, gpeak, floor_mib)
+    if need & {"ppm", "ppm-improved"}:
+        per_step["ppm"], per_step["ppm-improved"] = _ppm_prefix_values(gpeak, len_nb, cap_mib, floor_mib)
+
+    rows_b, rows_v = [], []
+    for m in methods:
+        if m.startswith("ksegments"):
+            rows_b.append(ks_b)
+            rows_v.append(ks_v)
+        elif m == "default":
+            rows_b.append(inf_bounds)
+            rows_v.append(default)
+        else:
+            rows_b.append(inf_bounds)
+            rows_v.append(torch.where(has_obs, per_step[m][..., None], default).expand(N, B, k))
+    return torch.stack(rows_b, dim=2), torch.stack(rows_v, dim=2)
+
+
+def _replay(y, lengths, series, bounds, values, k_eff, *, methods, interval_s, factor, cap_mib):
+    """Phase (b): replay every (lane, execution, method) row with retries.
+
+    bounds/values (N, B, M, k) -> (waste (N, M, B) f32, retries (N, M, B) i32).
+    Each round scores the rows still active with one wastage launch; a failed
+    row bumps its allocation (selective: the failed segment; partial: it and
+    all later ones; cap jump: the node cap), capped and kept monotone."""
+    N, B, M, k = values.shape
+    dev = values.device
+    R = N * B * M
+    bounds = bounds.reshape(R, k)
+    vals = torch.clamp(values.reshape(R, k), max=cap_mib)
+    row_series = series.reshape(-1).repeat_interleave(M)
+    row_keff = k_eff.repeat_interleave(B * M)
+    selective, cap_jump = retry_flags(methods)
+    row_sel = torch.tensor(selective, device=dev).repeat(N * B)
+    row_cap = torch.tensor(cap_jump, device=dev).repeat(N * B)
+    seg_pos = torch.arange(k, device=dev)
+    waste = torch.zeros(R, dtype=values.dtype, device=dev)
+    retries = torch.zeros(R, dtype=torch.int32, device=dev)
+    # an empty (padding) execution succeeds at once with zero waste
+    active = torch.nonzero(lengths[row_series] > 0).squeeze(1)
+    while active.numel():
+        b = bounds[active]
+        w, fail_idx = ops.attempt_wastage(y, lengths, row_series[active], b, vals[active], interval_s)
+        waste[active] += w
+        failed = fail_idx >= 0
+        active = active[failed]
+        if not active.numel():
+            break
+        b, v = b[failed], vals[active]
+        t_fail = (fail_idx[failed].to(b.dtype) + 0.5) * interval_s
+        seg = torch.minimum((t_fail[:, None] > b).sum(dim=1), row_keff[active] - 1)[:, None]
+        bump_sel = v * torch.where(seg_pos == seg, factor, 1.0)
+        bump_par = torch.where(seg_pos >= seg, v * factor, v)
+        bumped = torch.where(row_cap[active, None], cap_mib, torch.where(row_sel[active, None], bump_sel, bump_par))
+        vals[active] = torch.clamp(torch.cummax(bumped, dim=1).values, max=cap_mib)
+        retries[active] += 1
+        active = active[retries[active] <= MAX_RETRIES]
+    return waste.view(N, B, M).transpose(1, 2), retries.view(N, B, M).transpose(1, 2)
+
+
+def simulate_lanes(u, y, lengths, series, default_mib, k_eff, *, methods, k, interval_s, factor, floor_mib, cap_mib,
+                   error_mode, insample_window):
+    """Both phases over N lanes of B executions that read series of ``y``.
+
+    u (N, B) f32 shifted input sizes, y (S, T) f32 series, lengths (S,) i32,
+    series (N, B) i32 rows of y, default_mib (N,) f32, k_eff (N,) i32, all on
+    one device.  Returns (waste (N, M, B), retries (N, M, B))."""
+    methods = _check_methods(methods)
+    _check_error_mode(error_mode, insample_window)
+    # the two ranges name the phases in a torch.profiler trace
+    with torch.profiler.record_function("torch_sim.predict"):
+        bounds, values = predict_lanes(
+            u, y, lengths, series, default_mib, k_eff, methods=methods, k=k, interval_s=interval_s,
+            floor_mib=floor_mib, cap_mib=cap_mib, error_mode=error_mode, insample_window=insample_window,
+        )
+    with torch.profiler.record_function("torch_sim.replay"):
+        return _replay(y, lengths, series, bounds, values, k_eff, methods=methods, interval_s=interval_s,
+                       factor=factor, cap_mib=cap_mib)
+
+
+def simulate_task_methods(
+    x,
+    y,
+    lengths,
+    default_mib,
+    k_eff=None,
+    *,
+    methods: tuple[str, ...] = ENGINE_METHODS,
+    k: int = 4,
+    interval_s: float = 2.0,
+    factor: float = 2.0,
+    floor_mib: float = 100.0,
+    cap_mib: float = 128 * 1024.0,
+    error_mode: str = "progressive",
+    insample_window: int = 0,
+    device=None,
+):
+    """Score every requested method on one task type's executions.
+
+    Args: x (B,) input sizes, y (B, T) padded MiB series, lengths (B,),
+    default_mib the workflow's static directive, k_eff the live segment
+    count (defaults to k).  Returns (waste, retries): (M, B) tensors on the
+    device.  Execution i is scored against each method's prediction from
+    executions [0, i) (the default allocation at i = 0), so a training
+    fraction is a slice at ``n_train``.
+    """
+    dev = resolve_device(device)
+    x = torch.as_tensor(np.asarray(x), dtype=torch.float32).to(dev)
+    u = (x - x[0])[None]
+    y = torch.as_tensor(np.asarray(y), dtype=torch.float32).to(dev).contiguous()
+    lengths = torch.as_tensor(np.asarray(lengths), dtype=torch.int32).to(dev)
+    B = y.shape[0]
+    waste, retries = simulate_lanes(
+        u,
+        y,
+        lengths,
+        torch.arange(B, dtype=torch.int32, device=dev)[None],
+        torch.tensor([float(default_mib)], dtype=torch.float32, device=dev),
+        torch.tensor([k if k_eff is None else int(k_eff)], dtype=torch.int32, device=dev),
+        methods=methods,
+        k=k,
+        interval_s=interval_s,
+        factor=factor,
+        floor_mib=floor_mib,
+        cap_mib=cap_mib,
+        error_mode=error_mode,
+        insample_window=insample_window,
+    )
+    return waste[0], retries[0]

@@ -1,0 +1,93 @@
+"""The port stands alone: no file of ``src/repro_torch`` (nor ``chip_smoke.py``)
+imports ``jax`` or the reference package, and its entry points run on the
+CUDA card unless the caller asks for the CPU."""
+
+import ast
+import os
+import subprocess
+import sys
+from pathlib import Path
+
+import pytest
+import torch
+
+from repro_torch.device import resolve_device
+from repro_torch.kernels import build, ops
+from repro_torch.sim import traces
+from repro_torch.sim.batch_engine import simulate_grid, simulate_ksweep
+from repro_torch.sim.torch_sim import simulate_task_methods
+
+REPO = Path(__file__).resolve().parent.parent
+PORT_FILES = sorted((REPO / "src" / "repro_torch").rglob("*.py")) + [REPO / "chip_smoke.py"]
+
+
+def _imported_modules(path: Path) -> list[str]:
+    names = []
+    for node in ast.walk(ast.parse(path.read_text(), filename=str(path))):
+        if isinstance(node, ast.Import):
+            names += [a.name for a in node.names]
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            names.append(node.module or "")
+    return names
+
+
+def _forbidden(name: str) -> bool:
+    return any(name == root or name.startswith(root + ".") for root in ("jax", "jaxlib", "repro"))
+
+
+@pytest.mark.parametrize("path", PORT_FILES, ids=lambda p: str(p.relative_to(REPO)))
+def test_port_file_imports_neither_jax_nor_reference(path):
+    bad = [n for n in _imported_modules(path) if _forbidden(n)]
+    assert not bad, f"{path.relative_to(REPO)} imports {bad}"
+
+
+def test_port_imports_with_jax_and_reference_blocked():
+    """Importing every module of the port succeeds when jax and repro cannot be imported."""
+    mods = sorted(
+        ".".join(p.relative_to(REPO / "src").with_suffix("").parts).removesuffix(".__init__")
+        for p in PORT_FILES
+        if p.name != "chip_smoke.py"
+    )
+    code = "import sys\nfor m in ('jax', 'jaxlib', 'repro'): sys.modules[m] = None\n" + "".join(
+        f"import {m}\n" for m in mods
+    )
+    out = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True, cwd=REPO,
+                         env={**os.environ, "PYTHONPATH": str(REPO / "src")}, timeout=120)
+    assert out.returncode == 0, out.stderr
+
+
+def _no_cuda():
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA card is present: the default device is usable")
+
+
+def test_default_device_raises_without_cuda():
+    _no_cuda()
+    wf = traces.generate_eager(seed=5, scale=0.12)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        simulate_grid([wf])
+    trace = max(wf.tasks, key=lambda t: t.n_executions)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        simulate_ksweep(trace, (1, 2))
+    x, y, lengths = trace.padded()
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        simulate_task_methods(x, y, lengths, trace.default_mib)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        resolve_device("cuda")
+    assert resolve_device("cpu") == torch.device("cpu")
+
+
+def test_dispatch_has_no_fallback_for_other_devices():
+    y = torch.zeros((2, 4), device="meta")
+    with pytest.raises(ValueError, match="no kernel or plain version"):
+        ops.segment_peaks(y, torch.ones(2, dtype=torch.int32, device="meta"),
+                          torch.arange(2, dtype=torch.int32, device="meta"),
+                          torch.ones(2, dtype=torch.int32, device="meta"), 2)
+
+
+def test_every_kernel_source_is_built():
+    assert sorted(build.SOURCES) == sorted(p.stem for p in build.CSRC.glob("*.cu"))
+    for name in build.SOURCES:
+        src = (build.CSRC / f"{name}.cu").read_text()
+        assert f'extern "C" int {name}_launch(' in src
+        assert f"repro/kernels/{name}.py" in src  # names the TPU kernel it replaces
