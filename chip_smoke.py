@@ -5,15 +5,26 @@
 
 Phases, each of which fails the run on a wrong result:
 
-1. build the segmax and wastage kernels from ``src/repro_torch/kernels/csrc``;
-2. hold each kernel against its plain PyTorch version on the card, at the
-   shapes of the largest bucket of the main path (peaks and fail indices
-   exact, wastage within rtol 1e-5 / atol 1e-4 GiB*s), and time both;
+1. build the segmax, wastage, rangemax and compaction kernels from
+   ``src/repro_torch/kernels/csrc`` (one ``nvcc`` per source, in parallel);
+2. hold segmax and wastage against their plain PyTorch versions on the
+   card, at the shapes of the largest bucket of the grid (peaks and fail
+   indices exact, float32 wastage within rtol 1e-5 / atol 1e-4 GiB*s, the
+   float64-summed instantiations within rtol 1e-9 / atol 1e-9), and time both;
 3. the paper's Fig. 7 grid at full corpus size on the card (cold and warm),
    with the launch counts of that run, held against the port's own CPU run
    (every Fig. 7a cell within rtol 1e-3);
 4. the Fig. 8 k-sweep (k = 1..15) on a sawtooth and a ramp/staged task, on
-   the card against the CPU.
+   the card against the CPU;
+5. the cluster scheduler (Sec. IV-E) at the standard configuration, uncut:
+   windows, sweep and auto placement, cold then warm, all giving the same
+   (node, start, end) for every attempt, equal to the port's own CPU run,
+   each run launching the kernels of its engine (counted per run: rangemax
+   on windows, compaction on the sweep, segmax and wastage on both); one
+   profiled warm windows run; the ``auto`` router's four constants;
+6. rangemax and compaction against their plain versions on the card
+   (bit-exact), at the shapes of phase 5 and at L = 256, 1024, 8192, in
+   float64 and float32, and timed.
 
 Prints the card's name and power limit, a ``{"kernels": [...]}`` line, and
 as its last line ``{"ok": true, "device": {...}}``.  Exits non-zero without
@@ -23,6 +34,8 @@ a card, or when anything disagrees.
 from __future__ import annotations
 
 import argparse
+import collections
+import contextlib
 import json
 import subprocess
 import sys
@@ -32,8 +45,10 @@ from typing import NoReturn
 
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory
 F32_OPS_PER_S = 67e12  # H100 SXM float32 outside the tensor cores
+F64_OPS_PER_S = 34e12  # H100 SXM float64 outside the tensor cores
 CORPUS_SCALE = 1.0  # the paper's corpus: 33 eligible tasks
 FIG8_KS = tuple(range(1, 16))
+GRID_KERNELS = ("segmax", "wastage")  # the kernels of the grid and k-sweep paths
 
 
 def _fail(msg: str) -> NoReturn:
@@ -66,25 +81,27 @@ def _wall(fn):
 
 def _profile(fn) -> dict:
     """One ``fn()`` under torch.profiler: wall time, device time of the
-    kernels and of the copies, kernel launches, the engine's two phases
-    (host time, and device span of their annotations) and the busiest
-    kernels with their launch counts."""
+    kernels and of the copies, kernel launches, the engines' phases (host
+    time, and device span of their annotations) and the busiest kernels
+    with their launch counts.  Reads the profiler's raw event list: a
+    cluster run has over a million launches, too many for its Python-side
+    event tree."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         _, wall = _wall(fn)
-    cpu, cuda = torch.autograd.DeviceType.CPU, torch.autograd.DeviceType.CUDA
+    cuda = torch.autograd.DeviceType.CUDA
     phases_host: dict[str, float] = {}
     phases_device: dict[str, float] = {}
     device: dict[str, list] = {}
-    for e in prof.events():
-        ms = e.time_range.elapsed_us() / 1e3
-        if e.name.startswith("torch_sim."):
-            into = phases_host if e.device_type == cpu else phases_device
-            into[e.name] = into.get(e.name, 0.0) + ms
-        elif e.device_type == cuda:
-            acc = device.setdefault(e.name, [0.0, 0])
+    for e in prof.profiler.kineto_results.events():
+        name, ms = e.name(), e.duration_ns() / 1e6
+        if name.startswith(("torch_sim.", "cluster.")):
+            into = phases_device if e.device_type() == cuda else phases_host
+            into[name] = into.get(name, 0.0) + ms
+        elif e.device_type() == cuda:
+            acc = device.setdefault(name, [0.0, 0])
             acc[0] += ms
             acc[1] += 1
     copies = {n: v for n, v in device.items() if n.startswith(("Memcpy", "Memset"))}
@@ -100,8 +117,8 @@ def _profile(fn) -> dict:
     )
 
 
-def _bound(nbytes: float, nops: float) -> tuple[float, str]:
-    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S * 1e3, nops / F32_OPS_PER_S * 1e3
+def _bound(nbytes: float, nops: float, ops_per_s: float = F32_OPS_PER_S) -> tuple[float, str]:
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S * 1e3, nops / ops_per_s * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
@@ -180,6 +197,22 @@ def kernels_phase(batch, cfg, dev) -> dict[str, dict]:
     bound_ms, bound_by = _bound(nbytes, nops)
     out["wastage"] = dict(max_abs_err=(w_k - w_p).abs().max().item(), ms=ms, plain_ms=plain_ms,
                           bound_ms=bound_ms, bound_by=bound_by)
+    # the cluster ladders' instantiations: float32 decisions with float64
+    # sums, and float64 throughout (the x64 ladders)
+    for vdt, acc in ((torch.float32, torch.float64), (torch.float64, torch.float64)):
+        bb, vv = b.to(vdt), v.to(vdt)
+        w_k, f_k = wastage.wastage_cuda(y, lengths, rs, bb, vv, interval, acc)
+        w_p, f_p = attempt_outcomes_batch(y[rs], lengths[rs], interval, bb, vv, acc)
+        torch.cuda.synchronize()
+        name = f"wastage {str(vdt)[6:]}/{str(acc)[6:]}"
+        if not torch.equal(f_k, f_p):
+            _fail(f"{name}: {(f_k != f_p).sum().item()} fail indices differ from the plain version")
+        if not torch.allclose(w_k, w_p, rtol=1e-9, atol=1e-9):
+            _fail(f"{name}: max abs difference {(w_k - w_p).abs().max().item()} GiB*s beyond rtol 1e-9 / atol 1e-9")
+        ms = _cuda_ms(lambda: wastage.wastage_cuda(y, lengths, rs, bb, vv, interval, acc), 50)
+        plain_ms = _cuda_ms(lambda: attempt_outcomes_batch(y[rs], lengths[rs], interval, bb, vv, acc), 5)
+        print(f"  {name} rows={R}: fail indices exact, max |dw| {(w_k - w_p).abs().max().item():.3e} GiB*s; "
+              f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms")
     return out
 
 
@@ -198,7 +231,7 @@ def grid_phase(wfs, cfg):
     res, cold = _wall(lambda: simulate_grid(wfs, cfg=cfg))
     counts = ops.launch_counts()
     print(f"grid phase: cuda cold {cold:.3f} s; launches {counts}")
-    if min(counts.values()) < 1:
+    if min(counts[k] for k in GRID_KERNELS) < 1:
         _fail(f"a kernel was not launched on the grid path: {counts}")
     _, warm = _wall(lambda: simulate_grid(wfs, cfg=cfg))
     prof = _profile(lambda: simulate_grid(wfs, cfg=cfg))
@@ -260,8 +293,262 @@ def sweep_phase(wfs, cfg):
             _fail(f"k-sweep of {trace.name} disagrees with the cpu run (rtol 1e-3) or is not finite")
     counts = ops.launch_counts()
     print(f"  sweep launches {counts}")
-    if min(counts.values()) < 1:
+    if min(counts[k] for k in GRID_KERNELS) < 1:
         _fail(f"a kernel was not launched on the sweep path: {counts}")
+
+
+# The cluster's standard configuration: benchmarks/run.py:bench_cluster's
+# "standard" variant at the paper's full corpus, uncut.
+CLUSTER_POLICIES = ("default", "witt-lr", "ppm-improved", "ksegments-selective")
+CLUSTER_KW = dict(n_nodes=16, node_mib=128 * 1024.0, train_frac=0.5, max_tasks_per_type=120, min_executions=10,
+                  max_attempts=32, placement_window=128)
+
+
+def _same_placements(a: dict, b: dict) -> bool:
+    return all(
+        a[p].retries == b[p].retries and a[p].makespan_s == b[p].makespan_s
+        and len(a[p].records) == len(b[p].records)
+        and all(x.placements == y.placements for x, y in zip(a[p].records, b[p].records))
+        for p in a
+    )
+
+
+@contextlib.contextmanager
+def _patched(obj, name: str, make):
+    """Replace ``obj.name`` by ``make(original)`` inside the block."""
+    orig = getattr(obj, name)
+    setattr(obj, name, make(orig))
+    try:
+        yield
+    finally:
+        setattr(obj, name, orig)
+
+
+def _shape_counter(shapes: collections.Counter):
+    """A wrapper maker that counts the input shapes a kernel's wrapper sees
+    (the wrapper still launches and counts as before)."""
+
+    def make(orig):
+        def wrapped(x, *args, **kw):
+            shapes[tuple(x.shape)] += 1
+            return orig(x, *args, **kw)
+
+        return wrapped
+
+    return make
+
+
+def cluster_phase(wfs) -> dict:
+    """The cluster scheduler at the standard configuration on the card."""
+    from repro_torch.kernels import compaction, rangemax
+    from repro_torch.sim import cluster
+
+    ladder_s: list[float] = []
+
+    def timed(compute):  # the ladder share of each run's wall
+        def timed_ladders(*a, **kw):
+            t0 = time.perf_counter()
+            out = compute(*a, **kw)
+            ladder_s.append(time.perf_counter() - t0)
+            return out
+
+        return timed_ladders
+
+    shapes = {"rangemax": collections.Counter(), "compaction": collections.Counter()}
+    with _patched(cluster, "compute_cluster_ladders", timed), \
+            _patched(rangemax, "rangemax_cuda", _shape_counter(shapes["rangemax"])), \
+            _patched(compaction, "compaction_cuda", _shape_counter(shapes["compaction"])):
+        return _cluster_runs(wfs, ladder_s, shapes)
+
+
+def _cluster_runs(wfs, ladder_s: list, shapes: dict) -> dict:
+    import numpy as np
+
+    from repro_torch.kernels import ops
+    from repro_torch.sim import cluster, device_timeline
+
+    def run(placement, **kw):
+        """One cluster run, with the launch counts of that run alone."""
+        st: dict = {}
+        ops.reset_launch_counts()
+        res, wall = _wall(lambda: cluster.run_cluster_batched(wfs, CLUSTER_POLICIES, placement=placement,
+                                                              placement_stats=st, **{**CLUSTER_KW, **kw}))
+        return res, wall, ladder_s[-1], st, ops.launch_counts()
+
+    # the placement kernel each engine must launch (auto launches its route's)
+    engine_kernels = {"windows": ("rangemax",), "sweep": ("compaction",), "auto": ()}
+    print(f"cluster phase: {len(CLUSTER_POLICIES)} policies, {CLUSTER_KW}")
+    runs = {}
+    for placement in ("windows", "sweep", "auto"):
+        for temp in ("cold", "warm"):
+            res, wall, lad, st, counts = run(placement)
+            runs[(placement, temp)] = (res, wall, lad, st)
+            print(f"  {placement:7s} {temp}: wall {wall:.3f} s (ladders {lad:.3f} s, placement calls "
+                  f"{st['program_wall_s']:.3f} s); program_calls {st['program_calls']}, waits_program "
+                  f"{st['waits_program']}, waits_host {st['waits_host']}, rows {st['rows']}"
+                  + (f", carried_hw {st['carried_hw']}, timeline_axis {st['timeline_axis']}" if "carried_hw" in st else ""))
+            print(f"    launches of this run {counts}")
+            need = GRID_KERNELS + engine_kernels[placement]
+            if min(counts[k] for k in need) < 1 or max(counts["rangemax"], counts["compaction"]) < 1:
+                _fail(f"cluster {placement} {temp}: a kernel of its path was not launched: {counts}")
+            if temp == "warm" and placement != "auto":
+                runs[(placement, "counts")] = counts
+    counts = {"rangemax": runs.pop(("windows", "counts"))["rangemax"],
+              "compaction": runs.pop(("sweep", "counts"))["compaction"]}
+    print(f"  placement kernel launches: rangemax {counts['rangemax']} (warm windows run), compaction "
+          f"{counts['compaction']} (warm sweep run); kernel input shapes over the runs "
+          f"{json.dumps({k: {str(s): n for s, n in v.items()} for k, v in shapes.items()})}")
+    ref = runs[("windows", "warm")][0]
+    for key, (res, _, _, st) in runs.items():
+        if st["waits_host"] != 0:
+            _fail(f"cluster {key}: {st['waits_host']} waits resolved on the host")
+        if not _same_placements(res, ref):
+            _fail(f"cluster {key}: placements differ from the warm windows run")
+        for p, r in res.items():
+            if r.tasks_run != len(r.records) or not np.isfinite(r.wastage_gib_s) or not np.isfinite(r.makespan_s):
+                _fail(f"cluster {key} {p}: malformed result")
+    print("  windows, sweep and auto give identical (node, start, end) for every attempt of every policy")
+    for p, r in ref.items():
+        print(f"    {p:20s} makespan {r.makespan_s:.1f} s, wastage {r.wastage_gib_s:.2f} GiB*s, retries {r.retries}, "
+              f"tasks {r.tasks_run}")
+    # the port's own CPU run: counts, placements and makespans exact
+    t0 = time.perf_counter()
+    cpu = cluster.run_cluster_batched(wfs, CLUSTER_POLICIES, placement="windows", device="cpu", **CLUSTER_KW)
+    cpu_s = time.perf_counter() - t0
+    worst = max(abs(ref[p].wastage_gib_s - cpu[p].wastage_gib_s) / abs(cpu[p].wastage_gib_s) for p in cpu)
+    print(f"  cpu windows run {cpu_s:.3f} s; wastage max rel diff card vs cpu {worst:.3e} (limit 1e-6)")
+    if not _same_placements(ref, cpu):
+        _fail("cluster placements on the card differ from the port's CPU run")
+    if worst > 1e-6:
+        _fail(f"cluster wastage on the card off by {worst:.3e} (rtol 1e-6) from the CPU run")
+    # one profiled warm windows run: device busy share, the busiest kernels
+    prof = _profile(lambda: cluster.run_cluster_batched(wfs, CLUSTER_POLICIES, placement="windows", **CLUSTER_KW))
+    busy = prof["kernel_ms"] / 1e3 / prof["wall_s"]
+    print(f"  profiled warm windows run: wall {prof['wall_s']:.3f} s; kernels {prof['kernel_ms']:.2f} ms on the "
+          f"device ({100 * busy:.2f}% busy, {prof['launches']} launches); copies {prof['copy_ms']:.2f} ms")
+    print(f"  phases, host ms {json.dumps({k: round(v, 2) for k, v in prof['phases_host_ms'].items()})}; "
+          f"device span ms {json.dumps({k: round(v, 2) for k, v in prof['phases_device_ms'].items()})}")
+    for name, (ms, n) in prof["top"]:
+        print(f"    {ms:8.3f} ms {n:6d} x  {name[:100]}")
+    # the auto router's constants.  Windows: one warm run, each program call
+    # timed from its start to the next call's start (the call and the host
+    # loop's bookkeeping after it), fitted as a + b * rows offered.
+    calls: list[tuple[int, float]] = []
+
+    def timing(program):
+        def timed_call(now, bnd, *a, **kw):
+            calls.append((len(bnd), time.perf_counter()))
+            return program(now, bnd, *a, **kw)
+
+        return timed_call
+
+    with _patched(cluster, "first_fit_window", timing), _patched(cluster, "schedule_epoch", timing):
+        w_res, w_wall, w_lad, _, _ = run("windows")
+    t_end = calls[0][1] + (w_wall - w_lad)  # the placement ends with the run, less its ladders
+    starts = [t for _, t in calls] + [t_end]
+    n_rows = np.asarray([n for n, _ in calls], dtype=float)
+    dur = np.diff(np.asarray(starts))
+    win_row, win_dispatch = np.polyfit(n_rows, dur, 1)
+    resid = dur - (win_dispatch + win_row * n_rows)
+    print(f"  windows calls: {len(calls)}, {int(n_rows.sum())} rows offered, {dur.sum():.3f} s; fit a + b*rows: "
+          f"a {win_dispatch * 1e3:.4f} ms, b {win_row * 1e3:.4f} ms, residual rms {resid.std() * 1e3:.4f} ms")
+    if not _same_placements(w_res, ref):
+        _fail("cluster placements changed between warm windows runs")
+    # Sweep: two warm runs that differ only in the timeline axis
+    sw = runs[("sweep", "warm")]
+    L1 = sw[3]["timeline_axis"]
+    S, N = len(CLUSTER_POLICIES), CLUSTER_KW["n_nodes"]
+    rmax = max(sum(x.attempts for x in r.records) for r in ref.values())  # the deepest lane's rows
+    key = (S, device_timeline._row_bucket(rmax), cluster.KSegmentsConfig().k, N)  # the sweep's hint key
+    device_timeline._hint_put(key, 4 * L1)
+    sw4 = run("sweep")
+    device_timeline._hint_put(key, L1)
+    L2 = sw4[3]["timeline_axis"]
+    tau1, tau2 = (sw[1] - sw[2]) / (rmax * S), (sw4[1] - sw4[2]) / (rmax * S)
+    sweep_cell = (tau2 - tau1) / (N * (L2 - L1))
+    sweep_step = tau1 - sweep_cell * N * L1
+    print(f"  auto constants on this card: _WIN_DISPATCH_S {win_dispatch:.3e}, _WIN_ROW_S {win_row:.3e}; "
+          f"_SWEEP_STEP_S {sweep_step:.3e}, _SWEEP_CELL_S {sweep_cell:.3e} (sweep: L={L1} "
+          f"{tau1 * 1e3:.4f} ms/row-step/lane, L={L2} {tau2 * 1e3:.4f}; rmax {rmax}, {S} lanes, {N} nodes)")
+    if not _same_placements(sw4[0], ref):
+        _fail("cluster placements changed with the timeline axis")
+    return {"counts": counts, "shapes": shapes, "sweep_axis": L1}
+
+
+def _demand_rows(B: int, L: int, dtype, seed: int, dev):
+    """Running-demand-like rows, -inf at masked positions."""
+    import numpy as np
+    import torch
+
+    rng = np.random.default_rng(seed)
+    x = np.round(rng.standard_normal((B, L)) * 3e4, 1)
+    x[rng.random((B, L)) < 0.3] = -np.inf
+    return torch.from_numpy(x).to(dev, dtype)
+
+
+def _event_rows(B: int, L: int, dtype, seed: int, mode: str, dev):
+    """Sorted (time, delta) rows, +inf / 0 tails, and a keep mask."""
+    import numpy as np
+    import torch
+
+    rng = np.random.default_rng(seed)
+    fin = np.arange(L)[None, :] < rng.integers(L // 2, L + 1, size=B)[:, None]
+    t = np.where(fin, np.sort(rng.random((B, L)) * 1e4, axis=1), np.inf)
+    d = np.where(fin, np.round(rng.standard_normal((B, L)) * 512.0, 2), 0.0)
+    keep = {"none": fin, "all": np.zeros_like(fin), "half": fin & (rng.random((B, L)) < 0.5)}[mode]
+    return torch.from_numpy(t).to(dev, dtype), torch.from_numpy(d).to(dev, dtype), torch.from_numpy(keep).to(dev)
+
+
+def sched_kernels_phase(cluster_info: dict, dev) -> dict[str, dict]:
+    """rangemax and compaction against their plain versions, bit-exact, at
+    the shapes the cluster path gave them and at L = 256, 1024, 8192."""
+    import torch
+
+    from repro_torch.kernels import compaction, rangemax
+
+    def check_rangemax(x):
+        got, want = rangemax.rangemax_cuda(x), rangemax.table_levels(x)
+        torch.cuda.synchronize()
+        if torch.isnan(got).any() or not torch.equal(got, want):
+            _fail(f"rangemax {x.dtype} {tuple(x.shape)}: differs from the plain version")
+        ms = _cuda_ms(lambda: rangemax.rangemax_cuda(x), 100)
+        plain_ms = _cuda_ms(lambda: rangemax.table_levels(x), 10)
+        B, L = x.shape
+        P = rangemax.num_levels(L)
+        bound_ms, bound_by = _bound(x.element_size() * B * L * (1 + P), B * L * (P - 1), F64_OPS_PER_S)
+        return dict(max_abs_err=0.0, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by)
+
+    def check_compaction(t, d, keep):
+        got, want = compaction.compaction_cuda(t, d, keep), compaction.compact_events_plain(t, d, keep)
+        torch.cuda.synchronize()
+        if any(torch.isnan(g).any() or not torch.equal(g, w) for g, w in zip(got, want)):
+            _fail(f"compaction {t.dtype} {tuple(t.shape)}: differs from the plain version")
+        ms = _cuda_ms(lambda: compaction.compaction_cuda(t, d, keep), 100)
+        plain_ms = _cuda_ms(lambda: compaction.compact_events_plain(t, d, keep), 10)
+        B, L = t.shape
+        bound_ms, bound_by = _bound(B * L * (4 * t.element_size() + 1), B * L * 4, F64_OPS_PER_S)
+        return dict(max_abs_err=0.0, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by)
+
+    print("sched kernels phase: rangemax (16, L), compaction (64, L); bit-exact against the plain versions")
+    for dtype in (torch.float64, torch.float32):
+        for L in (256, 1024, 8192):
+            r = check_rangemax(_demand_rows(16, L, dtype, L, dev))
+            print(f"  rangemax {str(dtype)[6:]} L={L}: exact; kernel {r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms, "
+                  f"bound {r['bound_ms']:.5f} ms")
+            for mode in ("none", "all", "half"):
+                c = check_compaction(*_event_rows(64, L, dtype, L + 1, mode, dev))
+                if mode == "half":
+                    print(f"  compaction {str(dtype)[6:]} L={L} (keep none/all/half exact): kernel {c['ms']:.4f} ms, "
+                          f"plain {c['plain_ms']:.4f} ms, bound {c['bound_ms']:.5f} ms")
+    # the main path's shapes: the most frequent of the cluster runs
+    (B, L), _ = cluster_info["shapes"]["rangemax"].most_common(1)[0]
+    out = {"rangemax": check_rangemax(_demand_rows(B, L, torch.float64, 7, dev))}
+    print(f"  rangemax at the cluster path's shape (16 nodes, L={L}) f64: kernel {out['rangemax']['ms']:.4f} ms")
+    (B, L), _ = cluster_info["shapes"]["compaction"].most_common(1)[0]
+    out["compaction"] = check_compaction(*_event_rows(B, L, torch.float64, 8, "half", dev))
+    print(f"  compaction at the cluster path's shape ({B} lanes x nodes, L={L}) f64: "
+          f"kernel {out['compaction']['ms']:.4f} ms")
+    return out
 
 
 def main() -> int:
@@ -309,10 +596,15 @@ def main() -> int:
     per_kernel = kernels_phase(max(batches, key=lambda b: b.y.nbytes), cfg, dev)
     counts, _, _ = grid_phase(wfs, cfg)
     sweep_phase(wfs, cfg)
+    cluster_info = cluster_phase(wfs)
+    per_kernel.update(sched_kernels_phase(cluster_info, dev))
+    counts.update({k: cluster_info["counts"][k] for k in ("rangemax", "compaction")})
 
     sources = {
         "segmax": ("src/repro_torch/kernels/csrc/segmax.cu", "src/repro/kernels/segmax.py:55"),
         "wastage": ("src/repro_torch/kernels/csrc/wastage.cu", "src/repro/kernels/wastage.py:77"),
+        "rangemax": ("src/repro_torch/kernels/csrc/rangemax.cu", "src/repro/kernels/rangemax.py:85"),
+        "compaction": ("src/repro_torch/kernels/csrc/compaction.cu", "src/repro/kernels/compaction.py:92"),
     }
     line = {"kernels": [
         {"name": name, "route": "cuda", "source": src, "replaces": rep, "launches": counts[name],

@@ -1,4 +1,8 @@
-"""Scoring an allocation attempt against a measured series (Sec. IV-D).
+"""Step allocations and scoring an attempt against a measured series (Sec. IV-D).
+
+``StepAllocation`` (the paper's Eq. 1 schedule) and ``AttemptLadder`` (one
+execution's recorded retry ladder) are the numpy host types the cluster
+scheduler consumes (ports of ``repro.core.allocation``).
 
 ``attempt_outcomes_batch`` is the plain PyTorch version of the wastage
 kernel (``repro_torch/kernels/csrc/wastage.cu``); ``kernels.ops`` reaches it
@@ -11,15 +15,68 @@ for CPU tensors.  Its semantics are the reference engine's ``_attempt``
 * the attempt fails at the first valid sample with ``y > a``;
 * a success wastes ``sum(a - y)`` over its valid samples, a failure its
   whole allocation up to and including the kill sample;
-* sums accumulate in the series' dtype (float32 on the main path) and are
-  scaled by ``interval / 1024`` to GiB*s.
+* decisions (the step function and ``y > a``) run in the schedule's dtype;
+  sums accumulate in ``acc_dtype`` (the schedule's dtype unless asked: the
+  cluster ladders sum float32 attempts in float64, as the reference does
+  under its x64 context) and are scaled by ``interval / 1024`` to GiB*s.
 """
 
 from __future__ import annotations
 
+import dataclasses
+
+import numpy as np
 import torch
 
 MIB_PER_GIB = 1024.0
+
+
+@dataclasses.dataclass
+class StepAllocation:
+    """A k-step allocation schedule: right-open ``boundaries`` (k,) seconds,
+    non-decreasing ``values`` (k,) MiB; holds ``values[-1]`` past the end."""
+
+    boundaries: np.ndarray
+    values: np.ndarray
+
+    @property
+    def k(self) -> int:
+        return len(self.values)
+
+    def at(self, t: np.ndarray) -> np.ndarray:
+        """Allocation at time(s) ``t`` (vectorized)."""
+        idx = np.minimum(np.searchsorted(self.boundaries, np.asarray(t), side="left"), self.k - 1)
+        return self.values[idx]
+
+    def segment_of(self, t: float) -> int:
+        return int(min(np.searchsorted(self.boundaries, t, side="left"), self.k - 1))
+
+
+@dataclasses.dataclass
+class AttemptLadder:
+    """The recorded retry ladder of one execution under one method: attempt
+    ``a`` holds ``values[a]`` on the shared ``boundaries``;
+    ``failure_index[a]`` is its OOM-kill sample (-1 on the final, successful
+    attempt) and ``wastage_gib_s[a]`` its wastage."""
+
+    boundaries: np.ndarray  # (k,) seconds
+    values: np.ndarray  # (A, k) MiB, one row per attempt
+    failure_index: np.ndarray  # (A,) int, -1 = success
+    wastage_gib_s: np.ndarray  # (A,)
+    n_attempts: int  # recorded attempts (retries + 1)
+
+    def alloc(self, attempt: int) -> StepAllocation:
+        return StepAllocation(self.boundaries, self.values[attempt])
+
+    def run_time_s(self, attempt: int, duration_s: float, interval_s: float) -> float:
+        """Node occupancy of one attempt: the full duration on success, up to
+        and including the kill sample on failure."""
+        fi = int(self.failure_index[attempt])
+        return duration_s if fi < 0 else (fi + 1) * interval_s
+
+    @property
+    def total_wastage_gib_s(self) -> float:
+        return float(self.wastage_gib_s[: self.n_attempts].sum())
 
 
 def step_allocation(t: torch.Tensor, boundaries: torch.Tensor, values: torch.Tensor) -> torch.Tensor:
@@ -37,11 +94,14 @@ def attempt_outcomes_batch(
     interval_s: float,
     boundaries: torch.Tensor,
     values: torch.Tensor,
+    acc_dtype: torch.dtype | None = None,
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """Score B attempts: y (B, T), lengths (B,), boundaries/values (B, k).
 
-    Returns (wastage GiB*s (B,), failure index (B,) int32, -1 on success).
+    Returns (wastage GiB*s (B,) in ``acc_dtype``, failure index (B,) int32,
+    -1 on success).
     """
+    y = y.to(values.dtype)
     B, T = y.shape
     dev = y.device
     pos = torch.arange(T, device=dev)
@@ -51,7 +111,9 @@ def attempt_outcomes_batch(
     over = (y > a) & valid
     failed = over.any(dim=1)
     fail_idx = torch.where(failed, torch.argmax(over.to(torch.int32), dim=1), -1)
-    zero = torch.zeros((), dtype=y.dtype, device=dev)
+    acc = acc_dtype or y.dtype
+    a, y = a.to(acc), y.to(acc)
+    zero = torch.zeros((), dtype=acc, device=dev)
     succ_w = torch.where(valid, a - y, zero).sum(dim=1)
     fail_w = torch.where((pos[None, :] <= fail_idx[:, None]) & valid, a, zero).sum(dim=1)
     waste = torch.where(failed, fail_w, succ_w) * interval_s / MIB_PER_GIB

@@ -22,7 +22,7 @@ import torch
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent / "_build"
-SOURCES = ("segmax", "wastage")
+SOURCES = ("segmax", "wastage", "rangemax", "compaction")
 # sm_90a is Hopper's full instruction set.  -fmad=false keeps every f32
 # multiply and add rounded on its own, as PyTorch's elementwise ops round
 # them, so a kernel and its plain version agree bit for bit where their

@@ -1,7 +1,9 @@
 """Dispatch of the kernels by the tensors' device.
 
 A CUDA tensor goes to the hand-written kernel (or the call raises); a CPU
-tensor goes to the plain PyTorch version.  Rows index series: row r reads
+tensor goes to the plain PyTorch version.  segmax and wastage serve the
+evaluation engine, rangemax and compaction the cluster's placement
+programs.  Rows of segmax and wastage index series: row r reads
 ``y[series[r]]``, so rows that share a series (the methods of one
 execution, the k values of a sweep) never copy it on the card.
 """
@@ -12,7 +14,7 @@ import torch
 
 from repro_torch.core.allocation import attempt_outcomes_batch
 from repro_torch.core.segmentation import segment_peaks_dynamic
-from repro_torch.kernels import segmax, wastage
+from repro_torch.kernels import compaction, rangemax, segmax, wastage
 
 
 def _route(y: torch.Tensor) -> bool:
@@ -40,18 +42,39 @@ def attempt_wastage(
     bounds: torch.Tensor,
     values: torch.Tensor,
     interval_s: float,
+    acc_dtype: torch.dtype | None = None,
 ) -> tuple[torch.Tensor, torch.Tensor]:
-    """Score attempt rows on ``y[series]`` -> (waste GiB*s (R,), fail index (R,), -1 on success)."""
+    """Score attempt rows on ``y[series]`` -> (waste GiB*s (R,) summed in
+    ``acc_dtype``, fail index (R,), -1 on success)."""
     if _route(y):
-        return wastage.wastage_cuda(y, lengths, series, bounds, values, interval_s)
-    return attempt_outcomes_batch(y[series], lengths[series], interval_s, bounds, values)
+        return wastage.wastage_cuda(y, lengths, series, bounds, values, interval_s, acc_dtype)
+    return attempt_outcomes_batch(y[series], lengths[series], interval_s, bounds, values, acc_dtype)
+
+
+def range_max_table(x: torch.Tensor) -> torch.Tensor:
+    """(B, L) rows -> (B, P, L) doubling range-max levels,
+    ``out[:, p, i] = max(x[:, i : i + 2**p])`` (-inf past the row end)."""
+    if _route(x):
+        return rangemax.rangemax_cuda(x)
+    return rangemax.table_levels(x)
+
+
+def compact_events(t: torch.Tensor, d: torch.Tensor, keep: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """(B, L) sorted event rows and a bool keep mask -> the kept entries
+    moved to the front in order, ``(+inf, 0)`` behind."""
+    if _route(t):
+        return compaction.compaction_cuda(t, d, keep)
+    return compaction.compact_events_plain(t, d, keep)
+
+
+_KERNELS = {"segmax": segmax, "wastage": wastage, "rangemax": rangemax, "compaction": compaction}
 
 
 def launch_counts() -> dict[str, int]:
     """Kernel launches since the last reset, by kernel."""
-    return {"segmax": segmax.launches, "wastage": wastage.launches}
+    return {name: mod.launches for name, mod in _KERNELS.items()}
 
 
 def reset_launch_counts() -> None:
-    segmax.launches = 0
-    wastage.launches = 0
+    for mod in _KERNELS.values():
+        mod.launches = 0

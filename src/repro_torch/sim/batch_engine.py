@@ -1,23 +1,30 @@
-"""The paper's Fig. 7 grid and Fig. 8 k-sweep on the two-phase engine.
+"""The paper's Fig. 7 grid, Fig. 8 k-sweep and the cluster's retry ladders
+on the two-phase engine.
 
-Port of ``repro.sim.batch_engine`` (``simulate_grid``, ``simulate_ksweep``).
+Port of ``repro.sim.batch_engine`` (``simulate_grid``, ``simulate_ksweep``,
+``TaskLadders``, ``compute_cluster_ladders``).
 The corpus packs into bucket-padded ``(L, B, T)`` batches
 (``traces.pack_traces``); each bucket's L task types run as the lanes of one
 ``torch_sim.simulate_lanes`` call, one bucket after another on one stream.
 A training fraction is a slice of the same per-execution outcomes, so the
 fraction axis costs nothing.  The k-sweep runs its segment counts as the
-lanes of one call over one series.
+lanes of one call over one series.  ``compute_cluster_ladders`` records
+every queued execution's full retry ladder for the cluster scheduler
+(``repro_torch.sim.cluster``) over the same packing.
 """
 
 from __future__ import annotations
 
+import dataclasses
+
 import numpy as np
 import torch
 
+from repro_torch.core.allocation import AttemptLadder
 from repro_torch.core.ksegments import KSegmentsConfig
 from repro_torch.device import resolve_device
 from repro_torch.sim.simulator import SimConfig, TaskResult
-from repro_torch.sim.torch_sim import _check_methods, simulate_lanes
+from repro_torch.sim.torch_sim import MAX_RETRIES, _check_methods, ladder_lanes, simulate_lanes
 from repro_torch.sim.traces import TaskTrace, WorkflowTrace, pack_traces
 
 # The reference's grid methods less those not ported yet (sizey, ksplus).
@@ -154,3 +161,103 @@ def simulate_ksweep(
         )
         for ki, kv in enumerate(ks)
     }
+
+
+@dataclasses.dataclass
+class TaskLadders:
+    """All methods' retry ladders for one task type, host-side (float64).
+
+    Arrays are indexed [method, execution, attempt(, segment)] (see
+    ``torch_sim.ladder_lanes``); ``row`` materializes one (method,
+    execution) cell as the ``AttemptLadder`` the cluster scheduler consumes.
+    """
+
+    methods: tuple[str, ...]
+    boundaries: np.ndarray  # (M, B, k)
+    values: np.ndarray  # (M, B, A, k)
+    failure_index: np.ndarray  # (M, B, A)
+    wastage_gib_s: np.ndarray  # (M, B, A)
+    n_attempts: np.ndarray  # (M, B)
+
+    def row(self, method: str, execution: int) -> AttemptLadder:
+        mi = self.methods.index(method)
+        n = int(self.n_attempts[mi, execution])
+        if int(self.failure_index[mi, execution, n - 1]) >= 0:
+            hint = (
+                "raise max_attempts"
+                if self.values.shape[2] <= MAX_RETRIES
+                else f"the engine caps retries at {MAX_RETRIES}; the task cannot be scheduled"
+            )
+            raise RuntimeError(
+                f"retry ladder of execution {execution} under {method!r} did not "
+                f"converge within the recorded {self.values.shape[2]} attempts; {hint}"
+            )
+        return AttemptLadder(
+            boundaries=self.boundaries[mi, execution],
+            values=self.values[mi, execution],
+            failure_index=self.failure_index[mi, execution],
+            wastage_gib_s=self.wastage_gib_s[mi, execution],
+            n_attempts=n,
+        )
+
+
+def compute_cluster_ladders(
+    tasks: list[TaskTrace],
+    methods: tuple[str, ...],
+    node_cap_mib: float,
+    kcfg: KSegmentsConfig | None = None,
+    max_attempts: int = 32,
+    x64: bool = False,
+    device=None,
+) -> dict[tuple[str, str], TaskLadders]:
+    """Every execution's retry ladder for every method, one engine pass per
+    padded bucket.  Returns ``{(workflow, task name): TaskLadders}``.
+
+    ``x64=False`` predicts and decides in float32, as the reference's
+    default; ``x64=True`` in float64 (the reference's fix for the rare
+    seed where a float32 prediction sits on a capacity ulp).  Attempt
+    wastage is summed in float64 either way."""
+    dev = resolve_device(device)
+    kcfg = kcfg or KSegmentsConfig()
+    methods = _check_methods(methods)
+    for t in tasks:
+        if t.interval_s != kcfg.interval_s:
+            raise ValueError(
+                f"trace {t.name!r} interval {t.interval_s} != config interval {kcfg.interval_s}; "
+                "the ladder engine takes one monitoring interval"
+            )
+    emode, ewin = _engine_error_mode(kcfg)
+    dt = torch.float64 if x64 else torch.float32
+    out: dict[tuple[str, str], TaskLadders] = {}
+    for batch in pack_traces(tasks):
+        L, B, T = batch.shape
+        x = _to_device(batch.x, dt, dev)
+        tbl = ladder_lanes(
+            x - x[:, :1],
+            _to_device(batch.y.reshape(L * B, T), torch.float32, dev),
+            _to_device(batch.lengths.reshape(L * B), torch.int32, dev),
+            torch.arange(L * B, dtype=torch.int32, device=dev).view(L, B),
+            _to_device(batch.default_mib, dt, dev),
+            torch.full((L,), kcfg.k, dtype=torch.int32, device=dev),
+            methods=methods,
+            k=kcfg.k,
+            interval_s=kcfg.interval_s,
+            factor=kcfg.retry_factor,
+            floor_mib=kcfg.floor_mib,
+            cap_mib=node_cap_mib,
+            error_mode=emode,
+            insample_window=ewin,
+            max_attempts=max_attempts,
+        )
+        tbl = {name: v.cpu().numpy() for name, v in tbl.items()}
+        for li, trace in enumerate(batch.tasks):
+            n = int(batch.n_execs[li])
+            out[(trace.workflow, trace.name)] = TaskLadders(
+                methods=methods,
+                boundaries=tbl["boundaries"][li, :, :n].astype(np.float64),
+                values=tbl["values"][li, :, :n].astype(np.float64),
+                failure_index=tbl["failure_index"][li, :, :n],
+                wastage_gib_s=tbl["wastage_gib_s"][li, :, :n].astype(np.float64),
+                n_attempts=tbl["n_attempts"][li, :, :n],
+            )
+    return out

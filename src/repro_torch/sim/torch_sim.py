@@ -23,7 +23,9 @@ wastage kernels (``repro_torch.kernels.ops``) carry the two data-parallel
 loops: segment peaks at the start of (a), attempt scoring in each round of
 (b).
 
-Everything runs in float32, as the reference with x64 off.  Where the
+The grid runs in float32, as the reference with x64 off; the cluster's
+retry ladders (``ladder_lanes``) also run in float64 on request, and sum
+their attempt wastage in float64 either way.  Where the
 reference uses ``jnp.cumsum``, ``_cumsum`` adds in the order XLA's CPU
 lowering of it does (sequential within 16-wide blocks, the block totals
 scanned the same way, recursively), so those prefix sums equal the
@@ -287,9 +289,10 @@ def predict_lanes(u, y, lengths, series, default_mib, k_eff, *, methods, k, inte
     dt, dev = u.dtype, u.device
     T = y.shape[1]
     need = set(methods)
-    peaks = ops.segment_peaks(y, lengths, series.reshape(-1), k_eff.repeat_interleave(B), k).view(N, B, k)
+    # peaks of the float32 series are exact in float64 (the x64 ladders)
+    peaks = ops.segment_peaks(y, lengths, series.reshape(-1), k_eff.repeat_interleave(B), k).view(N, B, k).to(dt)
     zero = torch.zeros((), dtype=dt, device=dev)
-    gpeak = torch.where(torch.arange(T, device=dev) < lengths[:, None], y, zero).amax(dim=1)[series]
+    gpeak = torch.where(torch.arange(T, device=dev) < lengths[:, None], y.to(dt), zero).amax(dim=1)[series]
     len_nb = lengths[series].to(dt)
     has_obs = (torch.arange(B, device=dev) >= 1)[None, :, None]  # step 0 has no history
     inf_bounds = torch.full((N, B, k), torch.inf, dtype=dt, device=dev)
@@ -328,16 +331,25 @@ def predict_lanes(u, y, lengths, series, default_mib, k_eff, *, methods, k, inte
     return torch.stack(rows_b, dim=2), torch.stack(rows_v, dim=2)
 
 
-def _replay(y, lengths, series, bounds, values, k_eff, *, methods, interval_s, factor, cap_mib):
+def _replay(y, lengths, series, bounds, values, k_eff, *, methods, interval_s, factor, cap_mib, max_attempts=None,
+            acc_dtype=None):
     """Phase (b): replay every (lane, execution, method) row with retries.
 
-    bounds/values (N, B, M, k) -> (waste (N, M, B) f32, retries (N, M, B) i32).
-    Each round scores the rows still active with one wastage launch; a failed
-    row bumps its allocation (selective: the failed segment; partial: it and
-    all later ones; cap jump: the node cap), capped and kept monotone."""
+    bounds/values (N, B, M, k) -> (waste (N, M, B), retries (N, M, B) i32),
+    waste summed in ``acc_dtype`` (default: the values' dtype).  Each round
+    scores the rows still active with one wastage launch; a failed row bumps
+    its allocation (selective: the failed segment; partial: it and all later
+    ones; cap jump: the node cap), capped and kept monotone.
+
+    With ``max_attempts`` set, every attempt is also recorded (the
+    reference's ``_replay_multi`` with ``max_attempts``): values (N, M, B,
+    A, k), failure index (N, M, B, A) with -1 for success and for slots past
+    the ladder, wastage (N, M, B, A) and n_attempts (N, M, B); a row stops
+    after A attempts, its last failure index then >= 0."""
     N, B, M, k = values.shape
     dev = values.device
     R = N * B * M
+    acc = acc_dtype or values.dtype
     bounds = bounds.reshape(R, k)
     vals = torch.clamp(values.reshape(R, k), max=cap_mib)
     row_series = series.reshape(-1).repeat_interleave(M)
@@ -346,19 +358,36 @@ def _replay(y, lengths, series, bounds, values, k_eff, *, methods, interval_s, f
     row_sel = torch.tensor(selective, device=dev).repeat(N * B)
     row_cap = torch.tensor(cap_jump, device=dev).repeat(N * B)
     seg_pos = torch.arange(k, device=dev)
-    waste = torch.zeros(R, dtype=values.dtype, device=dev)
+    waste = torch.zeros(R, dtype=acc, device=dev)
     retries = torch.zeros(R, dtype=torch.int32, device=dev)
-    # an empty (padding) execution succeeds at once with zero waste
-    active = torch.nonzero(lengths[row_series] > 0).squeeze(1)
+    record = max_attempts is not None
+    if record:
+        A = int(max_attempts)
+        vbuf = torch.zeros((R, A, k), dtype=values.dtype, device=dev)
+        fbuf = torch.full((R, A), -1, dtype=torch.int32, device=dev)
+        wbuf = torch.zeros((R, A), dtype=acc, device=dev)
+        natt = torch.zeros(R, dtype=torch.int64, device=dev)
+        # every row records its first attempt: an empty execution succeeds
+        # at once with zero waste, as the reference scores it
+        active = torch.arange(R, device=dev)
+    else:
+        # an empty (padding) execution succeeds at once with zero waste
+        active = torch.nonzero(lengths[row_series] > 0).squeeze(1)
     while active.numel():
-        b = bounds[active]
-        w, fail_idx = ops.attempt_wastage(y, lengths, row_series[active], b, vals[active], interval_s)
+        b, v = bounds[active], vals[active]
+        w, fail_idx = ops.attempt_wastage(y, lengths, row_series[active], b, v, interval_s, acc)
         waste[active] += w
+        if record:
+            att = natt[active]
+            vbuf[active, att] = v
+            fbuf[active, att] = fail_idx
+            wbuf[active, att] = w
+            natt[active] += 1
         failed = fail_idx >= 0
         active = active[failed]
         if not active.numel():
             break
-        b, v = b[failed], vals[active]
+        b, v = b[failed], v[failed]
         t_fail = (fail_idx[failed].to(b.dtype) + 0.5) * interval_s
         seg = torch.minimum((t_fail[:, None] > b).sum(dim=1), row_keff[active] - 1)[:, None]
         bump_sel = v * torch.where(seg_pos == seg, factor, 1.0)
@@ -366,8 +395,20 @@ def _replay(y, lengths, series, bounds, values, k_eff, *, methods, interval_s, f
         bumped = torch.where(row_cap[active, None], cap_mib, torch.where(row_sel[active, None], bump_sel, bump_par))
         vals[active] = torch.clamp(torch.cummax(bumped, dim=1).values, max=cap_mib)
         retries[active] += 1
-        active = active[retries[active] <= MAX_RETRIES]
-    return waste.view(N, B, M).transpose(1, 2), retries.view(N, B, M).transpose(1, 2)
+        go_on = retries[active] <= MAX_RETRIES
+        if record:
+            go_on &= natt[active] < A  # ladder buffer full
+        active = active[go_on]
+    waste, retries = waste.view(N, B, M).transpose(1, 2), retries.view(N, B, M).transpose(1, 2)
+    if not record:
+        return waste, retries
+    rec = (
+        vbuf.view(N, B, M, A, k).transpose(1, 2),
+        fbuf.view(N, B, M, A).transpose(1, 2),
+        wbuf.view(N, B, M, A).transpose(1, 2),
+        natt.view(N, B, M).transpose(1, 2),
+    )
+    return waste, retries, rec
 
 
 def simulate_lanes(u, y, lengths, series, default_mib, k_eff, *, methods, k, interval_s, factor, floor_mib, cap_mib,
@@ -388,6 +429,38 @@ def simulate_lanes(u, y, lengths, series, default_mib, k_eff, *, methods, k, int
     with torch.profiler.record_function("torch_sim.replay"):
         return _replay(y, lengths, series, bounds, values, k_eff, methods=methods, interval_s=interval_s,
                        factor=factor, cap_mib=cap_mib)
+
+
+def ladder_lanes(u, y, lengths, series, default_mib, k_eff, *, methods, k, interval_s, factor, floor_mib, cap_mib,
+                 error_mode, insample_window, max_attempts):
+    """Every execution's full retry ladder for every method, over N lanes
+    (the counterpart of the reference's ``simulate_task_ladders``).
+
+    Arguments as ``simulate_lanes``; ``u`` and ``default_mib`` carry the
+    working dtype (float32, or float64 for the x64 ladders) while ``y`` stays
+    float32.  Attempt wastage is summed in float64 either way, as the
+    reference sums it under its x64 context.  Returns a dict of (N, M, B,
+    ...) tensors: ``boundaries`` (..., k), ``values`` (..., A, k),
+    ``failure_index`` (..., A), ``wastage_gib_s`` (..., A), ``n_attempts``."""
+    methods = _check_methods(methods)
+    _check_error_mode(error_mode, insample_window)
+    with torch.profiler.record_function("torch_sim.predict"):
+        bounds, values = predict_lanes(
+            u, y, lengths, series, default_mib, k_eff, methods=methods, k=k, interval_s=interval_s,
+            floor_mib=floor_mib, cap_mib=cap_mib, error_mode=error_mode, insample_window=insample_window,
+        )
+    with torch.profiler.record_function("torch_sim.replay"):
+        _, _, (vbuf, fbuf, wbuf, natt) = _replay(
+            y, lengths, series, bounds, values, k_eff, methods=methods, interval_s=interval_s, factor=factor,
+            cap_mib=cap_mib, max_attempts=max_attempts, acc_dtype=torch.float64,
+        )
+    return {
+        "boundaries": bounds.transpose(1, 2),
+        "values": vbuf,
+        "failure_index": fbuf,
+        "wastage_gib_s": wbuf,
+        "n_attempts": natt,
+    }
 
 
 def simulate_task_methods(

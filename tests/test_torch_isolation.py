@@ -11,10 +11,13 @@ from pathlib import Path
 import pytest
 import torch
 
+from repro_torch.core.ksegments import KSegmentsConfig
 from repro_torch.device import resolve_device
 from repro_torch.kernels import build, ops
 from repro_torch.sim import traces
-from repro_torch.sim.batch_engine import simulate_grid, simulate_ksweep
+from repro_torch.sim import device_timeline
+from repro_torch.sim.batch_engine import compute_cluster_ladders, simulate_grid, simulate_ksweep
+from repro_torch.sim.cluster import run_cluster_batched, run_cluster_sweep
 from repro_torch.sim.torch_sim import simulate_task_methods
 
 REPO = Path(__file__).resolve().parent.parent
@@ -75,6 +78,39 @@ def test_default_device_raises_without_cuda():
     with pytest.raises(RuntimeError, match="no CUDA device"):
         resolve_device("cuda")
     assert resolve_device("cpu") == torch.device("cpu")
+
+
+def _cluster_entry_points():
+    """Each cluster entry point with small valid arguments."""
+    import numpy as np
+
+    wfs = [traces.generate_eager(seed=5, scale=0.12)]
+    tasks = wfs[0].eligible_tasks(8)
+    b, v = np.full((2, 1), np.inf), np.full((2, 1), 100.0)
+    run = np.ones(2)
+    lanes = [(b, v, run, run)]
+    return {
+        "run_cluster_batched": lambda **kw: run_cluster_batched(wfs, ("default",), **kw),
+        "run_cluster_sweep": lambda **kw: run_cluster_sweep(wfs, ("default",), **kw),
+        "compute_cluster_ladders": lambda **kw: compute_cluster_ladders(
+            tasks, ("default",), 1024.0, KSegmentsConfig(error_mode="progressive"), **kw),
+        "first_fit_window": lambda **kw: device_timeline.first_fit_window(
+            0.0, b, v, run, run, [(np.zeros(0), np.zeros(1))], 1024.0, **kw),
+        "schedule_epoch": lambda **kw: device_timeline.schedule_epoch(
+            0.0, b, v, run, [(np.zeros(0), np.zeros(0))], np.zeros(0), 1024.0, **kw),
+        "sweep_schedule": lambda **kw: device_timeline.sweep_schedule(lanes, [1], [1024.0], **kw),
+    }
+
+
+@pytest.mark.parametrize("name", sorted(_cluster_entry_points()))
+def test_cluster_entry_points_need_cuda_unless_asked_for_cpu(name):
+    """Without a card, a cluster entry point raises by default and runs
+    only when the caller passes ``device="cpu"``."""
+    _no_cuda()
+    fn = _cluster_entry_points()[name]
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        fn()
+    fn(device="cpu")
 
 
 def test_dispatch_has_no_fallback_for_other_devices():
