@@ -5,7 +5,7 @@
 
 Phases, each of which fails the run on a wrong result:
 
-1. build the segmax, wastage, rangemax and compaction kernels from
+1. build the segmax, wastage, rangemax, compaction and flash kernels from
    ``src/repro_torch/kernels/csrc`` (one ``nvcc`` per source, in parallel);
 2. hold segmax and wastage against their plain PyTorch versions on the
    card, at the shapes of the largest bucket of the grid (peaks and fail
@@ -24,7 +24,28 @@ Phases, each of which fails the run on a wrong result:
    profiled warm windows run; the ``auto`` router's four constants;
 6. rangemax and compaction against their plain versions on the card
    (bit-exact), at the shapes of phase 5 and at L = 256, 1024, 8192, in
-   float64 and float32, and timed.
+   float64 and float32, and timed;
+7. flash against its plain version on the card, in float32 (atol 3e-5,
+   rtol 1e-4, the reference's kernel tolerance) and bf16 on N(0, 1) inputs
+   (max |d| <= 1e-2, mean |d| <= 1e-3: p is rounded to bf16 after a running
+   max that depends on the tiling), on the reference's five FLASH_CASES
+   geometries at hd 64, a wave of the launcher's loop at llama3.2-3b's
+   widths (prefill of B 4, T = S = 47, and decode against a ragged 63-slot
+   cache), llama3.2-3b's prefill (B 2, T = S = 4096) and decode (T 1
+   against a ragged 4112-slot cache), and gemma2-9b's widths
+   (T = S = 8192, hd 256, window 4096, softcap 50); timed against the
+   plain version and against ``scaled_dot_product_attention`` (the
+   yardstick only; it cannot take softcap);
+8. serving at the full width and depth of llama3.2-3b (bf16, random
+   weights from seed 0): (a) the launcher's wave loop with its defaults
+   (24 requests, 16 decode steps, 512 MiB budget), every request served,
+   every token in the vocabulary, flash launched in that run; (b) one batch
+   of 2 x 4096-token prompts, 16 greedy tokens: prefill wall, ms per decode
+   step, tokens/s, and one profiled run; (c) prefill + ``decode_step``
+   against ``forward`` on T + 1 tokens, last logits within 2e-2 x
+   max |logits|; (d) (b)'s prefill, and one of a second prompt, with the
+   plain attention patched in, last logits within 2e-2 x max |logits| of
+   the kernel's.
 
 Prints the card's name and power limit, a ``{"kernels": [...]}`` line, and
 as its last line ``{"ok": true, "device": {...}}``.  Exits non-zero without
@@ -37,6 +58,7 @@ import argparse
 import collections
 import contextlib
 import json
+import statistics
 import subprocess
 import sys
 import time
@@ -46,6 +68,7 @@ from typing import NoReturn
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory
 F32_OPS_PER_S = 67e12  # H100 SXM float32 outside the tensor cores
 F64_OPS_PER_S = 34e12  # H100 SXM float64 outside the tensor cores
+BF16_OPS_PER_S = 989e12  # H100 SXM bf16 on the tensor cores, dense
 CORPUS_SCALE = 1.0  # the paper's corpus: 33 eligible tasks
 FIG8_KS = tuple(range(1, 16))
 GRID_KERNELS = ("segmax", "wastage")  # the kernels of the grid and k-sweep paths
@@ -114,6 +137,7 @@ def _profile(fn) -> dict:
         phases_host_ms=phases_host,
         phases_device_ms=phases_device,
         top=sorted(kernels.items(), key=lambda kv: -kv[1][0])[:6],
+        top_all=list(kernels.items()),
     )
 
 
@@ -551,6 +575,227 @@ def sched_kernels_phase(cluster_info: dict, dev) -> dict[str, dict]:
     return out
 
 
+def _flash_case_inputs(B, T, S, H, KV, hd, dtype, seed, dev, ragged=None):
+    """N(0, 1) q, k, v on the card; positions 0..T-1 against 0..S-1, or a
+    ragged cache: row b holds ``ragged[b]`` tokens, -1 in the other slots,
+    and queries the last of them."""
+    import torch
+
+    g = torch.Generator(device=dev).manual_seed(seed)
+    q = torch.randn((B, T, H, hd), generator=g, device=dev).to(dtype)
+    k = torch.randn((B, S, KV, hd), generator=g, device=dev).to(dtype)
+    v = torch.randn((B, S, KV, hd), generator=g, device=dev).to(dtype)
+    if ragged is None:
+        qpos = torch.arange(T, dtype=torch.int32, device=dev)[None].expand(B, T).contiguous()
+        kpos = torch.arange(S, dtype=torch.int32, device=dev)[None].expand(B, S).contiguous()
+    else:
+        n = torch.as_tensor(ragged, device=dev)[:, None]
+        slots = torch.arange(S, device=dev)[None]
+        kpos = torch.where(slots < n, slots, -1).to(torch.int32)
+        qpos = (n - T + torch.arange(T, device=dev)[None]).to(torch.int32)
+    return q, k, v, qpos, kpos
+
+
+def _flash_mask(qpos, kpos, causal, window):
+    """(B, T, S) bool: the key slots each query attends to."""
+    ok = (kpos >= 0)[:, None, :]
+    if causal:
+        ok = ok & (kpos[:, None, :] <= qpos[:, :, None])
+    if window is not None:
+        ok = ok & (kpos[:, None, :] > qpos[:, :, None] - window)
+    return ok
+
+
+def flash_phase(dev) -> dict:
+    """flash against its plain version; times at the main path's shapes."""
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch.kernels import flash
+
+    # name, (B, T, S, H, KV, hd), causal, window, softcap, ragged rows, timed
+    cases = [
+        ("ref causal", (2, 64, 64, 4, 2, 64), True, None, None, None, False),
+        ("ref softcap", (1, 300, 300, 8, 8, 64), True, None, 50.0, None, False),
+        ("ref window", (2, 37, 37, 6, 2, 64), True, 16, None, None, False),
+        ("ref ragged decode", (2, 1, 80, 4, 4, 64), True, None, None, (60, 41), False),
+        ("ref encoder", (1, 128, 128, 4, 2, 64), False, None, None, None, False),
+        ("serve wave prefill", (4, 47, 47, 24, 8, 128), True, None, None, None, False),
+        ("serve wave decode", (4, 1, 63, 24, 8, 128), True, None, None, (63, 50, 31, 9), False),
+        ("llama3.2-3b prefill", (2, 4096, 4096, 24, 8, 128), True, None, None, None, True),
+        ("llama3.2-3b decode", (2, 1, 4112, 24, 8, 128), True, None, None, (4112, 3000), True),
+        ("gemma2-9b widths", (1, 8192, 8192, 16, 8, 256), True, 4096, 50.0, None, True),
+    ]
+    out = {}
+    print("flash phase: kernel vs plain; f32 atol 3e-5 rtol 1e-4, bf16 max|d| <= 1e-2 and mean|d| <= 1e-3")
+    for i, (name, (B, T, S, H, KV, hd), causal, window, cap, ragged, timed) in enumerate(cases):
+        kw = dict(causal=causal, window=window, softcap=cap)
+        for dtype in (torch.float32, torch.bfloat16):
+            q, k, v, qp, kp = _flash_case_inputs(B, T, S, H, KV, hd, dtype, 100 + i, dev, ragged)
+            got = flash.flash_attention_cuda(q, k, v, qp, kp, **kw)
+            want = flash.flash_attention_plain(q, k, v, qp, kp, **kw)
+            torch.cuda.synchronize()
+            d = (got.float() - want.float()).abs()
+            err, mean = d.max().item(), d.mean().item()
+            if not torch.isfinite(got.float()).all():
+                _fail(f"flash {name} {dtype}: non-finite output")
+            if dtype == torch.float32:
+                if not torch.allclose(got, want, atol=3e-5, rtol=1e-4):
+                    _fail(f"flash {name} f32: max |d| {err:.3e} beyond atol 3e-5 / rtol 1e-4")
+            elif err > 1e-2 or mean > 1e-3:
+                _fail(f"flash {name} bf16: max |d| {err:.3e} (limit 1e-2), mean |d| {mean:.3e} (limit 1e-3)")
+            line = (f"  {name:20s} {str(dtype)[6:]:8s} B{B} T{T} S{S} H{H} KV{KV} hd{hd}: "
+                    f"max |d| {err:.3e}, mean {mean:.3e}")
+            if timed and dtype == torch.bfloat16:
+                reps = 3 if T > 1 else 50
+                ms = _cuda_ms(lambda: flash.flash_attention_cuda(q, k, v, qp, kp, **kw), reps)
+                plain_ms = _cuda_ms(lambda: flash.flash_attention_plain(q, k, v, qp, kp, **kw), reps)
+                mask = _flash_mask(qp, kp, causal, window)
+                pairs = mask.sum().item() * H
+                nbytes = 2 * (2 * q.numel() + k.numel() + v.numel()) + 4 * (qp.numel() + kp.numel())
+                bound_ms, bound_by = _bound(nbytes, 4 * hd * pairs, BF16_OPS_PER_S)
+                lib_ms = lib_note = None
+                if cap is None:  # SDPA has no softcap
+                    qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+                    m4 = mask[:, None]
+                    sdpa = lambda: F.scaled_dot_product_attention(qt, kt, vt, attn_mask=m4, enable_gqa=True)
+                    lib_ms = _cuda_ms(sdpa, reps)
+                    lib_err = (sdpa().transpose(1, 2).float() - got.float()).abs().max().item()
+                    lib_note = f"sdpa {lib_ms:.4f} ms (max |d| vs kernel {lib_err:.3e})"
+                else:
+                    lib_note = "sdpa: null (no softcap)"
+                line += (f"; kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, {lib_note}, bound {bound_ms:.4f} ms "
+                         f"({bound_by}; {4 * hd * pairs:.3e} flop, {nbytes / 1e6:.1f} MB)")
+                out[name] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
+                                 library_ms=lib_ms)
+            print(line)
+            del q, k, v, got, want, d
+    torch.cuda.empty_cache()
+    return out
+
+
+SERVE_ARCH = "llama3.2-3b"
+SERVE_PROMPT, SERVE_BATCH, SERVE_STEPS = 4096, 2, 16
+SERVE_REPEATS = 5
+
+
+def serve_phase(dev) -> dict:
+    """The serving path at the full width and depth of llama3.2-3b."""
+    import numpy as np
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import flash, ops
+    from repro_torch.launch.serve import serve_requests
+    from repro_torch.models.model import decode_step, forward, init_params
+    from repro_torch.serve import AdmissionController, cache_bytes_per_token
+    from repro_torch.serve.engine import greedy_generate, make_decode_step, make_prefill_step
+
+    cfg = get_config(SERVE_ARCH)
+    model, init_s = _wall(lambda: init_params(cfg, seed=0, device=dev))
+    n_params = sum(p.numel() for p in model.parameters())
+    print(f"serve phase: {cfg.name} at full width and depth ({cfg.num_layers} layers, d_model {cfg.d_model}, "
+          f"{n_params / 1e9:.3f} B parameters, {torch.cuda.memory_allocated() / 1e9:.2f} GB on the card); "
+          f"init_params {init_s:.2f} s")
+
+    # (a) the launcher's wave loop, its defaults, the full config
+    ctl = AdmissionController(hbm_budget_mib=512.0, k=4, interval_s=1.0)
+    bpt = cache_bytes_per_token(cfg) / 2**20
+    ops.reset_launch_counts()
+    res, wall = _wall(lambda: serve_requests(cfg, model, ctl, requests=24, decode_steps=SERVE_STEPS,
+                                             bytes_per_token_mib=bpt, device=dev, log=lambda m: None))
+    counts = ops.launch_counts()
+    toks = torch.cat([o.flatten() for o in res["outputs"]])
+    print(f"  (a) launcher loop: {res['done']} served in {res['waves']} waves, {res['rejected']} deferred, "
+          f"wall {wall:.3f} s; launches {counts}")
+    if res["done"] != 24 or sum(o.shape[0] for o in res["outputs"]) != 24:
+        _fail(f"serve: {res['done']} of 24 requests served")
+    if any(o.shape[1] != SERVE_STEPS for o in res["outputs"]) or not 0 <= int(toks.min()) <= int(toks.max()) < cfg.vocab_size:
+        _fail("serve: generated tokens of the wrong shape or outside the vocabulary")
+    if counts["flash"] < 1:
+        _fail(f"serve: flash was not launched on the serving path: {counts}")
+
+    # (b) one long batch: prefill wall, ms per decode step, tokens/s
+    g = torch.Generator(device=dev).manual_seed(1)
+    prompt = torch.randint(0, cfg.vocab_size, (SERVE_BATCH, SERVE_PROMPT + 1), generator=g, device=dev,
+                           dtype=torch.int32)
+    tokens = prompt[:, :SERVE_PROMPT].contiguous()
+    cache_len = SERVE_PROMPT + SERVE_STEPS
+    prefill = make_prefill_step(cfg, cache_len, device=dev)
+    step = make_decode_step(cfg, device=dev)
+    prefill(model, {"tokens": tokens})  # warm-up
+    (logits, cache), prefill_s = _wall(lambda: prefill(model, {"tokens": tokens}))
+    first = torch.argmax(logits, -1).to(torch.int32)
+
+    def decode_all():
+        last = [first]
+        for i in range(SERVE_STEPS - 1):
+            pos = torch.full((SERVE_BATCH,), SERVE_PROMPT + i, dtype=torch.int32, device=dev)
+            lg, _ = step(model, cache, {"tokens": last[-1][:, None], "positions": pos})
+            last.append(torch.argmax(lg, -1).to(torch.int32))
+        return torch.stack(last, 1)
+
+    # the decode loop is bound by the host's launches, whose pace varies on a
+    # shared host: every repeat is printed, the median is kept
+    decodes = [_wall(decode_all) for _ in range(SERVE_REPEATS)]
+    gens = [_wall(lambda: greedy_generate(model, cfg, tokens, SERVE_STEPS, device=dev)) for _ in range(SERVE_REPEATS)]
+    if not all(torch.equal(out, gens[0][0]) for out, _ in decodes + gens):
+        _fail("serve: greedy_generate differs from its own prefill + decode steps, or between repeats")
+    steps_ms = [s / (SERVE_STEPS - 1) * 1e3 for _, s in decodes]
+    step_ms = statistics.median(steps_ms)
+    gen_s = statistics.median(s for _, s in gens)
+    prof = _profile(lambda: greedy_generate(model, cfg, tokens, SERVE_STEPS, device=dev))
+    busy = prof["kernel_ms"] / 1e3 / prof["wall_s"]
+    flash_ms = sum(v[0] for n, v in prof["top_all"] if "flash_kernel" in n)
+    print(f"  (b) B {SERVE_BATCH} x {SERVE_PROMPT}-token prompt, {SERVE_STEPS} greedy tokens: "
+          f"prefill {prefill_s:.4f} s; decode {step_ms:.3f} ms/step (median of "
+          f"{' '.join(f'{x:.3f}' for x in steps_ms)}); greedy_generate {gen_s:.4f} s (median of "
+          f"{' '.join(f'{s:.4f}' for _, s in gens)}) = {SERVE_BATCH * SERVE_STEPS / gen_s:.2f} tokens/s "
+          f"({SERVE_BATCH * (SERVE_PROMPT + SERVE_STEPS) / gen_s:.1f} prompt+generated tokens/s)")
+    print(f"  profiled greedy_generate: wall {prof['wall_s']:.4f} s; kernels {prof['kernel_ms']:.2f} ms on the device "
+          f"({100 * busy:.2f}% busy, {prof['launches']} launches), flash {flash_ms:.2f} ms; "
+          f"copies {prof['copy_ms']:.2f} ms")
+    for name, (ms, n) in prof["top"]:
+        print(f"    {ms:9.3f} ms {n:6d} x  {name[:100]}")
+
+    # (c) the cache contract at full width: prefill on T, decode at T,
+    # against forward on T + 1 tokens
+    full, _ = forward(model, prompt, last_only=True)
+    _, c_cache = forward(model, tokens, want_cache=True, cache_len=cache_len)
+    dec, _ = decode_step(model, c_cache, prompt[:, SERVE_PROMPT:], torch.full((SERVE_BATCH,), SERVE_PROMPT,
+                                                                             dtype=torch.int32, device=dev))
+    scale = full.abs().max().item()
+    c_err = (full[:, 0] - dec[:, 0]).abs().max().item() / scale
+    print(f"  (c) cache contract at T={SERVE_PROMPT}: |decode - forward(T+1)| / max|logits| = {c_err:.3e} (limit 2e-2)")
+    if not np.isfinite(c_err) or c_err > 2e-2:
+        _fail(f"serve: prefill + decode_step off forward on T + 1 tokens by {c_err:.3e} of max |logits| (limit 2e-2)")
+    del c_cache
+
+    # (d) the kernel against the plain path at full width, on (b)'s prompt
+    # and on a second one
+    del cache
+    for seed in (1, 2):
+        if seed != 1:
+            g = torch.Generator(device=dev).manual_seed(seed)
+            tokens = torch.randint(0, cfg.vocab_size, (SERVE_BATCH, SERVE_PROMPT), generator=g, device=dev,
+                                   dtype=torch.int32)
+            logits, _ = prefill(model, {"tokens": tokens})
+        before = flash.launches
+        with _patched(ops, "flash_attention", lambda orig: flash.flash_attention_plain):
+            (plain_logits, _), plain_s = _wall(lambda: prefill(model, {"tokens": tokens}))
+        if flash.launches != before:
+            _fail("serve: the plain prefill launched the kernel")
+        d_err = (plain_logits - logits).abs().max().item() / plain_logits.abs().max().item()
+        agree = int((torch.argmax(plain_logits, -1) == torch.argmax(logits, -1)).sum())
+        print(f"  (d) prompt seed {seed}: plain attention prefill {plain_s:.4f} s; last logits |kernel - plain| / "
+              f"max|logits| = {d_err:.3e} (limit 2e-2); greedy first tokens agree {agree}/{SERVE_BATCH}")
+        if not np.isfinite(d_err) or d_err > 2e-2:
+            _fail(f"serve: kernel logits off the plain path by {d_err:.3e} of max |logits| (limit 2e-2)")
+    del model
+    torch.cuda.empty_cache()
+    return {"counts": counts, "prefill_s": prefill_s, "step_ms": step_ms}
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0, help="seed of the synthetic corpus")
@@ -599,16 +844,19 @@ def main() -> int:
     cluster_info = cluster_phase(wfs)
     per_kernel.update(sched_kernels_phase(cluster_info, dev))
     counts.update({k: cluster_info["counts"][k] for k in ("rangemax", "compaction")})
+    per_kernel["flash"] = flash_phase(dev)["llama3.2-3b prefill"]
+    counts["flash"] = serve_phase(dev)["counts"]["flash"]
 
     sources = {
         "segmax": ("src/repro_torch/kernels/csrc/segmax.cu", "src/repro/kernels/segmax.py:55"),
         "wastage": ("src/repro_torch/kernels/csrc/wastage.cu", "src/repro/kernels/wastage.py:77"),
         "rangemax": ("src/repro_torch/kernels/csrc/rangemax.cu", "src/repro/kernels/rangemax.py:85"),
         "compaction": ("src/repro_torch/kernels/csrc/compaction.cu", "src/repro/kernels/compaction.py:92"),
+        "flash": ("src/repro_torch/kernels/csrc/flash.cu", "src/repro/kernels/flash.py:77"),
     }
     line = {"kernels": [
         {"name": name, "route": "cuda", "source": src, "replaces": rep, "launches": counts[name],
-         **per_kernel[name], "library_ms": None}
+         "library_ms": None, **per_kernel[name]}
         for name, (src, rep) in sources.items()
     ]}
     print(json.dumps(line))

@@ -2,7 +2,9 @@
 
 ``StepAllocation`` (the paper's Eq. 1 schedule) and ``AttemptLadder`` (one
 execution's recorded retry ladder) are the numpy host types the cluster
-scheduler consumes (ports of ``repro.core.allocation``).
+scheduler consumes; ``pack_step_allocations`` pads a list of schedules for
+the serving admission controller's demand profile (ports of
+``repro.core.allocation``).
 
 ``attempt_outcomes_batch`` is the plain PyTorch version of the wastage
 kernel (``repro_torch/kernels/csrc/wastage.cu``); ``kernels.ops`` reaches it
@@ -51,6 +53,22 @@ class StepAllocation:
     def segment_of(self, t: float) -> int:
         return int(min(np.searchsorted(self.boundaries, t, side="left"), self.k - 1))
 
+
+
+def pack_step_allocations(allocs: list[StepAllocation]) -> tuple[np.ndarray, np.ndarray]:
+    """Pad R step allocations into the layout ``step_demand_profile``
+    consumes: (R, kmax) inf-padded boundaries and (R, kmax + 1) hold-last
+    values (the extra column is the value held past the final boundary)."""
+    R = len(allocs)
+    kmax = max((a.k for a in allocs), default=1)
+    bnd = np.full((R, kmax), np.inf)
+    val = np.empty((R, kmax + 1))
+    for r, a in enumerate(allocs):
+        kk = a.k
+        bnd[r, :kk] = a.boundaries
+        val[r, :kk] = a.values
+        val[r, kk:] = a.values[-1]
+    return bnd, val
 
 @dataclasses.dataclass
 class AttemptLadder:

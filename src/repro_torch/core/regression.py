@@ -5,10 +5,13 @@ the trailing axis, so banks of regressions (k segments x lanes x steps)
 evaluate as one elementwise expression.  Port of ``repro.core.regression``
 (the tensor half); callers pass inputs pre-shifted by the first observation
 (``u = x - x0``) so float32 does not cancel on byte-scale input sizes.
+The float64 numpy half (``*_np``) serves the sequential host model
+(``core.ksegments.KSegmentsModel``), one observation at a time.
 """
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 # Statistic layout along the trailing axis.
@@ -56,3 +59,29 @@ def predict(stats: torch.Tensor, x) -> torch.Tensor:
     """Evaluate each regression of the bank at ``x`` (broadcasting)."""
     intercept, slope = fit(stats)
     return intercept + slope * torch.as_tensor(x, dtype=stats.dtype, device=stats.device)
+
+
+# ---------------------------------------------------------------------------
+# Plain-numpy float64 twins (the reference's ``*_np`` functions, unchanged).
+# ---------------------------------------------------------------------------
+
+
+def update_stats_np(stats: np.ndarray, x: float, y) -> np.ndarray:
+    y = np.asarray(y, dtype=np.float64)
+    upd = np.stack([np.ones_like(y), np.broadcast_to(x, y.shape), np.broadcast_to(x * x, y.shape), y, x * y], axis=-1)
+    return stats + upd
+
+
+def fit_np(stats: np.ndarray) -> tuple[np.ndarray, np.ndarray]:
+    n = stats[..., N]
+    sx, sxx, sy, sxy = stats[..., SX], stats[..., SXX], stats[..., SY], stats[..., SXY]
+    denom = n * sxx - sx * sx
+    safe = np.abs(denom) > _EPS
+    slope = np.where(safe, (n * sxy - sx * sy) / np.where(safe, denom, 1.0), 0.0)
+    intercept = np.where(n > 0, (sy - slope * sx) / np.maximum(n, 1.0), 0.0)
+    return intercept, slope
+
+
+def predict_np(stats: np.ndarray, x) -> np.ndarray:
+    intercept, slope = fit_np(stats)
+    return intercept + slope * x

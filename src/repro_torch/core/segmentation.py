@@ -8,11 +8,14 @@ left; a series with no sample at all gets 0.
 
 ``segment_peaks_dynamic`` is the plain PyTorch version of the segmax kernel
 (``repro_torch/kernels/csrc/segmax.cu``); ``kernels.ops.segment_peaks``
-reaches it for CPU tensors.  Port of ``repro.core.segmentation``.
+reaches it for CPU tensors.  ``segment_peaks_np`` is the float64 numpy form
+of one unpadded series, for the host model.  Port of
+``repro.core.segmentation``.
 """
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 
@@ -58,3 +61,22 @@ def segment_peaks_dynamic(y: torch.Tensor, lengths: torch.Tensor, k_eff, k_max: 
     filled = torch.gather(peaks, 1, torch.clamp(last_idx, min=0))
     peaks = torch.where(has, peaks, filled)
     return torch.where(torch.isfinite(peaks), peaks, torch.zeros((), dtype=y.dtype, device=dev))
+
+
+def segment_peaks_np(y: np.ndarray, k: int) -> np.ndarray:
+    """Float64 numpy peaks of one unpadded series (the host model's)."""
+    y = np.asarray(y, dtype=np.float64)
+    j = len(y)
+    if j == 0:
+        return np.zeros(k)
+    i = max(j // k, 1)
+    peaks = np.empty(k)
+    prev = y[0]
+    for s in range(k):
+        lo = min(s * i, j)
+        hi = j if s == k - 1 else min((s + 1) * i, j)
+        hi = max(hi, lo)
+        if hi > lo:
+            prev = float(np.max(y[lo:hi]))
+        peaks[s] = prev
+    return peaks

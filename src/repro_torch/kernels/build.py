@@ -3,7 +3,7 @@
 Each source compiles with ``nvcc`` into a shared library with a plain C
 interface, loaded with ``ctypes``.  Libraries land in ``_build/`` beside this
 file (listed in ``.gitignore``), named by a hash of the source and the flags,
-so a changed source rebuilds and an unchanged one loads at once.  All
+so a changed source or flag rebuilds and an unchanged one loads at once.  All
 missing libraries build in parallel, one ``nvcc`` each.  A failed build
 raises; there is no fallback.
 """
@@ -22,23 +22,26 @@ import torch
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent / "_build"
-SOURCES = ("segmax", "wastage", "rangemax", "compaction")
-# sm_90a is Hopper's full instruction set.  -fmad=false keeps every f32
-# multiply and add rounded on its own, as PyTorch's elementwise ops round
-# them, so a kernel and its plain version agree bit for bit where their
-# arithmetic is the same.  -Xptxas -v reports registers and spills.
+# sm_90a is Hopper's full instruction set.  -Xptxas -v reports registers
+# and spills.
 NVCC_FLAGS = (
     "-gencode",
     "arch=compute_90a,code=sm_90a",
     "-std=c++17",
     "-O3",
-    "-fmad=false",
     "-shared",
     "-Xcompiler",
     "-fPIC",
     "-Xptxas",
     "-v",
 )
+# -fmad=false keeps every f32 multiply and add rounded on its own, as
+# PyTorch's elementwise ops round them, so a kernel and its plain version
+# agree bit for bit where their arithmetic is the same: the engine's and the
+# scheduler's kernels need that.  flash's inner products need no bit
+# exactness (its plain version sums in another order) and keep FMA.
+_EXACT = ("-fmad=false",)
+SOURCES = {"segmax": _EXACT, "wastage": _EXACT, "rangemax": _EXACT, "compaction": _EXACT, "flash": ()}
 
 _lock = threading.Lock()
 _libs: dict[str, ctypes.CDLL] = {}
@@ -52,8 +55,13 @@ def _nvcc() -> str:
     return nvcc
 
 
+def nvcc_flags(name: str) -> tuple[str, ...]:
+    """The flags ``csrc/<name>.cu`` compiles with."""
+    return NVCC_FLAGS + SOURCES[name]
+
+
 def library_path(name: str) -> Path:
-    digest = hashlib.sha256((CSRC / f"{name}.cu").read_bytes() + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
+    digest = hashlib.sha256((CSRC / f"{name}.cu").read_bytes() + " ".join(nvcc_flags(name)).encode()).hexdigest()[:16]
     return BUILD_DIR / f"lib{name}-{digest}.so"
 
 
@@ -68,7 +76,7 @@ def build_all() -> list[str]:
         procs = {}
         for name in todo:
             tmp = library_path(name).with_suffix(f".tmp{os.getpid()}")
-            cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
+            cmd = [nvcc, *nvcc_flags(name), "-o", str(tmp), str(CSRC / f"{name}.cu")]
             procs[name] = (tmp, subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
         failed = []
         for name, (tmp, proc) in procs.items():

@@ -3,7 +3,7 @@
 A CUDA tensor goes to the hand-written kernel (or the call raises); a CPU
 tensor goes to the plain PyTorch version.  segmax and wastage serve the
 evaluation engine, rangemax and compaction the cluster's placement
-programs.  Rows of segmax and wastage index series: row r reads
+programs, flash the language model's attention.  Rows of segmax and wastage index series: row r reads
 ``y[series[r]]``, so rows that share a series (the methods of one
 execution, the k values of a sweep) never copy it on the card.
 """
@@ -14,7 +14,7 @@ import torch
 
 from repro_torch.core.allocation import attempt_outcomes_batch
 from repro_torch.core.segmentation import segment_peaks_dynamic
-from repro_torch.kernels import compaction, rangemax, segmax, wastage
+from repro_torch.kernels import compaction, flash, rangemax, segmax, wastage
 
 
 def _route(y: torch.Tensor) -> bool:
@@ -67,7 +67,25 @@ def compact_events(t: torch.Tensor, d: torch.Tensor, keep: torch.Tensor) -> tupl
     return compaction.compact_events_plain(t, d, keep)
 
 
-_KERNELS = {"segmax": segmax, "wastage": wastage, "rangemax": rangemax, "compaction": compaction}
+def flash_attention(
+    q: torch.Tensor,
+    k: torch.Tensor,
+    v: torch.Tensor,
+    q_pos: torch.Tensor,
+    k_pos: torch.Tensor,
+    *,
+    causal: bool,
+    window: int | None,
+    softcap: float | None,
+) -> torch.Tensor:
+    """Attention of q (B, T, H, hd) over k, v (B, S, KV, hd) by position:
+    q_pos (B, T), k_pos (B, S) int32, -1 marks empty slots."""
+    if _route(q):
+        return flash.flash_attention_cuda(q, k, v, q_pos, k_pos, causal=causal, window=window, softcap=softcap)
+    return flash.flash_attention_plain(q, k, v, q_pos, k_pos, causal=causal, window=window, softcap=softcap)
+
+
+_KERNELS = {"segmax": segmax, "wastage": wastage, "rangemax": rangemax, "compaction": compaction, "flash": flash}
 
 
 def launch_counts() -> dict[str, int]:

@@ -1,0 +1,5 @@
+# The language-model stack of the port (dense / local / global attention
+# layers); see models/model.py.
+from repro_torch.models.model import Transformer, decode_step, forward, init_cache, init_params
+
+__all__ = ["Transformer", "decode_step", "forward", "init_cache", "init_params"]

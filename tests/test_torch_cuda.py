@@ -7,7 +7,12 @@ nothing of JAX, so they run where only PyTorch is installed:
 Tolerances: segment peaks, fail indices, range-max tables, compacted rows
 and cluster placements exact; wastage rtol 1e-5 with atol 1e-4 GiB*s when
 summed in f32, rtol 1e-9 with atol 1e-9 GiB*s when summed in f64, because
-the sums over a series run in another order."""
+the sums over a series run in another order.  flash in float32 atol 3e-5 /
+rtol 1e-4 (the reference's own kernel tolerance); in bf16 on N(0, 1)
+inputs max |d| 1e-2 and mean |d| 1e-3, because p is rounded to bf16 after
+a running max that depends on the tiling.  The model's float32 logits on
+the card within 1e-4 of max |logits| of the CPU run (the products sum in
+another order)."""
 
 import numpy as np
 import pytest
@@ -15,7 +20,7 @@ import torch
 
 from repro_torch.core.allocation import attempt_outcomes_batch
 from repro_torch.core.segmentation import segment_peaks_dynamic
-from repro_torch.kernels import compaction, ops, rangemax, segmax, wastage
+from repro_torch.kernels import compaction, flash, ops, rangemax, segmax, wastage
 
 WASTE_TOL = dict(rtol=1e-5, atol=1e-4)
 WASTE_TOL_F64 = dict(rtol=1e-9, atol=1e-9)
@@ -149,3 +154,118 @@ def test_cluster_on_card_matches_cpu_run(cuda, placement, x64):
         for g, w in zip(got[p].records, want[p].records, strict=True):
             assert g.placements == w.placements
         np.testing.assert_allclose(got[p].wastage_gib_s, want[p].wastage_gib_s, rtol=1e-6)
+
+
+# (B, T, S, H, KV, hd, causal, window, softcap, ragged): the reference's five
+# FLASH_CASES, then GQA, hd 80/128/256, a rolling local cache, long rows,
+# and the reduced configs' hd 16 (prefill and decode)
+FLASH_CARD_CASES = [
+    (2, 64, 64, 4, 2, 64, True, None, None, False),
+    (1, 300, 300, 8, 8, 64, True, None, 50.0, False),
+    (2, 37, 37, 6, 2, 64, True, 16, None, False),
+    (2, 1, 80, 4, 4, 64, True, None, None, True),
+    (1, 128, 128, 4, 2, 64, False, None, None, False),
+    (2, 200, 200, 24, 8, 128, True, None, None, False),
+    (2, 1, 300, 24, 8, 128, True, None, None, True),
+    (1, 130, 130, 16, 16, 80, False, None, None, False),
+    (1, 257, 257, 16, 8, 256, True, 64, 50.0, False),
+    (2, 1, 96, 16, 8, 256, True, 64, 50.0, True),
+    (1, 3, 700, 12, 1, 128, True, None, None, True),
+    (2, 47, 47, 4, 4, 16, True, None, None, False),
+    (2, 1, 70, 4, 2, 16, True, 32, None, True),
+]
+
+
+def _flash_inputs(case, dtype, dev):
+    B, T, S, H, KV, hd, causal, window, cap, ragged = case
+    rng = np.random.default_rng(B * 31 + T + hd)
+    q = torch.from_numpy(rng.normal(0, 1, (B, T, H, hd))).to(dev, dtype)
+    k = torch.from_numpy(rng.normal(0, 1, (B, S, KV, hd))).to(dev, dtype)
+    v = torch.from_numpy(rng.normal(0, 1, (B, S, KV, hd))).to(dev, dtype)
+    if ragged:  # a rolling cache: some slots empty, positions past the window wrapped
+        lengths = rng.integers(S // 2, S + 1, size=B)
+        kpos = np.where(np.arange(S)[None] < lengths[:, None], np.arange(S)[None] + S // 3, -1)
+        qpos = kpos.max(axis=1, keepdims=True) + np.arange(T)[None] - T + 1
+    else:
+        qpos = np.broadcast_to(np.arange(T)[None], (B, T))
+        kpos = np.broadcast_to(np.arange(S)[None], (B, S))
+    qp = torch.from_numpy(np.ascontiguousarray(qpos, dtype=np.int32)).to(dev)
+    kp = torch.from_numpy(np.ascontiguousarray(kpos, dtype=np.int32)).to(dev)
+    return q, k, v, qp, kp, dict(causal=causal, window=window, softcap=cap)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("case", FLASH_CARD_CASES, ids=lambda c: "-".join(map(str, c)))
+def test_flash_kernel_matches_plain_on_card(cuda, dtype, case):
+    q, k, v, qp, kp, kw = _flash_inputs(case, dtype, cuda)
+    before = flash.launches
+    got = ops.flash_attention(q, k, v, qp, kp, **kw)
+    assert flash.launches == before + 1 and got.dtype == dtype and got.shape == q.shape
+    want = flash.flash_attention_plain(q, k, v, qp, kp, **kw)
+    torch.cuda.synchronize()
+    d = (got.float() - want.float()).abs()
+    if dtype == torch.float32:
+        torch.testing.assert_close(got, want, atol=3e-5, rtol=1e-4)
+    else:
+        assert d.max().item() <= 1e-2 and d.mean().item() <= 1e-3, (d.max().item(), d.mean().item())
+
+
+def test_flash_kernel_refuses_what_it_cannot_take(cuda):
+    q = torch.zeros((1, 4, 2, 96), device=cuda)
+    with pytest.raises(ValueError, match="head_dim 96"):
+        flash.flash_attention_cuda(q, q, q, torch.zeros((1, 4), dtype=torch.int32, device=cuda),
+                                   torch.zeros((1, 4), dtype=torch.int32, device=cuda),
+                                   causal=True, window=None, softcap=None)
+    with pytest.raises(ValueError, match="float32 or bfloat16"):
+        q16 = q[..., :64].contiguous().half()
+        flash.flash_attention_cuda(q16, q16, q16, torch.zeros((1, 4), dtype=torch.int32, device=cuda),
+                                   torch.zeros((1, 4), dtype=torch.int32, device=cuda),
+                                   causal=True, window=None, softcap=None)
+
+
+@pytest.mark.parametrize("head_dim", [16, 64])  # reduced()'s own, and a full config's
+@pytest.mark.parametrize("name", ["llama3.2-3b", "gemma2-9b"])
+def test_reduced_model_on_card_matches_cpu_run(cuda, name, head_dim):
+    """Prefill and decode of a reduced float32 model on the card (through
+    the flash kernel) against the same weights on the CPU (its plain
+    version), and greedy generation token for token."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.models.model import decode_step, forward, init_params
+    from repro_torch.serve.engine import greedy_generate
+
+    cfg = dataclasses.replace(get_config(name).reduced(), dtype="float32", head_dim=head_dim)
+    cpu = init_params(cfg, seed=3, device="cpu")
+    card = init_params(cfg, seed=0, device=cuda)
+    card.load_state_dict(cpu.state_dict())
+    tokens = torch.from_numpy(np.random.default_rng(1).integers(0, cfg.vocab_size, (2, 41)).astype(np.int32))
+    T = 40
+    before = flash.launches
+    full, _ = forward(card, tokens.to(cuda))
+    _, cache = forward(card, tokens[:, :T].to(cuda), want_cache=True, cache_len=T + 8)
+    dec, _ = decode_step(card, cache, tokens[:, T:].to(cuda), torch.full((2,), T, dtype=torch.int32))
+    assert flash.launches - before == 3 * cfg.num_layers
+    want_full, _ = forward(cpu, tokens)
+    _, cpu_cache = forward(cpu, tokens[:, :T], want_cache=True, cache_len=T + 8)
+    want_dec, _ = decode_step(cpu, cpu_cache, tokens[:, T:], torch.full((2,), T, dtype=torch.int32))
+    scale = want_full.abs().max().item()
+    assert (full.cpu() - want_full).abs().max().item() <= 1e-4 * scale
+    assert (dec.cpu() - want_dec).abs().max().item() <= 1e-4 * scale
+    for c, w in zip(cache, cpu_cache):
+        assert torch.equal(c["pos"].cpu(), w["pos"])
+    got = greedy_generate(card, cfg, tokens[:, :12], steps=6)
+    want = greedy_generate(cpu, cfg, tokens[:, :12], steps=6, device="cpu")
+    assert torch.equal(got.cpu(), want)
+
+
+def test_launcher_serves_on_card_with_its_defaults(cuda):
+    """``python -m repro_torch.launch.serve`` with no arguments: the reduced
+    llama3.2-3b on the card, 24 requests, every attention through flash."""
+    from repro_torch.launch import serve as launch_serve
+
+    ops.reset_launch_counts()
+    res = launch_serve.main([])
+    assert res["done"] == 24 and sum(o.shape[0] for o in res["outputs"]) == 24
+    assert all(o.is_cuda and o.shape[1] == 16 for o in res["outputs"])
+    assert ops.launch_counts()["flash"] > 0

@@ -11,9 +11,13 @@ from pathlib import Path
 import pytest
 import torch
 
+from repro_torch.configs import get_config
 from repro_torch.core.ksegments import KSegmentsConfig
 from repro_torch.device import resolve_device
 from repro_torch.kernels import build, ops
+from repro_torch.launch import serve as launch_serve
+from repro_torch.models.model import Transformer, init_cache, init_params
+from repro_torch.serve.engine import greedy_generate, make_decode_step, make_prefill_step
 from repro_torch.sim import traces
 from repro_torch.sim import device_timeline
 from repro_torch.sim.batch_engine import compute_cluster_ladders, simulate_grid, simulate_ksweep
@@ -108,6 +112,35 @@ def test_cluster_entry_points_need_cuda_unless_asked_for_cpu(name):
     only when the caller passes ``device="cpu"``."""
     _no_cuda()
     fn = _cluster_entry_points()[name]
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        fn()
+    fn(device="cpu")
+
+
+def _serving_entry_points():
+    """Each serving entry point with small valid arguments."""
+    cfg = get_config("llama3.2-3b").reduced()
+    cpu_model = init_params(cfg, device="cpu")
+    tokens = torch.zeros((1, 4), dtype=torch.int32)
+    return {
+        "init_params": lambda **kw: init_params(cfg, **kw),
+        "Transformer": lambda **kw: Transformer(cfg, seed=1, **kw),
+        "init_cache": lambda **kw: init_cache(cfg, 1, 8, **kw),
+        "greedy_generate": lambda **kw: greedy_generate(cpu_model, cfg, tokens, 2, **kw),
+        "make_prefill_step": lambda **kw: make_prefill_step(cfg, 8, **kw)(cpu_model, {"tokens": tokens}),
+        "make_decode_step": lambda **kw: make_decode_step(cfg, **kw),
+        "launch.serve": lambda device=None: launch_serve.main(
+            ["--requests", "2", "--decode-steps", "2"] + (["--device", device] if device else [])),
+    }
+
+
+@pytest.mark.parametrize("name", ["Transformer", "greedy_generate", "init_cache", "init_params", "launch.serve",
+                                  "make_decode_step", "make_prefill_step"])
+def test_serving_entry_points_need_cuda_unless_asked_for_cpu(name):
+    """The language model's entry points and the launcher raise without a
+    card by default and run when the caller passes ``device="cpu"``."""
+    _no_cuda()
+    fn = _serving_entry_points()[name]
     with pytest.raises(RuntimeError, match="no CUDA device"):
         fn()
     fn(device="cpu")
