@@ -5,8 +5,9 @@
 
 Phases, each of which fails the run on a wrong result:
 
-1. build the segmax, wastage, rangemax, compaction and flash kernels from
-   ``src/repro_torch/kernels/csrc`` (one ``nvcc`` per source, in parallel);
+1. build the segmax, wastage, rangemax, compaction, fitstats and flash
+   kernels from ``src/repro_torch/kernels/csrc`` (one ``nvcc`` per source,
+   in parallel);
 2. hold segmax and wastage against their plain PyTorch versions on the
    card, at the shapes of the largest bucket of the grid (peaks and fail
    indices exact, float32 wastage within rtol 1e-5 / atol 1e-4 GiB*s, the
@@ -45,7 +46,26 @@ Phases, each of which fails the run on a wrong result:
    against ``forward`` on T + 1 tokens, last logits within 2e-2 x
    max |logits|; (d) (b)'s prefill, and one of a second prompt, with the
    plain attention patched in, last logits within 2e-2 x max |logits| of
-   the kernel's.
+   the kernel's;
+9. fitstats through the kernels API (``repro_torch.kernels.fit_stats``)
+   against its plain version, each statistic within 1e-5 of the sum of the
+   absolute values of its terms, two launches bitwise equal, and timed:
+   (a) ``benchmarks/run.py:bench_kernels``' batch (B 512, T 2048, k 4, seed
+   0, weights all ones); (b) the main path: for every eligible task of the
+   corpus and k = 1..15, the bank over its executions (u = x - x_first,
+   peaks from the API's ``segment_peaks``), with the launches of that run,
+   each bank also within 1e-4 of the host ``KSegmentsModel``'s float64
+   ``seg_stats``; (c) 2**20 rows at k = 128 with random weights;
+10. ``segment_peaks`` and ``attempt_wastage`` through the kernels API on
+   (a)'s batch against their plain versions (peaks and fail indices exact,
+   wastage as in phase 2);
+11. the online predictor path: ``AdaptiveKSelector`` on the card over the
+   first 512 executions of the corpus' largest task (32 reoptimisations of
+   6 candidates, each a replay through segmax and wastage), its
+   ``history_k`` equal to its CPU run's; and ``simulate_grid`` on the card
+   against the sequential oracle ``simulate_suite`` (scale 0.35,
+   progressive offsets, the seven engine methods, fraction 0.5) under the
+   reference's gate (``tests/test_batch_engine.py:36-47``) on every cell.
 
 Prints the card's name and power limit, a ``{"kernels": [...]}`` line, and
 as its last line ``{"ok": true, "device": {...}}``.  Exits non-zero without
@@ -796,6 +816,251 @@ def serve_phase(dev) -> dict:
     return {"counts": counts, "prefill_s": prefill_s, "step_ms": step_ms}
 
 
+FITSTATS_TOL = 1e-5  # kernel vs plain, of each statistic's sum of absolute terms
+FITSTATS_HOST_TOL = 1e-4  # kernel vs the float64 host bank, likewise
+FITSTATS_KS = tuple(range(1, 16))
+FITSTATS_BIG = (1 << 20, 128)  # (c): rows, segments
+
+
+def _bench_kernels_inputs(dev):
+    """benchmarks/run.py:bench_kernels' batch: B 512, T 2048, k 4, seed 0."""
+    import numpy as np
+    import torch
+
+    rng = np.random.default_rng(0)
+    B, T, k = 512, 2048, 4
+    y = rng.uniform(1, 1e4, (B, T)).astype(np.float32)
+    lengths = rng.integers(16, T + 1, B).astype(np.int32)
+    x = rng.uniform(-10, 10, B)
+    bounds = np.sort(rng.uniform(1, T * 2.0, (B, k)), axis=1).astype(np.float32)
+    values = np.maximum.accumulate(rng.uniform(10, 12000, (B, k)), axis=1).astype(np.float32)
+    return k, [torch.from_numpy(a).to(dev) for a in (y, lengths, x, bounds, values)]
+
+
+def _bank_err(got, want, scale) -> float:
+    """The largest difference of two banks, relative to each statistic's
+    sum of absolute terms (sums of u cancel, so not relative to the sum)."""
+    return ((got.double() - want.double()).abs() / scale.double().clamp(min=1e-30)).max().item()
+
+
+def _fitstats_case(name: str, x, peaks, w, reps: int) -> dict:
+    """fitstats on (x, peaks, w) against its plain version: the tolerance,
+    bitwise equality of two launches, CUDA-event times and the bound."""
+    import torch
+
+    from repro_torch.kernels import fitstats
+
+    got, again = fitstats.fitstats_cuda(x, peaks, w), fitstats.fitstats_cuda(x, peaks, w)
+    want = fitstats.fit_stats_plain(x, peaks, w)
+    scale = fitstats.fit_stats_plain(x.abs(), peaks.abs(), w.abs())
+    torch.cuda.synchronize()
+    if not torch.equal(got, again):
+        _fail(f"fitstats {name}: two launches on the same inputs differ")
+    err = _bank_err(got, want, scale)
+    if not err <= FITSTATS_TOL:
+        _fail(f"fitstats {name}: {err:.3e} of the sum of absolute terms from the plain version (limit {FITSTATS_TOL})")
+    ms = _cuda_ms(lambda: fitstats.fitstats_cuda(x, peaks, w), reps)
+    plain_ms = _cuda_ms(lambda: fitstats.fit_stats_plain(x, peaks, w), max(reps // 4, 2))
+    # the device's own time of each pass, from the profiler's kernel events
+    # (the CUDA-event mean of a small batch is the wrapper's host pace)
+    prof = _profile(lambda: [fitstats.fitstats_cuda(x, peaks, w) for _ in range(20)])
+    passes = {p: [v for n, v in prof["top_all"] if f"fitstats_{p}_kernel" in n] for p in ("partial", "final")}
+    device = {p: (sum(v[0] for v in vs), sum(v[1] for v in vs)) for p, vs in passes.items()}
+    device_ms = sum(t / max(n, 1) for t, n in device.values())
+    B, k = peaks.shape
+    # bytes: x, w and the peaks read once, the bank written once; operations:
+    # w p, (w u) p and two adds a value, the row's scalars (w u, (w u) u, 3 adds)
+    bound_ms, bound_by = _bound(4 * (B * k + 2 * B + 5 * k), 4 * B * k + 5 * B)
+    print(f"  fitstats {name} B={B} k={k}: {err:.3e} of the terms' sum (limit {FITSTATS_TOL}), two launches "
+          f"bitwise equal; kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, bound {bound_ms:.5f} ms ({bound_by}); "
+          f"profiled device time {device_ms:.4f} ms a call (pass 1 {device['partial'][0]:.4f} ms over "
+          f"{device['partial'][1]} launches, pass 2 {device['final'][0]:.4f} ms over {device['final'][1]})")
+    return dict(max_abs_err=(got - want).abs().max().item(), ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
+                bound_by=bound_by)
+
+
+def fitstats_phase(wfs, cfg, dev) -> tuple[dict, int]:
+    """fitstats through the kernels API: (a) bench_kernels' batch, (b) every
+    eligible task of the corpus at k = 1..15 (the main path: the launches
+    of that run are counted), also against the float64 host bank, (c) 2**20
+    rows at k = 128 with random weights."""
+    import numpy as np
+    import torch
+
+    from repro_torch import kernels
+    from repro_torch.core.ksegments import KSegmentsConfig, KSegmentsModel
+    from repro_torch.kernels import fitstats, ops
+
+    print(f"fitstats phase: kernel vs plain within {FITSTATS_TOL}, vs the float64 host bank within "
+          f"{FITSTATS_HOST_TOL}, of each statistic's sum of absolute terms")
+    k, (y, lengths, x, _, _) = _bench_kernels_inputs(dev)
+    peaks = kernels.segment_peaks(y, lengths, k)
+    _fitstats_case("(a) bench_kernels", x.float(), peaks, torch.ones(len(x), device=dev), 200)
+
+    # (b) the main path: every bank of the corpus through the API
+    tasks = [t for wf in wfs for t in wf.eligible_tasks(cfg.min_executions)]
+    inputs = []
+    for trace in tasks:
+        xs, ys, ls = trace.padded()
+        u = torch.from_numpy(xs - xs[0]).to(dev, torch.float32)
+        inputs.append((trace, u, torch.from_numpy(ys).to(dev), torch.from_numpy(ls).to(dev)))
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    banks = {}
+    for trace, u, ys, ls in inputs:
+        ones = torch.ones(len(u), device=dev)
+        for kk in FITSTATS_KS:
+            pk = kernels.segment_peaks(ys, ls, kk)
+            banks[(trace.name, kk)] = (pk, kernels.fit_stats(u, pk, ones))
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = ops.launch_counts()
+    print(f"  (b) corpus: {len(tasks)} tasks x k = 1..15, {len(banks)} banks through the API in {wall:.3f} s; "
+          f"launches {counts}")
+    if counts["fitstats"] != len(banks) or counts["segmax"] != len(banks):
+        _fail(f"fitstats phase: {len(banks)} banks but launches {counts}")
+    worst_plain = worst_host = 0.0
+    t0 = time.perf_counter()
+    for trace, u, _, _ in inputs:
+        ones = torch.ones(len(u), device=dev)
+        for kk in FITSTATS_KS:
+            pk, bank = banks[(trace.name, kk)]
+            scale = fitstats.fit_stats_plain(u.abs(), pk, ones)
+            worst_plain = max(worst_plain, _bank_err(bank, fitstats.fit_stats_plain(u, pk, ones), scale))
+            host = KSegmentsModel(KSegmentsConfig(k=kk, error_mode="progressive"))
+            for e in trace.executions:
+                host.observe(e.input_size, e.series)
+            seg = torch.from_numpy(host.state()["seg_stats"])
+            worst_host = max(worst_host, _bank_err(bank.cpu(), seg, scale.cpu()))
+    print(f"  (b) worst bank vs plain {worst_plain:.3e} (limit {FITSTATS_TOL}), vs the host model's float64 "
+          f"seg_stats {worst_host:.3e} (limit {FITSTATS_HOST_TOL}); host check {time.perf_counter() - t0:.2f} s")
+    if not worst_plain <= FITSTATS_TOL or not worst_host <= FITSTATS_HOST_TOL:
+        _fail("fitstats phase: a corpus bank is off its plain version or the host model's")
+    trace, u, ys, ls = max(inputs, key=lambda t: t[1].numel())  # the main path's largest shape
+    pk = kernels.segment_peaks(ys, ls, FITSTATS_KS[-1])
+    out = _fitstats_case(f"(b) {trace.name}", u, pk, torch.ones(len(u), device=dev), 200)
+
+    # (c) 2**20 rows at the widest k, random weights
+    B, kb = FITSTATS_BIG
+    g = torch.Generator(device=dev).manual_seed(7)
+    xb = torch.randn(B, generator=g, device=dev) * 40.0
+    pb = torch.rand((B, kb), generator=g, device=dev) * 1e4
+    wb = torch.rand(B, generator=g, device=dev)
+    _fitstats_case("(c) 2**20 rows", xb, pb, wb, 50)
+    del xb, pb, wb
+    torch.cuda.empty_cache()
+    return out, counts["fitstats"]
+
+
+def api_phase(dev) -> None:
+    """segment_peaks and attempt_wastage through the kernels API on
+    bench_kernels' batch, against their plain versions on the card."""
+    import torch
+
+    from repro_torch import kernels
+    from repro_torch.core.allocation import attempt_outcomes_batch
+    from repro_torch.core.segmentation import segment_peaks_dynamic
+
+    k, (y, lengths, _, bounds, values) = _bench_kernels_inputs(dev)
+    peaks = kernels.segment_peaks(y, lengths, k)
+    want = segment_peaks_dynamic(y, torch.clamp(lengths, min=1), k, k)
+    waste, fail = kernels.attempt_wastage(y, lengths, bounds, values, 2.0)
+    w_p, f_p = attempt_outcomes_batch(y, lengths, 2.0, bounds, values)
+    torch.cuda.synchronize()
+    if not torch.equal(peaks, want):
+        _fail(f"api segment_peaks: {(peaks != want).sum().item()} peaks differ from the plain version")
+    if not torch.equal(fail, f_p):
+        _fail(f"api attempt_wastage: {(fail != f_p).sum().item()} fail indices differ from the plain version")
+    if not torch.allclose(waste, w_p, rtol=1e-5, atol=1e-4):
+        _fail(f"api attempt_wastage: max |dw| {(waste - w_p).abs().max().item()} GiB*s beyond rtol 1e-5 / atol 1e-4")
+    print(f"api phase (bench_kernels' batch, B={y.shape[0]} T={y.shape[1]} k={k}): segment_peaks exact, "
+          f"attempt_wastage fail indices exact ({(fail >= 0).sum().item()} failed), max |dw| "
+          f"{(waste - w_p).abs().max().item():.3e} GiB*s")
+
+
+def _gate(got, ref) -> bool:
+    """The reference's engine parity gate (tests/test_batch_engine.py:36-47)."""
+    import numpy as np
+
+    if got.n_train != ref.n_train or got.n_test != ref.n_test:
+        return False
+    if not np.isclose(got.wastage_gib_s.sum(), ref.wastage_gib_s.sum(), rtol=0.05, atol=1e-6):
+        return False
+    if abs(int(got.retries.sum()) - int(ref.retries.sum())) > max(2, 0.1 * ref.retries.sum()):
+        return False
+    return not ref.n_test or np.isclose(got.wastage_gib_s, ref.wastage_gib_s, rtol=0.05, atol=0.5).mean() > 0.9
+
+
+KTUNER_OBSERVED = 512  # of sarek:task05_decline's 1,512 executions: 32 reoptimisations
+ORACLE_SCALE = 0.35  # the reference benchmark's default corpus scale
+
+
+def online_phase(wfs, seed: int) -> None:
+    """The online predictor path: the adaptive-k tuner's replays on the card
+    against its CPU run, and the grid on the card against the sequential
+    oracle under the reference's gate."""
+    import numpy as np
+
+    from repro_torch.core.ksegments import KSegmentsConfig
+    from repro_torch.core.ktuner import AdaptiveKSelector
+    from repro_torch.kernels import ops
+    from repro_torch.sim.batch_engine import simulate_grid
+    from repro_torch.sim.simulator import SimConfig, simulate_suite
+    from repro_torch.sim.torch_sim import ENGINE_METHODS
+    from repro_torch.sim.traces import generate_suite
+
+    trace = max((t for wf in wfs for t in wf.eligible_tasks(20)), key=lambda t: t.n_executions)
+    execs = trace.executions[:KTUNER_OBSERVED]
+    reopt_s: list[float] = []
+
+    def timed(reoptimize):
+        def timed_reoptimize():
+            t0 = time.perf_counter()
+            best = reoptimize()
+            reopt_s.append(time.perf_counter() - t0)
+            return best
+
+        return timed_reoptimize
+
+    card, cpu = AdaptiveKSelector(), AdaptiveKSelector(device="cpu")
+    ops.reset_launch_counts()
+    with _patched(card, "_reoptimize", timed):
+        _, wall = _wall(lambda: [card.observe(e.input_size, e.series) for e in execs])
+    counts = ops.launch_counts()
+    t0 = time.perf_counter()
+    for e in execs:
+        cpu.observe(e.input_size, e.series)
+    cpu_s = time.perf_counter() - t0
+    T = max(len(e.series) for e in execs)
+    print(f"online phase: AdaptiveKSelector over {trace.name}'s first {len(execs)} executions (T up to {T}), "
+          f"{len(reopt_s)} reoptimisations of {len(card.candidates)} candidates: card {wall:.3f} s, cold reoptimisation "
+          f"{reopt_s[0] * 1e3:.2f} ms, warm median {statistics.median(reopt_s[1:]) * 1e3:.2f} ms, last "
+          f"{reopt_s[-1] * 1e3:.2f} ms; cpu {cpu_s:.3f} s; launches {counts}")
+    print(f"  history_k card {card.history_k}")
+    if min(counts[k] for k in GRID_KERNELS) < 1:
+        _fail(f"the tuner's replays did not launch segmax and wastage: {counts}")
+    if card.history_k != cpu.history_k or len(card.history_k) != len(execs) // card.refresh:
+        _fail(f"AdaptiveKSelector: history_k on the card {card.history_k} differs from the cpu run {cpu.history_k}")
+
+    corpus = generate_suite(seed=seed, scale=ORACLE_SCALE)
+    cfg = SimConfig(min_executions=10, ksegments=KSegmentsConfig(error_mode="progressive"))
+    ops.reset_launch_counts()
+    got, grid_s = _wall(lambda: simulate_grid(corpus, ENGINE_METHODS, (0.5,), cfg))
+    counts = ops.launch_counts()
+    t0 = time.perf_counter()
+    want = simulate_suite(corpus, ENGINE_METHODS, (0.5,), cfg)
+    oracle_s = time.perf_counter() - t0
+    if [(r.task, r.method) for r in got] != [(r.task, r.method) for r in want]:
+        _fail("grid and oracle rows differ")
+    bad = [(r.task, r.method) for r, w in zip(got, want) if not _gate(r, w)]
+    exact = sum(np.array_equal(r.retries, w.retries) for r, w in zip(got, want))
+    print(f"  grid on the card vs the sequential oracle (scale {ORACLE_SCALE}, progressive, 7 methods, fraction 0.5): "
+          f"{len(got)} cells; card {grid_s:.3f} s, oracle {oracle_s:.3f} s; gate failed on {len(bad)}; retries "
+          f"equal on {exact}; launches {counts}")
+    if bad or min(counts[k] for k in GRID_KERNELS) < 1:
+        _fail(f"grid vs oracle: the reference's gate failed on {bad[:5]}, or a kernel was not launched: {counts}")
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0, help="seed of the synthetic corpus")
@@ -846,12 +1111,18 @@ def main() -> int:
     counts.update({k: cluster_info["counts"][k] for k in ("rangemax", "compaction")})
     per_kernel["flash"] = flash_phase(dev)["llama3.2-3b prefill"]
     counts["flash"] = serve_phase(dev)["counts"]["flash"]
+    t0 = time.perf_counter()
+    per_kernel["fitstats"], counts["fitstats"] = fitstats_phase(wfs, cfg, dev)
+    api_phase(dev)
+    online_phase(wfs, args.seed)
+    print(f"phases 9-11: {time.perf_counter() - t0:.2f} s")
 
     sources = {
         "segmax": ("src/repro_torch/kernels/csrc/segmax.cu", "src/repro/kernels/segmax.py:55"),
         "wastage": ("src/repro_torch/kernels/csrc/wastage.cu", "src/repro/kernels/wastage.py:77"),
         "rangemax": ("src/repro_torch/kernels/csrc/rangemax.cu", "src/repro/kernels/rangemax.py:85"),
         "compaction": ("src/repro_torch/kernels/csrc/compaction.cu", "src/repro/kernels/compaction.py:92"),
+        "fitstats": ("src/repro_torch/kernels/csrc/fitstats.cu", "src/repro/kernels/fitstats.py:53"),
         "flash": ("src/repro_torch/kernels/csrc/flash.cu", "src/repro/kernels/flash.py:77"),
     }
     line = {"kernels": [

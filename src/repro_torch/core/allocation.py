@@ -3,7 +3,9 @@
 ``StepAllocation`` (the paper's Eq. 1 schedule) and ``AttemptLadder`` (one
 execution's recorded retry ladder) are the numpy host types the cluster
 scheduler consumes; ``pack_step_allocations`` pads a list of schedules for
-the serving admission controller's demand profile (ports of
+the serving admission controller's demand profile; ``score_attempt_np`` and
+``run_with_retries_np`` score one attempt, or one execution with its
+retries, in float64 for the sequential oracle (ports of
 ``repro.core.allocation``).
 
 ``attempt_outcomes_batch`` is the plain PyTorch version of the wastage
@@ -53,6 +55,50 @@ class StepAllocation:
     def segment_of(self, t: float) -> int:
         return int(min(np.searchsorted(self.boundaries, t, side="left"), self.k - 1))
 
+    def with_retry(self, failed_segment: int, strategy: str, factor: float) -> "StepAllocation":
+        """Paper Sec. III-D: selective bumps only the failed segment, partial
+        bumps the failed segment and every later one; then monotone again."""
+        v = self.values.copy()
+        if strategy == "selective":
+            v[failed_segment] = v[failed_segment] * factor
+        elif strategy == "partial":
+            v[failed_segment:] = v[failed_segment:] * factor
+        else:
+            raise ValueError(f"unknown retry strategy: {strategy!r}")
+        v = np.maximum.accumulate(v)
+        return StepAllocation(self.boundaries.copy(), v)
+
+
+def static_allocation(value_mib: float, runtime_s: float) -> StepAllocation:
+    """A single-value allocation (every baseline is the k = 1 special case)."""
+    return StepAllocation(np.asarray([runtime_s], dtype=np.float64), np.asarray([value_mib], dtype=np.float64))
+
+
+@dataclasses.dataclass
+class AttemptOutcome:
+    failed: bool
+    failure_index: int  # sample index of the OOM kill (-1 on success)
+    wastage_gib_s: float  # GiB*s wasted by this attempt
+    alloc_gib_s: float  # total allocation integral of the attempt
+
+
+def score_attempt_np(series_mib: np.ndarray, interval_s: float, alloc: StepAllocation) -> AttemptOutcome:
+    """Score one attempt of one execution against a schedule, in float64:
+    it fails at the first sample above the allocation and then wastes its
+    whole allocation up to and including that sample; a success wastes
+    ``alloc(t) - usage(t)`` over its runtime."""
+    y = np.asarray(series_mib, dtype=np.float64)
+    t = (np.arange(len(y)) + 0.5) * interval_s  # sample midpoints
+    a = alloc.at(t)
+    over = y > a
+    if over.any():
+        fi = int(np.argmax(over))
+        waste = float(np.sum(a[: fi + 1]) * interval_s)
+        return AttemptOutcome(True, fi, waste / MIB_PER_GIB, waste / MIB_PER_GIB)
+    alloc_int = float(np.sum(a) * interval_s)
+    waste = float(np.sum(a - y) * interval_s)
+    return AttemptOutcome(False, -1, waste / MIB_PER_GIB, alloc_int / MIB_PER_GIB)
+
 
 
 def pack_step_allocations(allocs: list[StepAllocation]) -> tuple[np.ndarray, np.ndarray]:
@@ -95,6 +141,39 @@ class AttemptLadder:
     @property
     def total_wastage_gib_s(self) -> float:
         return float(self.wastage_gib_s[: self.n_attempts].sum())
+
+
+def run_with_retries_np(
+    series_mib: np.ndarray,
+    interval_s: float,
+    alloc: StepAllocation,
+    strategy: str,
+    factor: float,
+    node_cap_mib: float,
+    max_retries: int = 64,
+) -> tuple[float, int, StepAllocation]:
+    """Run one execution to success under a retry strategy, every attempt
+    capped at the node's memory.  Returns (total wastage GiB*s over all
+    attempts, retries, final allocation); a series whose peak exceeds the
+    node raises."""
+    total = 0.0
+    retries = 0
+    peak = float(np.max(series_mib))
+    if peak > node_cap_mib:
+        raise ValueError(f"task peak {peak} MiB exceeds node capacity {node_cap_mib} MiB")
+    cur = StepAllocation(alloc.boundaries.copy(), np.minimum(alloc.values, node_cap_mib))
+    while True:
+        out = score_attempt_np(series_mib, interval_s, cur)
+        total += out.wastage_gib_s
+        if not out.failed:
+            return total, retries, cur
+        retries += 1
+        if retries > max_retries:
+            raise RuntimeError("retry loop did not converge")
+        t_fail = (out.failure_index + 0.5) * interval_s
+        seg = cur.segment_of(t_fail)
+        cur = cur.with_retry(seg, strategy, factor)
+        cur = StepAllocation(cur.boundaries, np.minimum(cur.values, node_cap_mib))
 
 
 def step_allocation(t: torch.Tensor, boundaries: torch.Tensor, values: torch.Tensor) -> torch.Tensor:

@@ -30,6 +30,7 @@ class KSegmentsConfig:
     interval_s: float = 2.0  # paper's monitoring interval
     floor_mib: float = 100.0  # paper: 100 MB minimum when the model predicts < 0
     retry_factor: float = 2.0  # paper default l = 2
+    strategy: str = "selective"  # retry strategy: "selective" | "partial"
     # "insample": offsets are the extreme residuals of the current fit over
     # the history; "progressive": running max of one-step-ahead errors.
     error_mode: str = "insample"
@@ -42,8 +43,8 @@ class KSegmentsConfig:
     insample_window: int | None = None
     insample_refresh_tol: float = 1e-3
     # "absolute" offsets (MiB / seconds, the paper) or "relative" (KS+:
-    # residuals normalized by the prediction; the host model only, the
-    # engine's ksplus method is ROADMAP Queue 1 item 1).
+    # residuals normalized by the prediction, the ``"ksplus"`` method; the
+    # host model only, the engine's ksplus is ROADMAP Queue 1 item 1).
     offset_mode: str = "absolute"
 
 

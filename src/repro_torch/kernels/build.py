@@ -41,7 +41,14 @@ NVCC_FLAGS = (
 # scheduler's kernels need that.  flash's inner products need no bit
 # exactness (its plain version sums in another order) and keep FMA.
 _EXACT = ("-fmad=false",)
-SOURCES = {"segmax": _EXACT, "wastage": _EXACT, "rangemax": _EXACT, "compaction": _EXACT, "flash": ()}
+SOURCES = {
+    "segmax": _EXACT,
+    "wastage": _EXACT,
+    "rangemax": _EXACT,
+    "compaction": _EXACT,
+    "fitstats": _EXACT,
+    "flash": (),
+}
 
 _lock = threading.Lock()
 _libs: dict[str, ctypes.CDLL] = {}

@@ -3,7 +3,8 @@
 A CUDA tensor goes to the hand-written kernel (or the call raises); a CPU
 tensor goes to the plain PyTorch version.  segmax and wastage serve the
 evaluation engine, rangemax and compaction the cluster's placement
-programs, flash the language model's attention.  Rows of segmax and wastage index series: row r reads
+programs, fitstats the kernels API's regression bank (``kernels.api``),
+flash the language model's attention.  Rows of segmax and wastage index series: row r reads
 ``y[series[r]]``, so rows that share a series (the methods of one
 execution, the k values of a sweep) never copy it on the card.
 """
@@ -14,7 +15,7 @@ import torch
 
 from repro_torch.core.allocation import attempt_outcomes_batch
 from repro_torch.core.segmentation import segment_peaks_dynamic
-from repro_torch.kernels import compaction, flash, rangemax, segmax, wastage
+from repro_torch.kernels import compaction, fitstats, flash, rangemax, segmax, wastage
 
 
 def _route(y: torch.Tensor) -> bool:
@@ -67,6 +68,14 @@ def compact_events(t: torch.Tensor, d: torch.Tensor, keep: torch.Tensor) -> tupl
     return compaction.compact_events_plain(t, d, keep)
 
 
+def fit_stats(x: torch.Tensor, peaks: torch.Tensor, valid: torch.Tensor) -> torch.Tensor:
+    """x (B,), peaks (B, k), valid (B,) weights, float32 -> the (k, 5) bank
+    ``(n, Σx, Σx², Σy, Σxy)``, every row weighted by ``valid``."""
+    if _route(peaks):
+        return fitstats.fitstats_cuda(x, peaks, valid)
+    return fitstats.fit_stats_plain(x, peaks, valid)
+
+
 def flash_attention(
     q: torch.Tensor,
     k: torch.Tensor,
@@ -85,7 +94,14 @@ def flash_attention(
     return flash.flash_attention_plain(q, k, v, q_pos, k_pos, causal=causal, window=window, softcap=softcap)
 
 
-_KERNELS = {"segmax": segmax, "wastage": wastage, "rangemax": rangemax, "compaction": compaction, "flash": flash}
+_KERNELS = {
+    "segmax": segmax,
+    "wastage": wastage,
+    "rangemax": rangemax,
+    "compaction": compaction,
+    "fitstats": fitstats,
+    "flash": flash,
+}
 
 
 def launch_counts() -> dict[str, int]:

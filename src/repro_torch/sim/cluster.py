@@ -1,6 +1,6 @@
 """The cluster scheduler with time-varying memory reservations (Sec. IV-E).
 
-Port of the batched half of ``repro.sim.cluster``.  The paper's Sec. IV-E
+Port of ``repro.sim.cluster``.  The paper's Sec. IV-E
 limitation: a resource manager takes one memory figure per job, so
 k-Segments' step-function predictions pay off only once the manager accepts
 *dynamic* reservations.  This is that manager, simulated: nodes track
@@ -9,7 +9,11 @@ first-fit against the *future* reservation profile, and OOM kills trigger
 the method's retry strategy.  Per policy it reports makespan, wastage
 (reserved-minus-used GiB*s) and retries.
 
-``run_cluster_batched`` is the entry point:
+``run_cluster`` is the sequential oracle: one ``predict`` / score /
+``observe`` chain per task through the host predictors
+(``core.predictor.make_method``, float64 numpy), placed first-fit by the
+scalar ``_find_slot`` loop against each node's ``Timeline``
+(``NodeState``).  ``run_cluster_batched`` is the device path:
 
 1. every queued execution's predictions and full retry ladder, for all
    policies at once, from the two-phase engine
@@ -23,8 +27,9 @@ the method's retry strategy.  Per policy it reports makespan, wastage
    picked by a per-row cost model (``_auto_sweep``).  Both engines give
    identical placements.
 
-Predictions see exactly the executions the sequential protocol would have
-observed (completed earlier executions of the same task type).
+Predictions see exactly the executions the sequential protocol observes
+(completed earlier executions of the same task type), so the two give the
+same placements with ``KSegmentsConfig(error_mode="progressive")``.
 ``run_cluster_sweep`` runs a whole (corpus x policy x node count) design
 space as lanes of one sweep; ``pareto_frontier`` reduces its results.
 """
@@ -32,18 +37,78 @@ space as lanes of one sweep; ``pareto_frontier`` reduces its results.
 from __future__ import annotations
 
 import dataclasses
+import heapq
 import time
 
 import numpy as np
 import torch
 
-from repro_torch.core.allocation import StepAllocation
+from repro_torch.core.allocation import StepAllocation, score_attempt_np
 from repro_torch.core.ksegments import KSegmentsConfig
+from repro_torch.core.predictor import AllocationMethod, make_method
 from repro_torch.core.timeline import Timeline
 from repro_torch.device import resolve_device
 from repro_torch.sim.batch_engine import compute_cluster_ladders
 from repro_torch.sim.device_timeline import first_fit_window, schedule_epoch, sweep_axis_hint, sweep_schedule
 from repro_torch.sim.traces import TaskTrace, WorkflowTrace
+
+
+@dataclasses.dataclass
+class NodeState:
+    """One node of the sequential oracle: its capacity and its active
+    reservations ``(end, alloc, start)``, with their summed demand kept
+    incrementally in a ``Timeline``.  A caller that mutates ``active``
+    directly is detected by the rows' identities, and the timeline is
+    rebuilt on the next read."""
+
+    capacity_mib: float
+    active: list[tuple[float, StepAllocation, float]] = dataclasses.field(default_factory=list)
+    _prof: Timeline = dataclasses.field(default_factory=Timeline, init=False, repr=False, compare=False)
+    _synced: tuple = dataclasses.field(default=(), init=False, repr=False, compare=False)
+    _seq: int = dataclasses.field(default=0, init=False, repr=False, compare=False)
+
+    def _key(self) -> tuple[int, ...]:
+        return tuple(map(id, self.active))
+
+    def _sync(self) -> Timeline:
+        key = self._key()
+        if key != self._synced:
+            prof = Timeline()
+            for end, alloc, start in self.active:
+                prof.add(self._seq, alloc.boundaries, alloc.values, start, end)
+                self._seq += 1
+            self._prof = prof
+            self._synced = key
+        return self._prof
+
+    def reserved_at(self, t: float) -> float:
+        """Total reserved MiB at time ``t``."""
+        return float(self._sync().demand_at(t))
+
+    def add(self, end: float, alloc: StepAllocation, start: float) -> None:
+        """Reserve ``alloc`` over [start, end)."""
+        prof = self._sync()
+        prof.add(self._seq, alloc.boundaries, alloc.values, start, end)
+        self._seq += 1
+        self.active.append((end, alloc, start))
+        self._synced = self._key()
+
+    def expire(self, t: float) -> None:
+        """Drop reservations that ended at or before ``t``."""
+        if not self.active:
+            return
+        keep = [e > t for e, _, _ in self.active]
+        if all(keep):
+            return
+        prof = self._sync()
+        prof.expire(t)
+        self.active = [row for row, k_ in zip(self.active, keep) if k_]
+        self._synced = self._key()
+
+    def fits(self, alloc: StepAllocation, start: float, duration: float) -> bool:
+        """Whether ``alloc`` placed over [start, start + duration) keeps the
+        node's summed demand within its capacity."""
+        return not self._sync().demand_exceeds(alloc, start, start + duration, self.capacity_mib + 1e-6)
 
 
 @dataclasses.dataclass
@@ -91,6 +156,111 @@ def _eligible_queue(
             for i in range(n_train, min(trace.n_executions, n_train + max_tasks_per_type)):
                 queue.append((trace, i))
     return queue, traces
+
+
+def _gc(nodes: list[NodeState], t: float) -> None:
+    for nd in nodes:
+        nd.expire(t)
+
+
+def _find_slot(
+    nodes: list[NodeState],
+    events: list[tuple[float, int]],
+    now: float,
+    alloc: StepAllocation,
+    duration: float,
+) -> tuple[int, float]:
+    """First-fit placement against the nodes' future reservation profiles;
+    waits on the completion heap when no node fits.  Returns (node, time)."""
+    while True:
+        _gc(nodes, now)
+        for ni, nd in enumerate(nodes):
+            if nd.fits(alloc, now, duration):
+                return ni, now
+        if events:
+            now = max(now, heapq.heappop(events)[0])  # wait for a slot
+        else:
+            now += 1.0
+
+
+def run_cluster(
+    workflows: list[WorkflowTrace],
+    policy: str,
+    n_nodes: int = 4,
+    node_mib: float = 128 * 1024.0,
+    train_frac: float = 0.5,
+    max_tasks_per_type: int = 40,
+    min_executions: int = 10,
+    ksegments_config: KSegmentsConfig | None = None,
+) -> ClusterResult:
+    """Replay workflow executions through an ``n_nodes`` cluster under one
+    policy ("ksegments-selective", "ppm-improved", "default", ...), on the
+    host.
+
+    Tasks arrive in trace order; each waits until some node fits its
+    reservation, and the method learns online as tasks finish.  The
+    sequential oracle of ``run_cluster_batched``: with
+    ``ksegments_config=KSegmentsConfig(error_mode="progressive")`` the two
+    place every attempt alike.
+    """
+    queue, traces = _eligible_queue(workflows, train_frac, max_tasks_per_type, min_executions)
+    methods: dict[tuple[str, str], AllocationMethod] = {}
+    for trace, n_train in traces:
+        m = make_method(policy, trace.default_mib, node_mib, ksegments_config)
+        for e in trace.executions[:n_train]:
+            m.observe(e.input_size, e.series)
+        methods[(trace.workflow, trace.name)] = m
+
+    nodes = [NodeState(node_mib) for _ in range(n_nodes)]
+    events: list[tuple[float, int]] = []  # (end, node) of every placed attempt
+    now = 0.0
+    total_waste = 0.0
+    total_retries = 0
+    # The wait loop consumes the completion heap and _gc drops expired
+    # reservations, so the makespan is the running max of attempt ends.
+    makespan = 0.0
+    records: list[TaskRecord] = []
+
+    for trace, i in queue:
+        e = trace.executions[i]
+        method = methods[(trace.workflow, trace.name)]
+        series = e.series
+        duration = len(series) * trace.interval_s
+        alloc = method.predict(e.input_size)
+        attempts = 0
+        task_waste = 0.0
+        placements: list[tuple[int, float, float]] = []
+        while True:  # each attempt is a fresh placement
+            attempts += 1
+            alloc = StepAllocation(alloc.boundaries, np.minimum(alloc.values, node_mib))
+            placed, now = _find_slot(nodes, events, now, alloc, duration)
+            out = score_attempt_np(series, trace.interval_s, alloc)
+            run_time = (out.failure_index + 1) * trace.interval_s if out.failed else duration
+            end = now + run_time
+            nodes[placed].add(end, alloc, now)
+            heapq.heappush(events, (end, placed))
+            placements.append((placed, now, end))
+            makespan = max(makespan, end)
+            total_waste += out.wastage_gib_s
+            task_waste += out.wastage_gib_s
+            if not out.failed:
+                break
+            total_retries += 1
+            if attempts > 64:
+                raise RuntimeError("unschedulable task")
+            seg = alloc.segment_of((out.failure_index + 0.5) * trace.interval_s)
+            alloc = method.on_failure(alloc, seg, node_mib)
+        method.observe(e.input_size, e.series)
+        records.append(TaskRecord(trace.workflow, trace.name, i, attempts, placements, task_waste))
+
+    return ClusterResult(
+        policy=policy,
+        makespan_s=float(makespan),
+        wastage_gib_s=float(total_waste),
+        retries=int(total_retries),
+        tasks_run=len(queue),
+        records=records,
+    )
 
 
 def _policy_rows(ladders, queue, policy: str):

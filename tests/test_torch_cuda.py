@@ -12,7 +12,10 @@ rtol 1e-4 (the reference's own kernel tolerance); in bf16 on N(0, 1)
 inputs max |d| 1e-2 and mean |d| 1e-3, because p is rounded to bf16 after
 a running max that depends on the tiling.  The model's float32 logits on
 the card within 1e-4 of max |logits| of the CPU run (the products sum in
-another order)."""
+another order).  The fitstats bank within 1e-5 of each statistic's sum of
+absolute terms of its plain version (float32 sums in another order;
+relative to the terms because sums of u cancel), and bitwise equal from
+run to run."""
 
 import numpy as np
 import pytest
@@ -20,10 +23,12 @@ import torch
 
 from repro_torch.core.allocation import attempt_outcomes_batch
 from repro_torch.core.segmentation import segment_peaks_dynamic
-from repro_torch.kernels import compaction, flash, ops, rangemax, segmax, wastage
+from repro_torch import kernels
+from repro_torch.kernels import compaction, fitstats, flash, ops, rangemax, segmax, wastage
 
 WASTE_TOL = dict(rtol=1e-5, atol=1e-4)
 WASTE_TOL_F64 = dict(rtol=1e-9, atol=1e-9)
+FITSTATS_TOL = 1e-5  # of each statistic's sum of absolute terms
 
 
 def _series(seed: int, B: int, T: int):
@@ -269,3 +274,73 @@ def test_launcher_serves_on_card_with_its_defaults(cuda):
     assert res["done"] == 24 and sum(o.shape[0] for o in res["outputs"]) == 24
     assert all(o.is_cuda and o.shape[1] == 16 for o in res["outputs"])
     assert ops.launch_counts()["flash"] > 0
+
+
+def _fitstats_inputs(B: int, k: int, weights: str, seed: int):
+    rng = np.random.default_rng(seed)
+    x = rng.standard_normal(B).astype(np.float32) * 40.0
+    peaks = rng.uniform(0.0, 1e4, (B, k)).astype(np.float32)
+    w = np.ones(B, np.float32) if weights == "ones" else rng.random(B).astype(np.float32)
+    return x, peaks, w
+
+
+# the chip phase's three sizes: bench_kernels' batch, the corpus' largest
+# task at k = 15, and 2**20 rows at the kernel's widest k
+@pytest.mark.parametrize("B,k,weights", [(512, 4, "ones"), (1512, 15, "random"), (1 << 20, 128, "random")])
+def test_fitstats_kernel_matches_plain_on_card(cuda, B, k, weights):
+    x, peaks, w = (torch.from_numpy(a).to(cuda) for a in _fitstats_inputs(B, k, weights, B + k))
+    before = fitstats.launches
+    got = ops.fit_stats(x, peaks, w)
+    again = ops.fit_stats(x, peaks, w)
+    assert fitstats.launches == before + 2
+    assert torch.equal(got, again)  # bitwise, run to run
+    want = fitstats.fit_stats_plain(x, peaks, w)
+    scale = fitstats.fit_stats_plain(x.abs(), peaks.abs(), w.abs())
+    assert ((got - want).abs() <= FITSTATS_TOL * scale).all()
+
+
+def test_fitstats_kernel_masked_poison_on_card(cuda):
+    x, peaks, w = _fitstats_inputs(3000, 6, "ones", 3)
+    w[1700], peaks[1700, 2] = 0.0, np.nan
+    got = kernels.fit_stats(*(torch.from_numpy(a).to(cuda) for a in (x, peaks, w))).cpu()
+    want = fitstats.fit_stats_plain(*(torch.from_numpy(a) for a in (x, peaks, w)))
+    assert torch.equal(torch.isnan(got), torch.isnan(want)) and torch.isnan(got[2, 3:]).all()
+
+
+def test_kernels_api_on_card_matches_cpu(cuda):
+    """The API's three functions on CUDA tensors launch their kernels and
+    give the plain versions' results on the same inputs."""
+    y, lengths = _series(15, 64, 700)
+    bounds, values = _schedules(16, 64, 700, 4, 2.0)
+    x = np.random.default_rng(17).uniform(-50.0, 50.0, 64)
+    cpu = [torch.from_numpy(a) for a in (y, lengths, bounds, values, x)]
+    card = [a.to(cuda) for a in cpu]
+    ops.reset_launch_counts()
+    peaks = kernels.segment_peaks(card[0], card[1], 4)
+    waste, fail = kernels.attempt_wastage(*card[:4], 2.0)
+    bank = kernels.fit_stats(card[4], peaks, torch.ones(64, device=cuda))
+    assert {n: c for n, c in ops.launch_counts().items() if c} == {"segmax": 1, "wastage": 1, "fitstats": 1}
+    want_peaks = kernels.segment_peaks(cpu[0], cpu[1], 4)
+    want_waste, want_fail = kernels.attempt_wastage(*cpu[:4], 2.0)
+    assert torch.equal(peaks.cpu(), want_peaks) and torch.equal(fail.cpu(), want_fail)
+    torch.testing.assert_close(waste.cpu(), want_waste, **WASTE_TOL)
+    want_bank = kernels.fit_stats(cpu[4], want_peaks, torch.ones(64))
+    scale = fitstats.fit_stats_plain(cpu[4].float().abs(), want_peaks, torch.ones(64))
+    assert ((bank.cpu() - want_bank).abs() <= FITSTATS_TOL * scale).all()
+
+
+def test_adaptive_k_on_card_matches_cpu_run(cuda):
+    """The tuner's replays through segmax and wastage on the card pick the
+    k of its CPU run."""
+    from repro_torch.core.ktuner import AdaptiveKSelector
+    from repro_torch.sim.traces import generate_eager
+
+    for trace in generate_eager(seed=11, scale=0.3).eligible_tasks(20):
+        card, cpu = AdaptiveKSelector(refresh=8), AdaptiveKSelector(refresh=8, device="cpu")
+        ops.reset_launch_counts()
+        for e in trace.executions[:32]:
+            card.observe(e.input_size, e.series)
+        assert ops.launch_counts()["segmax"] > 0 and ops.launch_counts()["wastage"] > 0
+        for e in trace.executions[:32]:
+            cpu.observe(e.input_size, e.series)
+        assert card.history_k == cpu.history_k and card.history_k

@@ -11,7 +11,9 @@ from pathlib import Path
 import pytest
 import torch
 
+from repro_torch import kernels
 from repro_torch.configs import get_config
+from repro_torch.core.ktuner import AdaptiveKSelector
 from repro_torch.core.ksegments import KSegmentsConfig
 from repro_torch.device import resolve_device
 from repro_torch.kernels import build, ops
@@ -144,6 +146,32 @@ def test_serving_entry_points_need_cuda_unless_asked_for_cpu(name):
     with pytest.raises(RuntimeError, match="no CUDA device"):
         fn()
     fn(device="cpu")
+
+
+def test_adaptive_k_needs_cuda_unless_asked_for_cpu():
+    """The tuner replays on the card by default; ``device="cpu"`` runs it here."""
+    _no_cuda()
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        AdaptiveKSelector()
+    sel = AdaptiveKSelector(candidates=(1, 2), refresh=4, min_history=4, device="cpu")
+    for i in range(4):
+        sel.observe(1e9 * (i + 1), [100.0 * (i + 1)] * 6)
+    assert sel.history_k and sel.k in (1, 2)
+
+
+def test_kernels_api_runs_where_its_tensors_lie():
+    """The API has no device argument: CPU tensors take the plain versions
+    (no launch), other devices have no kernel and raise."""
+    before = ops.launch_counts()
+    y = torch.rand((3, 8))
+    kernels.segment_peaks(y, torch.full((3,), 8), 2)
+    kernels.fit_stats(torch.rand(3), torch.rand((3, 2)), torch.ones(3))
+    kernels.attempt_wastage(y, torch.full((3,), 8), torch.full((3, 1), 9.0), torch.full((3, 1), 1.0), 1.0)
+    assert ops.launch_counts() == before
+    meta = dict(device="meta")
+    with pytest.raises(ValueError, match="no kernel or plain version"):
+        kernels.attempt_wastage(torch.zeros((2, 4), **meta), torch.ones(2, **meta), torch.ones((2, 1), **meta),
+                                torch.ones((2, 1), **meta), 1.0)
 
 
 def test_dispatch_has_no_fallback_for_other_devices():
