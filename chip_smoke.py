@@ -32,17 +32,24 @@ Phases, each of which fails the run on a wrong result:
    max that depends on the tiling), on the reference's five FLASH_CASES
    geometries at hd 64, a wave of the launcher's loop at llama3.2-3b's
    widths (prefill of B 4, T = S = 47, and decode against a ragged 63-slot
-   cache), llama3.2-3b's prefill (B 2, T = S = 4096) and decode (T 1
-   against a ragged 4112-slot cache), and gemma2-9b's widths
-   (T = S = 8192, hd 256, window 4096, softcap 50); timed against the
-   plain version and against ``scaled_dot_product_attention`` (the
-   yardstick only; it cannot take softcap);
+   cache), rows with no valid key (a causal prefill whose first queries
+   precede every key, a decode whose window excludes every filled slot;
+   S = 141, G = 3), wrapped rolling caches (hd 128 and 256, and a 40-query
+   chunk), a causal prefill at S = 4,096 + 37, llama3.2-3b's prefill
+   (B 2, T = S = 4096) and decode (T 1 against a ragged 4112-slot cache),
+   and gemma2-9b's widths (T = S = 8192, hd 256, window 4096, softcap 50);
+   each case prints the kernel's path, decode's splits and the share of KV
+   tiles skipped; the last three are timed (CUDA events, and the profiled
+   device time of each of the call's launches) against the plain version
+   and against ``scaled_dot_product_attention`` (the yardstick only; it
+   cannot take softcap);
 8. serving at the full width and depth of llama3.2-3b (bf16, random
    weights from seed 0): (a) the launcher's wave loop with its defaults
    (24 requests, 16 decode steps, 512 MiB budget), every request served,
    every token in the vocabulary, flash launched in that run; (b) one batch
    of 2 x 4096-token prompts, 16 greedy tokens: prefill wall, ms per decode
-   step, tokens/s, and one profiled run; (c) prefill + ``decode_step``
+   step, tokens/s, and one profiled run (flash's device time by kernel);
+   (c) prefill + ``decode_step``
    against ``forward`` on T + 1 tokens, last logits within 2e-2 x
    max |logits|; (d) (b)'s prefill, and one of a second prompt, with the
    plain attention patched in, last logits within 2e-2 x max |logits| of
@@ -78,6 +85,8 @@ import argparse
 import collections
 import contextlib
 import json
+import re
+import shutil
 import statistics
 import subprocess
 import sys
@@ -92,6 +101,27 @@ BF16_OPS_PER_S = 989e12  # H100 SXM bf16 on the tensor cores, dense
 CORPUS_SCALE = 1.0  # the paper's corpus: 33 eligible tasks
 FIG8_KS = tuple(range(1, 16))
 GRID_KERNELS = ("segmax", "wastage")  # the kernels of the grid and k-sweep paths
+
+
+def _ptxas_summary(log: str) -> list[tuple[str, str, str]]:
+    """(kernel, registers, spills) of each entry function in an
+    ``nvcc -Xptxas -v`` log, names demangled with the toolkit's cu++filt."""
+    rows, name, spills = [], "", ""
+    for line in log.splitlines():
+        if "Compiling entry function" in line:
+            name = line.split("'")[1]
+        elif "spill stores" in line:
+            spills = line.strip().split(", ", 1)[-1]
+        elif "Used" in line and "registers" in line:
+            rows.append([name, re.search(r"Used (\d+) registers", line).group(1), spills])
+    filt = shutil.which("cu++filt") or str(Path(shutil.which("nvcc") or "/usr/local/cuda/bin/nvcc").parent / "cu++filt")
+    if rows and Path(filt).exists():
+        names = subprocess.run([filt], input="\n".join(r[0] for r in rows), capture_output=True, text=True).stdout
+        for r, n in zip(rows, names.splitlines()):
+            for noise in ("(int)", "(bool)", "<unnamed>::", "(anonymous namespace)::", "void "):
+                n = n.replace(noise, "")
+            r[0] = n.split("(")[0]
+    return [tuple(r) for r in rows]
 
 
 def _fail(msg: str) -> NoReturn:
@@ -595,25 +625,42 @@ def sched_kernels_phase(cluster_info: dict, dev) -> dict[str, dict]:
     return out
 
 
-def _flash_case_inputs(B, T, S, H, KV, hd, dtype, seed, dev, ragged=None):
+def _flash_case_inputs(B, T, S, H, KV, hd, dtype, seed, dev, ragged=None, window=None):
     """N(0, 1) q, k, v on the card; positions 0..T-1 against 0..S-1, or a
     ragged cache: row b holds ``ragged[b]`` tokens, -1 in the other slots,
-    and queries the last of them."""
+    and queries the last of them; or a named pattern: "late-keys" (keys at
+    positions S // 7 + 3.., so the first queries have no valid key),
+    "window-out" (decode; row 0 holds S // 2 tokens and queries past its
+    window, row 1 the last of 3 S // 4), "rolling" (a cache written at
+    pos % S; row 0 wrapped at 3 S + 11, row 1 part filled)."""
     import torch
 
     g = torch.Generator(device=dev).manual_seed(seed)
     q = torch.randn((B, T, H, hd), generator=g, device=dev).to(dtype)
     k = torch.randn((B, S, KV, hd), generator=g, device=dev).to(dtype)
     v = torch.randn((B, S, KV, hd), generator=g, device=dev).to(dtype)
+    slots = torch.arange(S, device=dev)[None]
+    steps = torch.arange(T, device=dev)[None]
     if ragged is None:
-        qpos = torch.arange(T, dtype=torch.int32, device=dev)[None].expand(B, T).contiguous()
-        kpos = torch.arange(S, dtype=torch.int32, device=dev)[None].expand(B, S).contiguous()
+        qpos, kpos = steps.expand(B, T), slots.expand(B, S)
+    elif ragged == "late-keys":
+        qpos, kpos = steps.expand(B, T), (slots + S // 7 + 3).expand(B, S)
+    elif ragged == "window-out":
+        fill = torch.full((B, 1), 3 * S // 4, device=dev)
+        fill[0] = S // 2
+        kpos = torch.where(slots < fill, slots, -1)
+        qpos = fill - 1
+        qpos[0] += window + 5
+    elif ragged == "rolling":
+        nows = torch.tensor([3 * S + 11] + [S // 2 + b for b in range(1, B)], device=dev)[:, None]
+        back = (nows - slots) % S  # how far behind the newest position each slot's last write is
+        kpos = torch.where(nows - back >= 0, nows - back, -1)
+        qpos = nows - T + 1 + steps
     else:
         n = torch.as_tensor(ragged, device=dev)[:, None]
-        slots = torch.arange(S, device=dev)[None]
-        kpos = torch.where(slots < n, slots, -1).to(torch.int32)
-        qpos = (n - T + torch.arange(T, device=dev)[None]).to(torch.int32)
-    return q, k, v, qpos, kpos
+        kpos = torch.where(slots < n, slots, -1)
+        qpos = n - T + steps
+    return q, k, v, qpos.to(torch.int32).contiguous(), kpos.to(torch.int32).contiguous()
 
 
 def _flash_mask(qpos, kpos, causal, window):
@@ -626,6 +673,24 @@ def _flash_mask(qpos, kpos, causal, window):
     return ok
 
 
+FLASH_KERNELS = "flash_kernel"  # every launch of csrc/flash.cu is named flash_kernel_*
+
+
+def _flash_part(name: str) -> str:
+    """flash_kernel_mma / _cores / _tiles / _combine, from a profiler's kernel name."""
+    return re.search(FLASH_KERNELS + r"\w*", name).group(0)
+
+
+def _flash_device_ms(call, n: int) -> tuple[float, dict]:
+    """The profiled device time of one flash call: ``n`` calls under the
+    profiler, each kernel's time over the launches the profiler kept (it
+    drops the first twenty or so device events of a window), summed over
+    the kernels."""
+    prof = _profile(lambda: [call() for _ in range(n)])
+    parts = {_flash_part(name): v for name, v in prof["top_all"] if FLASH_KERNELS in name}
+    return sum(ms / max(k, 1) for ms, k in parts.values()), parts
+
+
 def flash_phase(dev) -> dict:
     """flash against its plain version; times at the main path's shapes."""
     import torch
@@ -633,7 +698,8 @@ def flash_phase(dev) -> dict:
 
     from repro_torch.kernels import flash
 
-    # name, (B, T, S, H, KV, hd), causal, window, softcap, ragged rows, timed
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    # name, (B, T, S, H, KV, hd), causal, window, softcap, positions, timed
     cases = [
         ("ref causal", (2, 64, 64, 4, 2, 64), True, None, None, None, False),
         ("ref softcap", (1, 300, 300, 8, 8, 64), True, None, 50.0, None, False),
@@ -642,6 +708,12 @@ def flash_phase(dev) -> dict:
         ("ref encoder", (1, 128, 128, 4, 2, 64), False, None, None, None, False),
         ("serve wave prefill", (4, 47, 47, 24, 8, 128), True, None, None, None, False),
         ("serve wave decode", (4, 1, 63, 24, 8, 128), True, None, None, (63, 50, 31, 9), False),
+        ("no valid key prefill", (2, 100, 141, 24, 8, 128), True, None, None, "late-keys", False),
+        ("no valid key decode", (2, 1, 141, 24, 8, 128), True, 32, None, "window-out", False),
+        ("rolling decode hd128", (2, 1, 300, 24, 8, 128), True, 100, None, "rolling", False),
+        ("rolling decode hd256", (2, 1, 200, 16, 8, 256), True, 96, 50.0, "rolling", False),
+        ("rolling chunk hd128", (1, 40, 300, 24, 8, 128), True, 100, None, "rolling", False),
+        ("prefill S=4096+37", (2, 4133, 4133, 24, 8, 128), True, None, None, None, False),
         ("llama3.2-3b prefill", (2, 4096, 4096, 24, 8, 128), True, None, None, None, True),
         ("llama3.2-3b decode", (2, 1, 4112, 24, 8, 128), True, None, None, (4112, 3000), True),
         ("gemma2-9b widths", (1, 8192, 8192, 16, 8, 256), True, 4096, 50.0, None, True),
@@ -651,7 +723,7 @@ def flash_phase(dev) -> dict:
     for i, (name, (B, T, S, H, KV, hd), causal, window, cap, ragged, timed) in enumerate(cases):
         kw = dict(causal=causal, window=window, softcap=cap)
         for dtype in (torch.float32, torch.bfloat16):
-            q, k, v, qp, kp = _flash_case_inputs(B, T, S, H, KV, hd, dtype, 100 + i, dev, ragged)
+            q, k, v, qp, kp = _flash_case_inputs(B, T, S, H, KV, hd, dtype, 100 + i, dev, ragged, window)
             got = flash.flash_attention_cuda(q, k, v, qp, kp, **kw)
             want = flash.flash_attention_plain(q, k, v, qp, kp, **kw)
             torch.cuda.synchronize()
@@ -664,13 +736,21 @@ def flash_phase(dev) -> dict:
                     _fail(f"flash {name} f32: max |d| {err:.3e} beyond atol 3e-5 / rtol 1e-4")
             elif err > 1e-2 or mean > 1e-3:
                 _fail(f"flash {name} bf16: max |d| {err:.3e} (limit 1e-2), mean |d| {mean:.3e} (limit 1e-3)")
+            mask = _flash_mask(qp, kp, causal, window)
+            path, bm, bn = flash.kernel_plan(dtype, hd, T * (H // KV))
+            splits = flash.decode_splits(B, KV, S, sms) if path == "split" else 1
+            live = flash.flash_tile_live(qp, kp, H // KV, bm, bn, causal=causal, window=window)
+            skipped = 1.0 - live.float().mean().item()
             line = (f"  {name:20s} {str(dtype)[6:]:8s} B{B} T{T} S{S} H{H} KV{KV} hd{hd}: "
-                    f"max |d| {err:.3e}, mean {mean:.3e}")
+                    f"max |d| {err:.3e}, mean {mean:.3e}; {path} {bm}x{bn}"
+                    f"{f', {splits} splits' if path == 'split' else ''}, {100 * skipped:.1f}% of KV tiles skipped"
+                    f"{f', {(~mask.any(-1)).sum().item()} queries without a valid key' if not mask.any(-1).all() else ''}")
             if timed and dtype == torch.bfloat16:
-                reps = 3 if T > 1 else 50
-                ms = _cuda_ms(lambda: flash.flash_attention_cuda(q, k, v, qp, kp, **kw), reps)
-                plain_ms = _cuda_ms(lambda: flash.flash_attention_plain(q, k, v, qp, kp, **kw), reps)
-                mask = _flash_mask(qp, kp, causal, window)
+                call = lambda: flash.flash_attention_cuda(q, k, v, qp, kp, **kw)  # noqa: E731
+                reps = 10 if T > 1 else 50
+                ms = _cuda_ms(call, reps)
+                plain_ms = _cuda_ms(lambda: flash.flash_attention_plain(q, k, v, qp, kp, **kw), 3 if T > 1 else 20)
+                dev_ms, parts = _flash_device_ms(call, 30 if T > 1 else 60)
                 pairs = mask.sum().item() * H
                 nbytes = 2 * (2 * q.numel() + k.numel() + v.numel()) + 4 * (qp.numel() + kp.numel())
                 bound_ms, bound_by = _bound(nbytes, 4 * hd * pairs, BF16_OPS_PER_S)
@@ -678,18 +758,20 @@ def flash_phase(dev) -> dict:
                 if cap is None:  # SDPA has no softcap
                     qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
                     m4 = mask[:, None]
-                    sdpa = lambda: F.scaled_dot_product_attention(qt, kt, vt, attn_mask=m4, enable_gqa=True)
+                    sdpa = lambda: F.scaled_dot_product_attention(qt, kt, vt, attn_mask=m4, enable_gqa=True)  # noqa: E731
                     lib_ms = _cuda_ms(sdpa, reps)
                     lib_err = (sdpa().transpose(1, 2).float() - got.float()).abs().max().item()
                     lib_note = f"sdpa {lib_ms:.4f} ms (max |d| vs kernel {lib_err:.3e})"
                 else:
                     lib_note = "sdpa: null (no softcap)"
-                line += (f"; kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, {lib_note}, bound {bound_ms:.4f} ms "
+                line += (f"; kernel {ms:.4f} ms, profiled device time {dev_ms:.4f} ms ("
+                         + ", ".join(f"{n} {t / max(c, 1):.4f} ms x {c}" for n, (t, c) in parts.items())
+                         + f"), plain {plain_ms:.4f} ms, {lib_note}, bound {bound_ms:.4f} ms "
                          f"({bound_by}; {4 * hd * pairs:.3e} flop, {nbytes / 1e6:.1f} MB)")
                 out[name] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
                                  library_ms=lib_ms)
             print(line)
-            del q, k, v, got, want, d
+            del q, k, v, got, want, d, mask
     torch.cuda.empty_cache()
     return out
 
@@ -766,14 +848,19 @@ def serve_phase(dev) -> dict:
     gen_s = statistics.median(s for _, s in gens)
     prof = _profile(lambda: greedy_generate(model, cfg, tokens, SERVE_STEPS, device=dev))
     busy = prof["kernel_ms"] / 1e3 / prof["wall_s"]
-    flash_ms = sum(v[0] for n, v in prof["top_all"] if "flash_kernel" in n)
+    flash_ms = sum(v[0] for n, v in prof["top_all"] if FLASH_KERNELS in n)
+    flash_parts = collections.Counter()
+    for n, (ms, _) in prof["top_all"]:
+        if FLASH_KERNELS in n:
+            flash_parts[_flash_part(n)] += ms
     print(f"  (b) B {SERVE_BATCH} x {SERVE_PROMPT}-token prompt, {SERVE_STEPS} greedy tokens: "
           f"prefill {prefill_s:.4f} s; decode {step_ms:.3f} ms/step (median of "
           f"{' '.join(f'{x:.3f}' for x in steps_ms)}); greedy_generate {gen_s:.4f} s (median of "
           f"{' '.join(f'{s:.4f}' for _, s in gens)}) = {SERVE_BATCH * SERVE_STEPS / gen_s:.2f} tokens/s "
           f"({SERVE_BATCH * (SERVE_PROMPT + SERVE_STEPS) / gen_s:.1f} prompt+generated tokens/s)")
     print(f"  profiled greedy_generate: wall {prof['wall_s']:.4f} s; kernels {prof['kernel_ms']:.2f} ms on the device "
-          f"({100 * busy:.2f}% busy, {prof['launches']} launches), flash {flash_ms:.2f} ms; "
+          f"({100 * busy:.2f}% busy, {prof['launches']} launches), flash {flash_ms:.2f} ms "
+          f"({', '.join(f'{n} {ms:.2f}' for n, ms in sorted(flash_parts.items()))}); "
           f"copies {prof['copy_ms']:.2f} ms")
     for name, (ms, n) in prof["top"]:
         print(f"    {ms:9.3f} ms {n:6d} x  {name[:100]}")
@@ -1088,10 +1175,9 @@ def main() -> int:
     t0 = time.perf_counter()
     built = build.build_all()
     print(f"kernel build: {time.perf_counter() - t0:.2f} s ({', '.join(built) or 'cached'})")
-    for name, log in build.build_logs.items():
-        for line in log.splitlines():
-            if "registers" in line or "spill" in line:
-                print(f"  {name}: {line.strip()}")
+    for name in build.SOURCES:
+        for kernel, regs, spills in _ptxas_summary(build.build_log(name)):
+            print(f"  {name}: {kernel}: {regs} registers, {spills}")
 
     # The paper's corpus and the benchmark's grid configuration: k = 4, bounded
     # insample offsets over 64 executions, fractions 0.25/0.5/0.75.

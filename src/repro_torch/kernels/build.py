@@ -2,7 +2,8 @@
 
 Each source compiles with ``nvcc`` into a shared library with a plain C
 interface, loaded with ``ctypes``.  Libraries land in ``_build/`` beside this
-file (listed in ``.gitignore``), named by a hash of the source and the flags,
+file (listed in ``.gitignore``), each with its compiler output (``.log``:
+registers and spills), named by a hash of the source and the flags,
 so a changed source or flag rebuilds and an unchanged one loads at once.  All
 missing libraries build in parallel, one ``nvcc`` each.  A failed build
 raises; there is no fallback.
@@ -90,12 +91,20 @@ def build_all() -> list[str]:
             log, _ = proc.communicate()
             build_logs[name] = log
             if proc.returncode == 0:
+                library_path(name).with_suffix(".log").write_text(log)
                 os.replace(tmp, library_path(name))
             else:
                 failed.append(f"{name}.cu (exit {proc.returncode}):\n{log}")
         if failed:
             raise RuntimeError("kernel build failed: " + "\n".join(failed))
         return todo
+
+
+def build_log(name: str) -> str:
+    """The compiler output of ``csrc/<name>.cu``'s library: this process's
+    build, or the one kept beside a library built earlier ("" if neither)."""
+    kept = library_path(name).with_suffix(".log")
+    return build_logs.get(name) or (kept.read_text() if kept.exists() else "")
 
 
 def library(name: str) -> ctypes.CDLL:

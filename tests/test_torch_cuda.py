@@ -10,7 +10,8 @@ summed in f32, rtol 1e-9 with atol 1e-9 GiB*s when summed in f64, because
 the sums over a series run in another order.  flash in float32 atol 3e-5 /
 rtol 1e-4 (the reference's own kernel tolerance); in bf16 on N(0, 1)
 inputs max |d| 1e-2 and mean |d| 1e-3, because p is rounded to bf16 after
-a running max that depends on the tiling.  The model's float32 logits on
+a running max that depends on the tiling; decode's split partials as the
+outputs, with m within 1e-4 and l within rtol 1e-4.  The model's float32 logits on
 the card within 1e-4 of max |logits| of the CPU run (the products sum in
 another order).  The fitstats bank within 1e-5 of each statistic's sum of
 absolute terms of its plain version (float32 sums in another order;
@@ -161,9 +162,11 @@ def test_cluster_on_card_matches_cpu_run(cuda, placement, x64):
         np.testing.assert_allclose(got[p].wastage_gib_s, want[p].wastage_gib_s, rtol=1e-6)
 
 
-# (B, T, S, H, KV, hd, causal, window, softcap, ragged): the reference's five
-# FLASH_CASES, then GQA, hd 80/128/256, a rolling local cache, long rows,
-# and the reduced configs' hd 16 (prefill and decode)
+# (B, T, S, H, KV, hd, causal, window, softcap, positions): the reference's
+# five FLASH_CASES, then GQA, hd 80/128/256, a rolling local cache, long
+# rows, and the reduced configs' hd 16 (prefill and decode); positions are
+# arange (False), a ragged shifted cache (True), or a named pattern
+# (``_flash_positions``)
 FLASH_CARD_CASES = [
     (2, 64, 64, 4, 2, 64, True, None, None, False),
     (1, 300, 300, 8, 8, 64, True, None, 50.0, False),
@@ -178,7 +181,45 @@ FLASH_CARD_CASES = [
     (1, 3, 700, 12, 1, 128, True, None, None, True),
     (2, 47, 47, 4, 4, 16, True, None, None, False),
     (2, 1, 70, 4, 2, 16, True, 32, None, True),
+    # rows with no valid key (S a multiple of no tile size, G = 3): the mean
+    # of V over the S slots, never over the tiles' padding
+    (2, 100, 141, 24, 8, 128, True, None, None, "late-keys"),
+    (2, 1, 141, 24, 8, 128, True, 32, None, "window-out"),
+    (2, 37, 45, 6, 2, 16, True, None, None, "late-keys"),
+    (2, 1, 45, 6, 2, 16, True, 16, None, "window-out"),
+    # wrapped rolling caches (k_pos not monotone, window below S): decode at
+    # hd 128 and 256, and a 40-query chunk through the prefill kernels
+    (2, 1, 300, 24, 8, 128, True, 100, None, "rolling"),
+    (2, 1, 200, 16, 8, 256, True, 96, 50.0, "rolling"),
+    (1, 40, 300, 24, 8, 128, True, 100, None, "rolling"),
+    # a causal prefill at S = 4,096 + 37: a ragged last tile after the skip
+    (1, 4133, 4133, 6, 2, 128, True, None, None, False),
 ]
+
+
+def _flash_positions(mode, B, T, S, window):
+    """(q_pos, k_pos) of a named pattern.  "late-keys": keys at positions
+    S // 7 + 3.., so the first queries have no valid key; "window-out":
+    decode, row 0 holds S // 2 tokens and queries past its window, the other
+    rows the last of 3 S // 4 tokens; "rolling": a cache written at
+    pos % S, row 0 wrapped (at 3 S + 11), the others part filled."""
+    if mode == "late-keys":
+        return np.broadcast_to(np.arange(T)[None], (B, T)), np.broadcast_to(np.arange(S)[None] + S // 7 + 3, (B, S))
+    if mode == "window-out":
+        fill = np.full((B, 1), 3 * S // 4)
+        fill[0] = S // 2
+        kpos = np.where(np.arange(S)[None] < fill, np.arange(S)[None], -1)
+        qpos = fill - 1
+        qpos[0] += window + 5
+        return qpos, kpos
+    if mode == "rolling":
+        kpos = np.full((B, S), -1)
+        nows = [3 * S + 11] + [S // 2 + b for b in range(1, B)]
+        for b, now in enumerate(nows):
+            for p in range(max(now - S + 1, 0), now + 1):
+                kpos[b, p % S] = p
+        return np.asarray(nows)[:, None] - T + 1 + np.arange(T)[None], kpos
+    raise KeyError(mode)
 
 
 def _flash_inputs(case, dtype, dev):
@@ -187,7 +228,9 @@ def _flash_inputs(case, dtype, dev):
     q = torch.from_numpy(rng.normal(0, 1, (B, T, H, hd))).to(dev, dtype)
     k = torch.from_numpy(rng.normal(0, 1, (B, S, KV, hd))).to(dev, dtype)
     v = torch.from_numpy(rng.normal(0, 1, (B, S, KV, hd))).to(dev, dtype)
-    if ragged:  # a rolling cache: some slots empty, positions past the window wrapped
+    if isinstance(ragged, str):
+        qpos, kpos = _flash_positions(ragged, B, T, S, window)
+    elif ragged:  # a rolling cache: some slots empty, positions past the window wrapped
         lengths = rng.integers(S // 2, S + 1, size=B)
         kpos = np.where(np.arange(S)[None] < lengths[:, None], np.arange(S)[None] + S // 3, -1)
         qpos = kpos.max(axis=1, keepdims=True) + np.arange(T)[None] - T + 1
@@ -212,6 +255,44 @@ def test_flash_kernel_matches_plain_on_card(cuda, dtype, case):
     if dtype == torch.float32:
         torch.testing.assert_close(got, want, atol=3e-5, rtol=1e-4)
     else:
+        assert d.max().item() <= 1e-2 and d.mean().item() <= 1e-3, (d.max().item(), d.mean().item())
+
+
+DECODE_CARD_CASES = [c for c in FLASH_CARD_CASES if c[1] * (c[3] // c[4]) <= flash.SPLIT_ROWS]
+
+
+@pytest.mark.parametrize("splits", [None, 1, 3])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("case", DECODE_CARD_CASES, ids=lambda c: "-".join(map(str, c)))
+def test_flash_split_partials_match_plain_on_card(cuda, dtype, case, splits):
+    """Decode's split kernel against the plain partials (the same runs of
+    64-slot tiles), and the combined output against flash_attention_plain.
+    A run without a valid key for a row is (-1e30, 0, 0) on both sides;
+    elsewhere m within 1e-4, l within rtol 1e-4, and acc / l within the
+    flash gate of the type."""
+    q, k, v, qp, kp, kw = _flash_inputs(case, dtype, cuda)
+    before = flash.launches
+    m, l, acc, out = flash.flash_decode_partials_cuda(q, k, v, qp, kp, splits, **kw)
+    assert flash.launches == before + 1
+    pm, pl, pacc = flash.flash_decode_partials_plain(q, k, v, qp, kp, m.shape[1], **kw)
+    torch.cuda.synchronize()
+    none = pm == flash.NEG_INF
+    assert torch.equal(m == flash.NEG_INF, none)
+    assert (l[none] == 0).all() and (acc[none] == 0).all()
+    live = ~none
+    torch.testing.assert_close(m[live], pm[live], atol=1e-4, rtol=1e-5)
+    torch.testing.assert_close(l[live], pl[live], atol=0.0, rtol=1e-4)
+    got, want = acc[live] / l[live][:, None], pacc[live] / pl[live][:, None]
+    if dtype == torch.float32:
+        torch.testing.assert_close(got, want, atol=3e-5, rtol=1e-4)
+    else:
+        d = (got - want).abs()
+        assert d.max().item() <= 1e-2 and d.mean().item() <= 1e-3, (d.max().item(), d.mean().item())
+    want_out = flash.flash_attention_plain(q, k, v, qp, kp, **kw)
+    if dtype == torch.float32:
+        torch.testing.assert_close(out, want_out, atol=3e-5, rtol=1e-4)
+    else:
+        d = (out.float() - want_out.float()).abs()
         assert d.max().item() <= 1e-2 and d.mean().item() <= 1e-3, (d.max().item(), d.mean().item())
 
 

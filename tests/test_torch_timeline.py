@@ -12,7 +12,7 @@ import pytest
 from repro.core import timeline as ref_tl
 from repro.core.allocation import StepAllocation as RefAlloc
 from repro_torch.core import timeline as tl
-from repro_torch.core.allocation import StepAllocation
+from repro_torch.core.allocation import StepAllocation, pack_step_allocations
 
 
 def _reservation(rng, k: int, t0: float):
@@ -111,3 +111,72 @@ def test_step_allocation_matches_reference():
     t = np.concatenate([b, np.nextafter(b, np.inf), rng.uniform(0.0, 30.0, 20)])
     np.testing.assert_array_equal(StepAllocation(b, v).at(t), RefAlloc(b, v).at(t))
     assert [StepAllocation(b, v).segment_of(x) for x in t] == [RefAlloc(b, v).segment_of(x) for x in t]
+
+
+# Seed 949456516 of tests/test_demand_oracle.py::_check_demand_exceeds_matches_oracle,
+# a fault the port shares with the reference (ROADMAP Queue 3).
+DEMAND_SEED = 949456516
+
+
+def _oracle_plan(rng):
+    """The draws of tests/test_demand_oracle.py:_random_plan, in its order."""
+    k = int(rng.integers(1, 6))
+    bounds = np.sort(rng.uniform(0.5, 50.0, k))
+    values = np.maximum.accumulate(rng.uniform(10.0, 500.0, k))
+    start = float(rng.uniform(0.0, 100.0))
+    return bounds, values, start, float(np.nextafter(start + bounds[-1], np.inf))
+
+
+def _naive_value(b, v, start, t):
+    """Eq. (1) by hand: segment s + 1 holds from nextafter(start + b_s) on."""
+    return float(v[sum(t >= np.nextafter(start + x, np.inf) for x in b[:-1])])
+
+
+def test_demand_exceeds_misses_a_step_up_as_the_reference_does():
+    """The probe ``demand_exceeds`` places at the candidate's step-up,
+    ``p = nextafter(start + b)``, reads the candidate at ``p - start``,
+    which rounds back to exactly ``b``; ``StepAllocation.at`` is
+    left-closed there, so the probe sees the lower segment and misses a
+    demand peak held for 1.6 s.  Port and reference answer alike ("fits"
+    at the naive peak's (1 - 1e-6)); the fix changes both, so it waits."""
+    rng = np.random.default_rng(DEMAND_SEED)
+    plans = [_oracle_plan(rng) for _ in range(int(rng.integers(1, 7)))]
+    b, v, start, _ = _oracle_plan(rng)
+    end = start + float(b[-1])
+    allocs = [StepAllocation(pb, pv) for pb, pv, _, _ in plans]
+    bnd, val = pack_step_allocations(allocs)
+    starts, rels = np.asarray([p[2] for p in plans]), np.asarray([p[3] for p in plans])
+    times, cum = tl.step_demand_profile(bnd, val, starts, rels)
+    ref_times, ref_cum = ref_tl.step_demand_profile(bnd, val, starts, rels)
+    cand, ref_cand = StepAllocation(b, v), RefAlloc(b, v)
+
+    # the naive peak over every instant the demand can step at
+    events = np.concatenate([starts, np.nextafter(starts[:, None] + bnd, np.inf).ravel(), rels,
+                             [start, end], np.nextafter(start + b, np.inf)])
+    events = events[(events >= start) & (events <= end)]
+
+    def naive(t):
+        live = sum(_naive_value(pb, pv, s, t) for pb, pv, s, r in plans if s <= t < r)
+        return live + _naive_value(b, v, start, t)
+
+    peak = max(naive(t) for t in events)
+    assert peak == pytest.approx(901.1074, abs=1e-4)
+    for budget in (peak * (1 + 1e-6), peak * (1 - 1e-6)):
+        got = tl.demand_exceeds(times, cum, cand, start, end, budget, inclusive_end=True)
+        assert got is ref_tl.demand_exceeds(ref_times, ref_cum, ref_cand, start, end, budget, inclusive_end=True)
+        assert got is False  # "fits", also where the naive window exceeds the budget
+
+    # the cause, at the candidate's third boundary
+    p = np.nextafter(start + b[2], np.inf)
+    assert p - start == b[2]
+    assert cand.at(p - start) == pytest.approx(344.43, abs=5e-3) == ref_cand.at(p - start)
+    assert _naive_value(b, v, start, p) == pytest.approx(479.18, abs=5e-3)
+
+    # demand_exceeds' own readings over its probe set
+    probes = np.concatenate([[start], np.nextafter(start + b[b < end - start], np.inf)])
+    probes = probes[probes <= end]
+    lo, hi = np.searchsorted(times, start, side="right"), np.searchsorted(times, end, side="right")
+    t_all = np.concatenate([probes, times[lo:hi]])
+    reading = cum[np.searchsorted(times, t_all, side="right")] + cand.at(t_all - start)
+    assert reading.max() == pytest.approx(766.36, abs=5e-3)
+    assert peak - reading.max() > 0.15 * reading.max()
