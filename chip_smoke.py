@@ -11,7 +11,12 @@ Phases, each of which fails the run on a wrong result:
 2. hold segmax and wastage against their plain PyTorch versions on the
    card, at the shapes of the largest bucket of the grid (peaks and fail
    indices exact, float32 wastage within rtol 1e-5 / atol 1e-4 GiB*s, the
-   float64-summed instantiations within rtol 1e-9 / atol 1e-9), and time both;
+   float64-summed instantiations within rtol 1e-9 / atol 1e-9), and time both
+   (segmax also profiled); then the bucket's whole replay, every row's retry
+   ladder in one wastage launch, against the plain loop of rounds, with the
+   totals and with recorded ladders (32 attempts), in f32/f32, f32/f64 and
+   f64/f64 (values, failure indices, retries and attempt counts exact,
+   waste within the same gates), timed, profiled and beside its bound;
 3. the paper's Fig. 7 grid at full corpus size on the card (cold and warm),
    with the launch counts of that run, held against the port's own CPU run
    (every Fig. 7a cell within rtol 1e-3);
@@ -21,11 +26,15 @@ Phases, each of which fails the run on a wrong result:
    windows, sweep and auto placement, cold then warm, all giving the same
    (node, start, end) for every attempt, equal to the port's own CPU run,
    each run launching the kernels of its engine (counted per run: rangemax
-   on windows, compaction on the sweep, segmax and wastage on both); one
-   profiled warm windows run; the ``auto`` router's four constants;
+   on windows, compaction on the sweep, segmax and wastage on both, wastage
+   once per replay); one profiled warm windows run and one sweep run (each
+   wall beside its total launches); the ``auto`` router's four constants;
 6. rangemax and compaction against their plain versions on the card
    (bit-exact), at the shapes of phase 5 and at L = 256, 1024, 8192, in
-   float64 and float32, and timed;
+   float64 and float32, and timed: the fit tables (running demand, tie
+   mask and table in one launch, as the epoch program calls them) bitwise,
+   also at L = 20,000 (the global-memory path), and profiled at the
+   cluster's most frequent shape; compaction profiled at its shape;
 7. flash against its plain version on the card, in float32 (atol 3e-5,
    rtol 1e-4, the reference's kernel tolerance) and bf16 on N(0, 1) inputs
    (max |d| <= 1e-2, mean |d| <= 1e-3: p is rounded to bf16 after a running
@@ -69,7 +78,8 @@ Phases, each of which fails the run on a wrong result:
 11. the online predictor path: ``AdaptiveKSelector`` on the card over the
    first 512 executions of the corpus' largest task (32 reoptimisations of
    6 candidates, each a replay through segmax and wastage), its
-   ``history_k`` equal to its CPU run's; and ``simulate_grid`` on the card
+   ``history_k`` equal to its CPU run's, and one profiled run (wall and
+   total launches); and ``simulate_grid`` on the card
    against the sequential oracle ``simulate_suite`` (scale 0.35,
    progressive offsets, the seven engine methods, fraction 0.5) under the
    reference's gate (``tests/test_batch_engine.py:36-47``) on every cell.
@@ -196,6 +206,122 @@ def _bound(nbytes: float, nops: float, ops_per_s: float = F32_OPS_PER_S) -> tupl
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
+def _device_ms(call, kernel: str, n: int) -> float:
+    """The profiled device time of one ``call()``: ``n`` calls under the
+    profiler, the time of the launches named ``*kernel*`` over the calls
+    the profiler kept (it drops the first twenty or so device events of a
+    window; one call is one launch of the kernel)."""
+    prof = _profile(lambda: [call() for _ in range(n)])
+    hits = [v for name, v in prof["top_all"] if kernel in name]
+    return sum(v[0] for v in hits) / max(sum(v[1] for v in hits), 1)
+
+
+# aten ops that launch nothing on the card: allocations, views, and the
+# argument checks' reads of shapes
+NO_LAUNCH_OPS = {"empty", "empty_strided", "select", "slice", "view", "_unsafe_view", "transpose", "alias",
+                 "as_strided", "expand", "unsqueeze", "detach", "t", "permute", "reshape", "_reshape_alias"}
+
+
+def _launching_ops(call) -> int:
+    """The aten ops one ``call()`` dispatches that launch work on the card
+    (each launches one or more kernels or copies, or reads back to the
+    host).  Counted at dispatch, so the count is exact, where the profiler
+    drops the first device events of its window.  A hand-written kernel
+    launches through its wrapper, not through aten: its wrapper counts it."""
+    from torch.utils._python_dispatch import TorchDispatchMode
+
+    seen = []
+
+    class Record(TorchDispatchMode):
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            seen.append(func.__name__.split(".")[0])
+            return func(*args, **(kwargs or {}))
+
+    with Record():
+        call()
+    return sum(op not in NO_LAUNCH_OPS for op in seen)
+
+
+def _ladder_bound(valid, rows_series, attempts, k: int, vsize: int, asize: int, slots: int) -> tuple[float, str]:
+    """The retry ladder's bound, the sum of the bounds of its rounds when
+    each round is one launch: in every round, each distinct series that one
+    of its rows still scores is read once (the method rows of an execution
+    share it); each row's schedule is read once and its outputs written
+    once, at the HBM rate.  ``valid`` (S,) holds each series' samples."""
+    import torch
+
+    rounds = torch.zeros_like(valid, dtype=torch.int64).scatter_reduce_(
+        0, rows_series.long(), attempts.to(torch.int64), "amax")
+    series_bytes = 4 * (rounds * valid.to(torch.int64)).sum().item()
+    R = rows_series.numel()
+    out_bytes = R * (asize + 4) + (R * (slots * (k * vsize + 4 + asize) + 4) if slots else 0)
+    return _bound(series_bytes + R * 2 * k * vsize + out_bytes, 0)
+
+
+def ladder_phase(y, lengths, series, bounds, values, k_eff, methods, cap_mib, kc) -> dict:
+    """The retry-ladder kernel against the plain loop of rounds on the card,
+    in both modes (the grid's totals; the cluster's recorded ladders, 32
+    attempts) and the three precisions: values, failure indices, retries
+    and attempt counts exact, waste within the wastage gates."""
+    import torch
+
+    from repro_torch.core.predictor import retry_flags
+    from repro_torch.kernels import wastage
+    from repro_torch.sim import torch_sim
+
+    sel, cap = retry_flags(methods)
+    N, B, M, k = values.shape
+    rows_series = series.reshape(-1).repeat_interleave(M)
+    valid = torch.clamp(lengths.to(torch.int64), max=y.shape[1])
+    out = {}
+    for vdt, acc in ((torch.float32, torch.float32), (torch.float32, torch.float64), (torch.float64, torch.float64)):
+        bb, vv = bounds.to(vdt), values.to(vdt)
+        tol = dict(rtol=1e-5, atol=1e-4) if acc == torch.float32 else dict(rtol=1e-9, atol=1e-9)
+        for slots in (None, 32):
+            kw = dict(interval_s=kc.interval_s, factor=kc.retry_factor, cap_mib=cap_mib, max_attempts=slots,
+                      acc_dtype=acc)
+            args = (y, lengths, series, bb, vv, k_eff, sel, cap)
+            got = wastage.replay_ladder_cuda(*args, **kw)
+            want = wastage.replay_ladder_plain(*args, **kw)
+            torch.cuda.synchronize()
+            name = f"ladder {str(vdt)[6:]}/{str(acc)[6:]} {'recorded (32 slots)' if slots else 'totals'}"
+            exact = [("retries", got[1], want[1])]
+            if slots:
+                exact += [(n, g, w) for n, g, w in zip(("values", "failure indices"), got[2][:2], want[2][:2])]
+                exact.append(("attempt counts", got[2][3], want[2][3]))
+            for what, g, w in exact:
+                if not torch.equal(g, w):
+                    _fail(f"{name}: {(g != w).sum().item()} {what} differ from the plain loop")
+            for what, g, w in [("waste", got[0], want[0])] + ([("attempt waste", got[2][2], want[2][2])] if slots else []):
+                if not torch.allclose(g, w, **tol):
+                    _fail(f"{name}: {what} off the plain loop by {(g - w).abs().max().item()} GiB*s beyond {tol}")
+            ms = _cuda_ms(lambda: wastage.replay_ladder_cuda(*args, **kw), 20)
+            plain_ms = _cuda_ms(lambda: wastage.replay_ladder_plain(*args, **kw), 2)
+            device_ms = _device_ms(lambda: wastage.replay_ladder_cuda(*args, **kw), "wastage_kernel", 30)
+            attempts = got[2][3] if slots else (got[1] + 1)
+            bound_ms, bound_by = _ladder_bound(valid, rows_series, attempts, k, bb.element_size(),
+                                               torch.finfo(acc).bits // 8, slots or 0)
+            if slots is None or acc == torch.float64:  # the grid's call, and the cluster's
+                before = wastage.launches
+                site = _launching_ops(lambda: torch_sim._replay(
+                    y, lengths, series, bb, vv, k_eff, methods=methods, interval_s=kc.interval_s,
+                    factor=kc.retry_factor, cap_mib=cap_mib, max_attempts=slots, acc_dtype=acc))
+                if wastage.launches != before + 1 or site:
+                    _fail(f"{name}: torch_sim._replay took {wastage.launches - before} wastage launches and "
+                          f"{site} aten ops that launch, where it should take one launch and nothing else")
+                plain = _launching_ops(lambda: wastage.replay_ladder_plain(*args, **kw))
+                print(f"  {name}: torch_sim._replay is 1 wastage launch and 0 aten ops that launch; "
+                      f"the plain loop dispatches {plain} aten ops that launch")
+            print(f"  {name}: {N * B * M} rows, {int(attempts.sum())} attempts (max retries "
+                  f"{int(got[1].max())}): exact, max |dw| {(got[0] - want[0]).abs().max().item():.3e} GiB*s; "
+                  f"kernel {ms:.4f} ms back to back, profiled device {device_ms:.4f} ms a replay, plain loop "
+                  f"{plain_ms:.4f} ms, bound {bound_ms:.5f} ms ({bound_by})")
+            out[(vdt, acc, slots)] = dict(max_abs_err=(got[0] - want[0]).abs().max().item(), ms=ms,
+                                          plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
+                                          device_ms=device_ms)
+    return out
+
+
 def kernels_phase(batch, cfg, dev) -> dict[str, dict]:
     """Each kernel against its plain version at the largest bucket's shapes."""
     import torch
@@ -226,15 +352,18 @@ def kernels_phase(batch, cfg, dev) -> dict[str, dict]:
             _fail(f"segmax k_max={k_max}: {(got != want).sum().item()} peaks differ from the plain version")
         ms = _cuda_ms(lambda: segmax.segmax_cuda(y, lengths, series, k_eff, k_max), 50)
         plain_ms = _cuda_ms(lambda: segment_peaks_dynamic(y[series], lengths[series], k_eff, k_max), 5)
-        print(f"  segmax k_max={k_max}: exact; kernel {ms:.4f} ms, plain {plain_ms:.4f} ms")
+        device_ms = _device_ms(lambda: segmax.segmax_cuda(y, lengths, series, k_eff, k_max), "segmax_kernel", 40)
+        print(f"  segmax k_max={k_max}: exact; kernel {ms:.4f} ms, profiled device {device_ms:.4f} ms, "
+              f"plain {plain_ms:.4f} ms")
         if k_max == cfg.ksegments.k:  # the main path's shape
             nbytes = 4 * valid.sum().item() + 4 * 3 * S + 4 * S * k_max
             bound_ms, bound_by = _bound(nbytes, valid.sum().item())
             out["segmax"] = dict(max_abs_err=(got - want).abs().max().item(), ms=ms, plain_ms=plain_ms,
-                                 bound_ms=bound_ms, bound_by=bound_by)
+                                 bound_ms=bound_ms, bound_by=bound_by, device_ms=device_ms)
 
-    # wastage on the first replay round of the bucket: every method row of
-    # every non-empty execution, with the engine's own predictions
+    # one attempt per row (the kernels API's call) on the first replay round
+    # of the bucket: every method row of every non-empty execution, with the
+    # engine's own predictions
     kc = cfg.ksegments
     x = torch.as_tensor(batch.x, dtype=torch.float32).to(dev)
     bounds, values = torch_sim.predict_lanes(
@@ -269,8 +398,7 @@ def kernels_phase(batch, cfg, dev) -> dict[str, dict]:
     nbytes = 4 * valid.sum().item() + 4 * S + R * (4 + 8 * k + 8)
     nops = (row_len.sum().item() * (k + 5)) + ((f_k[f_k >= 0].to(torch.int64) + 1).sum().item() * (k + 3))
     bound_ms, bound_by = _bound(nbytes, nops)
-    out["wastage"] = dict(max_abs_err=(w_k - w_p).abs().max().item(), ms=ms, plain_ms=plain_ms,
-                          bound_ms=bound_ms, bound_by=bound_by)
+    print(f"  one attempt f32: bound {bound_ms:.5f} ms ({bound_by})")
     # the cluster ladders' instantiations: float32 decisions with float64
     # sums, and float64 throughout (the x64 ladders)
     for vdt, acc in ((torch.float32, torch.float64), (torch.float64, torch.float64)):
@@ -287,6 +415,11 @@ def kernels_phase(batch, cfg, dev) -> dict[str, dict]:
         plain_ms = _cuda_ms(lambda: attempt_outcomes_batch(y[rs], lengths[rs], interval, bb, vv, acc), 5)
         print(f"  {name} rows={R}: fail indices exact, max |dw| {(w_k - w_p).abs().max().item():.3e} GiB*s; "
               f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms")
+    # the whole replay of the bucket (the main path's call): every row's
+    # retry ladder in one launch
+    ladders = ladder_phase(y, lengths, series.view(L, B), bounds, values,
+                           torch.full((L,), kc.k, dtype=torch.int32, device=dev), GRID_METHODS, cfg.node_cap_mib, kc)
+    out["wastage"] = ladders[(torch.float32, torch.float32, None)]
     return out
 
 
@@ -305,8 +438,8 @@ def grid_phase(wfs, cfg):
     res, cold = _wall(lambda: simulate_grid(wfs, cfg=cfg))
     counts = ops.launch_counts()
     print(f"grid phase: cuda cold {cold:.3f} s; launches {counts}")
-    if min(counts[k] for k in GRID_KERNELS) < 1:
-        _fail(f"a kernel was not launched on the grid path: {counts}")
+    if min(counts[k] for k in GRID_KERNELS) < 1 or counts["wastage"] != counts["segmax"]:
+        _fail(f"a kernel was not launched on the grid path, or a replay took more than one wastage launch: {counts}")
     _, warm = _wall(lambda: simulate_grid(wfs, cfg=cfg))
     prof = _profile(lambda: simulate_grid(wfs, cfg=cfg))
     busy = prof["kernel_ms"] / 1e3 / prof["wall_s"]
@@ -430,7 +563,7 @@ def cluster_phase(wfs) -> dict:
 
     shapes = {"rangemax": collections.Counter(), "compaction": collections.Counter()}
     with _patched(cluster, "compute_cluster_ladders", timed), \
-            _patched(rangemax, "rangemax_cuda", _shape_counter(shapes["rangemax"])), \
+            _patched(rangemax, "fit_tables_cuda", _shape_counter(shapes["rangemax"])), \
             _patched(compaction, "compaction_cuda", _shape_counter(shapes["compaction"])):
         return _cluster_runs(wfs, ladder_s, shapes)
 
@@ -465,6 +598,8 @@ def _cluster_runs(wfs, ladder_s: list, shapes: dict) -> dict:
             need = GRID_KERNELS + engine_kernels[placement]
             if min(counts[k] for k in need) < 1 or max(counts["rangemax"], counts["compaction"]) < 1:
                 _fail(f"cluster {placement} {temp}: a kernel of its path was not launched: {counts}")
+            if counts["wastage"] != counts["segmax"]:
+                _fail(f"cluster {placement} {temp}: a ladder replay took more than one wastage launch: {counts}")
             if temp == "warm" and placement != "auto":
                 runs[(placement, "counts")] = counts
     counts = {"rangemax": runs.pop(("windows", "counts"))["rangemax"],
@@ -495,15 +630,22 @@ def _cluster_runs(wfs, ladder_s: list, shapes: dict) -> dict:
         _fail("cluster placements on the card differ from the port's CPU run")
     if worst > 1e-6:
         _fail(f"cluster wastage on the card off by {worst:.3e} (rtol 1e-6) from the CPU run")
-    # one profiled warm windows run: device busy share, the busiest kernels
-    prof = _profile(lambda: cluster.run_cluster_batched(wfs, CLUSTER_POLICIES, placement="windows", **CLUSTER_KW))
-    busy = prof["kernel_ms"] / 1e3 / prof["wall_s"]
-    print(f"  profiled warm windows run: wall {prof['wall_s']:.3f} s; kernels {prof['kernel_ms']:.2f} ms on the "
-          f"device ({100 * busy:.2f}% busy, {prof['launches']} launches); copies {prof['copy_ms']:.2f} ms")
-    print(f"  phases, host ms {json.dumps({k: round(v, 2) for k, v in prof['phases_host_ms'].items()})}; "
-          f"device span ms {json.dumps({k: round(v, 2) for k, v in prof['phases_device_ms'].items()})}")
-    for name, (ms, n) in prof["top"]:
-        print(f"    {ms:8.3f} ms {n:6d} x  {name[:100]}")
+    # one profiled warm run of each engine: wall beside total launches,
+    # device busy share, the busiest kernels
+    for placement in ("windows", "sweep"):
+        ops.reset_launch_counts()
+        prof = _profile(lambda: cluster.run_cluster_batched(wfs, CLUSTER_POLICIES, placement=placement, **CLUSTER_KW))
+        counts_p = ops.launch_counts()
+        busy = prof["kernel_ms"] / 1e3 / prof["wall_s"]
+        per_row = (f", {prof['launches'] / counts_p['rangemax']:.1f} per rangemax launch"
+                   if counts_p["rangemax"] else "")
+        print(f"  profiled warm {placement} run: wall {prof['wall_s']:.3f} s; kernels {prof['kernel_ms']:.2f} ms on "
+              f"the device ({100 * busy:.2f}% busy, {prof['launches']} launches{per_row}); copies "
+              f"{prof['copy_ms']:.2f} ms; kernel launches of this run {counts_p}")
+        print(f"  phases, host ms {json.dumps({k: round(v, 2) for k, v in prof['phases_host_ms'].items()})}; "
+              f"device span ms {json.dumps({k: round(v, 2) for k, v in prof['phases_device_ms'].items()})}")
+        for name, (ms, n) in prof["top"]:
+            print(f"    {ms:8.3f} ms {n:6d} x  {name[:100]}")
     # the auto router's constants.  Windows: one warm run, each program call
     # timed from its start to the next call's start (the call and the host
     # loop's bookkeeping after it), fitted as a + b * rows offered.
@@ -573,12 +715,28 @@ def _event_rows(B: int, L: int, dtype, seed: int, mode: str, dev):
     return torch.from_numpy(t).to(dev, dtype), torch.from_numpy(d).to(dev, dtype), torch.from_numpy(keep).to(dev)
 
 
+def _fit_rows(B: int, L: int, dtype, seed: int, dev):
+    """Node event rows as the epoch program holds them: sorted times with
+    ties and a +inf tail, MiB deltas (some -0.0), base demands."""
+    import numpy as np
+    import torch
+
+    rng = np.random.default_rng(seed)
+    fin = np.arange(L)[None, :] < rng.integers(L // 2, L + 1, size=B)[:, None]
+    t = np.where(fin, np.sort(np.round(rng.random((B, L)) * 5e3, 1), axis=1), np.inf)
+    d = np.where(fin, np.round(rng.standard_normal((B, L)) * 4096.0, 3), 0.0)
+    d[:, ::7] = -0.0
+    return [torch.from_numpy(a).to(dev, dtype) for a in (t, d, np.round(rng.random(B) * 65536.0, 2))]
+
+
 def sched_kernels_phase(cluster_info: dict, dev) -> dict[str, dict]:
-    """rangemax and compaction against their plain versions, bit-exact, at
+    """rangemax (the fit tables the epoch program builds, and the table of
+    given rows) and compaction against their plain versions, bit-exact, at
     the shapes the cluster path gave them and at L = 256, 1024, 8192."""
     import torch
 
     from repro_torch.kernels import compaction, rangemax
+    from repro_torch.sim import device_timeline
 
     def check_rangemax(x):
         got, want = rangemax.rangemax_cuda(x), rangemax.table_levels(x)
@@ -592,7 +750,24 @@ def sched_kernels_phase(cluster_info: dict, dev) -> dict[str, dict]:
         bound_ms, bound_by = _bound(x.element_size() * B * L * (1 + P), B * L * (P - 1), F64_OPS_PER_S)
         return dict(max_abs_err=0.0, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by)
 
-    def check_compaction(t, d, keep):
+    def check_fit_tables(t, d, base0):
+        (csm, tbl), (want_csm, want_tbl) = rangemax.fit_tables_cuda(t, d, base0), rangemax.fit_tables_plain(t, d, base0)
+        torch.cuda.synchronize()
+        bits = torch.int64 if t.dtype == torch.float64 else torch.int32
+        if not (torch.equal(csm.view(bits), want_csm.view(bits)) and torch.equal(tbl.view(bits), want_tbl.view(bits))):
+            _fail(f"fit tables {t.dtype} {tuple(t.shape)}: not bitwise equal to the plain version")
+        ms = _cuda_ms(lambda: rangemax.fit_tables_cuda(t, d, base0), 100)
+        plain_ms = _cuda_ms(lambda: rangemax.fit_tables_plain(t, d, base0), 10)
+        device_ms = _device_ms(lambda: rangemax.fit_tables_cuda(t, d, base0), "fit_tables_kernel", 60)
+        B, L = t.shape
+        P = rangemax.num_levels(L)
+        # bytes: t and d read once, base0, the table written once; operations:
+        # ~2 adds, a compare for the tie mask and P - 1 maxima a slot
+        bound_ms, bound_by = _bound(t.element_size() * (B * L * (2 + P) + B), B * L * (P + 2), F64_OPS_PER_S)
+        return dict(max_abs_err=0.0, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
+                    device_ms=device_ms)
+
+    def check_compaction(t, d, keep, profiled=False):
         got, want = compaction.compaction_cuda(t, d, keep), compaction.compact_events_plain(t, d, keep)
         torch.cuda.synchronize()
         if any(torch.isnan(g).any() or not torch.equal(g, w) for g, w in zip(got, want)):
@@ -601,12 +776,19 @@ def sched_kernels_phase(cluster_info: dict, dev) -> dict[str, dict]:
         plain_ms = _cuda_ms(lambda: compaction.compact_events_plain(t, d, keep), 10)
         B, L = t.shape
         bound_ms, bound_by = _bound(B * L * (4 * t.element_size() + 1), B * L * 4, F64_OPS_PER_S)
-        return dict(max_abs_err=0.0, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by)
+        out = dict(max_abs_err=0.0, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by)
+        if profiled:
+            out["device_ms"] = _device_ms(lambda: compaction.compaction_cuda(t, d, keep), "compact_kernel", 60)
+        return out
 
-    print("sched kernels phase: rangemax (16, L), compaction (64, L); bit-exact against the plain versions")
+    print("sched kernels phase: fit tables and rangemax (16, L), compaction (64, L); bit-exact against the plain "
+          "versions")
     for dtype in (torch.float64, torch.float32):
         for L in (256, 1024, 8192):
+            f = check_fit_tables(*_fit_rows(16, L, dtype, L, dev))
             r = check_rangemax(_demand_rows(16, L, dtype, L, dev))
+            print(f"  fit tables {str(dtype)[6:]} L={L}: bitwise; kernel {f['ms']:.4f} ms back to back, profiled "
+                  f"device {f['device_ms']:.4f} ms, plain chain {f['plain_ms']:.4f} ms, bound {f['bound_ms']:.5f} ms")
             print(f"  rangemax {str(dtype)[6:]} L={L}: exact; kernel {r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms, "
                   f"bound {r['bound_ms']:.5f} ms")
             for mode in ("none", "all", "half"):
@@ -614,14 +796,27 @@ def sched_kernels_phase(cluster_info: dict, dev) -> dict[str, dict]:
                 if mode == "half":
                     print(f"  compaction {str(dtype)[6:]} L={L} (keep none/all/half exact): kernel {c['ms']:.4f} ms, "
                           f"plain {c['plain_ms']:.4f} ms, bound {c['bound_ms']:.5f} ms")
+    f = check_fit_tables(*_fit_rows(16, 20000, torch.float64, 9, dev))
+    print(f"  fit tables f64 L=20000 (past the shared memory: the global path): bitwise; kernel {f['ms']:.4f} ms")
     # the main path's shapes: the most frequent of the cluster runs
     (B, L), _ = cluster_info["shapes"]["rangemax"].most_common(1)[0]
-    out = {"rangemax": check_rangemax(_demand_rows(B, L, torch.float64, 7, dev))}
-    print(f"  rangemax at the cluster path's shape (16 nodes, L={L}) f64: kernel {out['rangemax']['ms']:.4f} ms")
+    rows = _fit_rows(B, L, torch.float64, 7, dev)
+    out = {"rangemax": check_fit_tables(*rows)}
+    before = rangemax.launches
+    site = _launching_ops(lambda: device_timeline._fit_tables(*rows))
+    if rangemax.launches != before + 1 or site:
+        _fail(f"device_timeline._fit_tables took {rangemax.launches - before} rangemax launches and {site} aten ops "
+              f"that launch, where it should take one launch and nothing else")
+    print(f"  device_timeline._fit_tables at the cluster path's shape is 1 rangemax launch and 0 aten ops that "
+          f"launch; the plain chain dispatches {_launching_ops(lambda: rangemax.fit_tables_plain(*rows))} aten ops "
+          f"that launch")
+    print(f"  fit tables at the cluster path's shape ({B} nodes, L={L}) f64: bitwise; kernel "
+          f"{out['rangemax']['ms']:.4f} ms back to back, profiled device {out['rangemax']['device_ms']:.4f} ms, "
+          f"plain chain {out['rangemax']['plain_ms']:.4f} ms, bound {out['rangemax']['bound_ms']:.6f} ms")
     (B, L), _ = cluster_info["shapes"]["compaction"].most_common(1)[0]
-    out["compaction"] = check_compaction(*_event_rows(B, L, torch.float64, 8, "half", dev))
+    out["compaction"] = check_compaction(*_event_rows(B, L, torch.float64, 8, "half", dev), profiled=True)
     print(f"  compaction at the cluster path's shape ({B} lanes x nodes, L={L}) f64: "
-          f"kernel {out['compaction']['ms']:.4f} ms")
+          f"kernel {out['compaction']['ms']:.4f} ms, profiled device {out['compaction']['device_ms']:.4f} ms")
     return out
 
 
@@ -1124,8 +1319,13 @@ def online_phase(wfs, seed: int) -> None:
           f"{reopt_s[0] * 1e3:.2f} ms, warm median {statistics.median(reopt_s[1:]) * 1e3:.2f} ms, last "
           f"{reopt_s[-1] * 1e3:.2f} ms; cpu {cpu_s:.3f} s; launches {counts}")
     print(f"  history_k card {card.history_k}")
-    if min(counts[k] for k in GRID_KERNELS) < 1:
-        _fail(f"the tuner's replays did not launch segmax and wastage: {counts}")
+    prof = _profile(lambda: [sel.observe(e.input_size, e.series) for sel in [AdaptiveKSelector()] for e in execs])
+    busy = prof["kernel_ms"] / 1e3 / prof["wall_s"]
+    print(f"  profiled tuner run: wall {prof['wall_s']:.3f} s; kernels {prof['kernel_ms']:.2f} ms on the device "
+          f"({100 * busy:.2f}% busy, {prof['launches']} launches); host ms "
+          f"{json.dumps({k: round(v, 2) for k, v in prof['phases_host_ms'].items()})}")
+    if min(counts[k] for k in GRID_KERNELS) < 1 or counts["wastage"] != counts["segmax"]:
+        _fail(f"the tuner's replays did not launch segmax and wastage once each: {counts}")
     if card.history_k != cpu.history_k or len(card.history_k) != len(execs) // card.refresh:
         _fail(f"AdaptiveKSelector: history_k on the card {card.history_k} differs from the cpu run {cpu.history_k}")
 

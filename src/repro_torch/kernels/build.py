@@ -125,3 +125,10 @@ def check_arg(name: str, t: torch.Tensor, dtype: torch.dtype, ndim: int, device:
             f"{name}: need a contiguous {ndim}-d {dtype} tensor on {device}, "
             f"got {t.dtype} {tuple(t.shape)} on {t.device} (contiguous={t.is_contiguous()})"
         )
+
+
+def check_cuda(name: str, t: torch.Tensor) -> None:
+    """Raise unless ``t`` lies on a CUDA card: a kernel's wrapper never
+    takes the plain version's place."""
+    if t.device.type != "cuda":
+        raise ValueError(f"{name}: the kernel takes CUDA tensors, got one on {t.device}")

@@ -1,32 +1,61 @@
-// rangemax: the doubling (sparse-table) range-max levels of demand rows, for sm_90a.
+// rangemax: the cluster's fit tables -- running demand and its doubling
+// range-max levels -- for sm_90a, one launch per scheduling-epoch row.
 //
 // Replaces the TPU kernel repro/kernels/rangemax.py (_rangemax_kernel /
-// rangemax_pallas).  out[r, p, i] = max(x[r, i : min(i + 2^p, L)]) for
-// p < P = floor(log2 L) + 1: level p is the max of two level p-1 spans,
+// rangemax_pallas): out[r, p, i] = max(x[r, i : min(i + 2^p, L)]) for
+// p < P = floor(log2 L) + 1, level p the max of two level p-1 spans,
 // max(prev[i], prev[i + 2^(p-1)]), with the -inf identity past the row end.
-// The TPU kernel rolled a whole (8, L) tile through VMEM lanes
-// (pltpu.roll); here one block owns one row and reads the shifted level
-// from shared memory instead:
-//   * shared path (L * sizeof(T) <= 48 KB): the row is loaded into shared
-//     memory once and updated in place level by level.  Each level walks
-//     the row in chunks of the block width in increasing order: a chunk
-//     reads only its own slots and later ones (i + span > i), which earlier
-//     chunks never wrote, so one barrier between the reads and the writes
-//     of a chunk keeps the update race-free.  Every level is written out
-//     from the same registers.
-//   * global path (longer rows, e.g. float64 at L = 8192): level p reads
-//     level p-1 from the output itself, one barrier between levels.
-// max is exact, so the table is bit-identical to the plain version and to
-// the reference's table_levels_jnp in any dtype.  Rows are the cluster's
-// nodes (16 on the main path), so the launch is latency-bound; its byte
-// bound is one read of x and one write of the table at 3.35 TB/s.
+// The TPU kernel rolled a whole (8, L) tile through VMEM lanes (pltpu.roll);
+// here one block owns one row and reads the shifted level from shared
+// memory.  Two entry points share the table levels (build_levels):
+//   * rangemax_launch(x): rows given (the TPU kernel's function);
+//   * fit_tables_launch(t, d, base0): what the epoch program needs before
+//     every row (repro/sim/device_timeline.py:_fit_tables) -- the running
+//     sum of the event deltas d in the order of XLA's CPU cumsum, plus the
+//     node's base demand, -inf off the tie-group-final events (t[i] !=
+//     t[i + 1], isfinite(t[L - 1]) for the last), then the table.  On the
+//     card that chain was ~46 small launches before the table's one.
+//
+// The running sum reproduces scan.cumsum(d, 16) bit for bit, since
+// placements are held bit-identical to the reference's: each thread folds
+// one block of 16 in order from +0.0 (so a leading -0.0 becomes +0.0); the
+// block totals are folded the same way, recursively, until at most 16 are
+// left (three levels past L = 256); then each block adds its exclusive
+// prefix (+0.0 for block 0), top level first.  Scan buffers pad one slot
+// per 16 so that the folds' strided reads spread over the banks.  Only
+// additions are involved; the source still builds with -fmad=false.
+//
+// Shared path: the row stays in shared memory from the sum through every
+// level (the 48 KB cap lifted to the card's opt-in limit, 227 KB on H100:
+// fit tables up to ~13,500 float64 slots); levels ping-pong between two
+// buffers with one barrier per level and are written out with 16-byte
+// stores where the row allows.  Longer rows take the global path: level p
+// reads level p-1 from the output itself, and the sum uses the output's
+// upper levels as scratch before they are built.  max is exact, so the
+// table is bit-identical to the plain version in any dtype.  Rows are the
+// cluster's nodes (16 on the main path), so a launch is latency-bound; its
+// byte bound is one read of the inputs and one write of the table at
+// 3.35 TB/s.
 
 #include <cuda_runtime.h>
+#include <cstdint>
 
 namespace {
 
-constexpr int kThreads = 256;
-constexpr int kSharedBytes = 48 * 1024;
+constexpr int kThreads = 512;
+constexpr int kBlock = 16;  // XLA's CPU cumsum block (scan.XLA_SCAN_BLOCK)
+constexpr int kMaxScanLevels = 8;
+
+// Slot of element i in a scan buffer: one pad slot after every 16.
+__host__ __device__ __forceinline__ int padded(int i) { return i + i / kBlock; }
+
+// One 16-byte store of W = 16 / sizeof(T) slots.
+__device__ __forceinline__ void store16(float* p, const float* o) {
+  *reinterpret_cast<float4*>(p) = make_float4(o[0], o[1], o[2], o[3]);
+}
+__device__ __forceinline__ void store16(double* p, const double* o) {
+  *reinterpret_cast<double2*>(p) = make_double2(o[0], o[1]);
+}
 
 template <typename T>
 __device__ __forceinline__ T vmax(T a, T b) {
@@ -34,78 +63,270 @@ __device__ __forceinline__ T vmax(T a, T b) {
 }
 
 template <typename T>
-__global__ void __launch_bounds__(kThreads) rangemax_shared(const T* __restrict__ x, int L, int P,
-                                                            T* __restrict__ out) {
+__device__ __forceinline__ T neg_inf();
+template <>
+__device__ __forceinline__ float neg_inf<float>() {
+  return __int_as_float(0xff800000);
+}
+template <>
+__device__ __forceinline__ double neg_inf<double>() {
+  return __longlong_as_double(0xfff0000000000000ULL);
+}
+
+// The levels of the running sum: n[0] = L, n[l + 1] = ceil(n[l] / 16) while
+// n[l] > 16; level l >= 1 lives at off[l] of the totals scratch.
+struct ScanShape {
+  int depth;
+  int n[kMaxScanLevels];
+  int off[kMaxScanLevels];
+  int slots;  // of the totals scratch
+};
+
+__host__ __device__ ScanShape scan_shape(int L) {
+  ScanShape s{};
+  s.depth = 1;
+  s.n[0] = L;
+  int off = 0;
+  while (s.n[s.depth - 1] > kBlock && s.depth < kMaxScanLevels) {
+    const int m = (s.n[s.depth - 1] + kBlock - 1) / kBlock;
+    s.n[s.depth] = m;
+    s.off[s.depth] = off;
+    off += padded(m) + 1;
+    ++s.depth;
+  }
+  s.slots = off;
+  return s;
+}
+
+// Block-collective: the running sum of d[0..L) in scan.cumsum(d, 16)'s
+// order.  Leaves level 0's block-local sums in scan[padded(i)] and every
+// upper level's finished prefix in tot; element i's sum is then
+// scan[padded(i)] + (L > 16 ? prefix of block i / 16 - 1, or +0.0 : nothing).
+template <typename T>
+__device__ void running_sum(const T* __restrict__ d, int L, T* scan, T* tot, const ScanShape& sh) {
+  for (int i = threadIdx.x; i < L; i += blockDim.x) scan[padded(i)] = d[i];
+  __syncthreads();
+  for (int l = 0; l < sh.depth; ++l) {  // fold every block of 16, bottom up
+    T* buf = l == 0 ? scan : tot + sh.off[l];
+    T* up = l + 1 < sh.depth ? tot + sh.off[l + 1] : nullptr;
+    const int n = sh.n[l];
+    for (int j = threadIdx.x; j * kBlock < n; j += blockDim.x) {
+      T acc = T(0);
+      const int end = min(n, (j + 1) * kBlock);
+      for (int i = j * kBlock; i < end; ++i) {
+        acc = acc + buf[padded(i)];
+        buf[padded(i)] = acc;
+      }
+      if (up) up[padded(j)] = acc;
+    }
+    __syncthreads();
+  }
+  for (int l = sh.depth - 2; l >= 1; --l) {  // add each block's exclusive prefix, top down
+    T* buf = tot + sh.off[l];
+    const T* up = tot + sh.off[l + 1];
+    for (int i = threadIdx.x; i < sh.n[l]; i += blockDim.x) {
+      const int b = i / kBlock;
+      buf[padded(i)] = buf[padded(i)] + (b ? up[padded(b - 1)] : T(0));
+    }
+    __syncthreads();
+  }
+}
+
+// Element i of the masked running demand: base0 + the sum, -inf unless i
+// is the last event of its instant.
+template <typename T>
+__device__ __forceinline__ T masked_demand(int i, int L, const T* scan, const T* tot, bool deep,
+                                           const T* __restrict__ t, T base) {
+  T cs = scan[padded(i)];
+  if (deep) cs = cs + (i >= kBlock ? tot[padded(i / kBlock - 1)] : T(0));
+  const bool last = i + 1 < L ? t[i] != t[i + 1] : isfinite(t[i]);
+  return last ? base + cs : neg_inf<T>();
+}
+
+// Write one level's slots [v * W, v * W + W) held in o to out and, unless
+// null, to the shared buffer dst.  vec: 16-byte stores (L % W == 0 and out
+// 16-byte aligned).
+template <typename T>
+__device__ __forceinline__ void put(T* out, T* dst, int i0, const T* o, int W, int L, bool vec) {
+  if (vec) {
+    store16(out + i0, o);
+    if (dst)
+      for (int e = 0; e < W; ++e) dst[i0 + e] = o[e];
+  } else {
+    for (int e = 0; e < W && i0 + e < L; ++e) {
+      out[i0 + e] = o[e];
+      if (dst) dst[i0 + e] = o[e];
+    }
+  }
+}
+
+// Levels 1..P-1 from level 0.  Shared path (a, b shared buffers of L
+// slots, level 0 in a): level p reads one buffer and writes the other and
+// out's row p.  Global path (a == nullptr): level p reads out's row p - 1.
+// One barrier per level.
+template <typename T>
+__device__ void build_levels(T* a, T* b, T* out, int L, int P, bool vec) {
+  constexpr int W = 16 / sizeof(T);
+  const int nv = (L + W - 1) / W;
+  int span = 1;
+  for (int p = 1; p < P; ++p, span <<= 1) {
+    T* op = out + (size_t)p * L;
+    const T* src = a ? a : out + (size_t)(p - 1) * L;
+    for (int v = threadIdx.x; v < nv; v += blockDim.x) {
+      T o[W];
+#pragma unroll
+      for (int e = 0; e < W; ++e) {
+        const int i = v * W + e;
+        o[e] = T(0);
+        if (i < L) o[e] = i + span < L ? vmax(src[i], src[i + span]) : src[i];
+      }
+      put(op, a ? b : nullptr, v * W, o, W, L, vec);
+    }
+    __syncthreads();
+    if (a) {
+      T* tmp = a;
+      a = b;
+      b = tmp;
+    }
+  }
+}
+
+template <typename T>
+__global__ void __launch_bounds__(kThreads) rangemax_kernel(const T* __restrict__ x, int L, int P, T* out, bool shared,
+                                                            bool vec) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  T* s = reinterpret_cast<T*>(smem_raw);
+  constexpr int W = 16 / sizeof(T);
+  T* a = shared ? reinterpret_cast<T*>(smem_raw) : nullptr;
   const T* xr = x + (size_t)blockIdx.x * L;
   T* o = out + (size_t)blockIdx.x * P * L;
-  for (int i = threadIdx.x; i < L; i += blockDim.x) {
-    const T v = xr[i];
-    s[i] = v;
-    o[i] = v;
+  for (int v = threadIdx.x; v * W < L; v += blockDim.x) {
+    T buf[W];
+    for (int e = 0; e < W; ++e) buf[e] = v * W + e < L ? xr[v * W + e] : T(0);
+    put(o, a, v * W, buf, W, L, vec);
   }
   __syncthreads();
-  int span = 1;
-  for (int p = 1; p < P; ++p, span <<= 1) {
-    T* op = o + (size_t)p * L;
-    for (int base = 0; base < L; base += blockDim.x) {  // uniform trip count
-      const int i = base + threadIdx.x;
-      T v = T(0);
-      if (i < L) {
-        v = s[i];
-        if (i + span < L) v = vmax(v, s[i + span]);
-      }
-      __syncthreads();
-      if (i < L) {
-        s[i] = v;
-        op[i] = v;
-      }
-      __syncthreads();
-    }
-  }
+  build_levels(a, a ? a + L : nullptr, o, L, P, vec);
 }
 
 template <typename T>
-__global__ void __launch_bounds__(kThreads) rangemax_global(const T* __restrict__ x, int L, int P, T* out) {
-  const T* xr = x + (size_t)blockIdx.x * L;
+__global__ void __launch_bounds__(kThreads) fit_tables_kernel(const T* __restrict__ t, const T* __restrict__ d,
+                                                              const T* __restrict__ base0, int L, int P, T* out,
+                                                              bool shared, bool vec) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  constexpr int W = 16 / sizeof(T);
+  const ScanShape sh = scan_shape(L);
+  const T* tr = t + (size_t)blockIdx.x * L;
+  const T* dr = d + (size_t)blockIdx.x * L;
   T* o = out + (size_t)blockIdx.x * P * L;
-  for (int i = threadIdx.x; i < L; i += blockDim.x) o[i] = xr[i];
-  __syncthreads();
-  int span = 1;
-  for (int p = 1; p < P; ++p, span <<= 1) {
-    const T* prev = o + (size_t)(p - 1) * L;
-    T* op = o + (size_t)p * L;
-    for (int i = threadIdx.x; i < L; i += blockDim.x) {
-      T v = prev[i];
-      if (i + span < L) v = vmax(v, prev[i + span]);
-      op[i] = v;
-    }
-    __syncthreads();  // level p is complete before level p + 1 reads it
+  T *a, *scan, *tot;
+  if (shared) {  // a (L) | scan, later level buffer b (padded(L) + 1) | totals
+    a = reinterpret_cast<T*>(smem_raw);
+    scan = a + L;
+    tot = scan + padded(L) + 1;
+  } else {  // scratch in the output's rows 1-2 (scan) and 3 (totals), built after
+    a = nullptr;
+    scan = o + L;
+    tot = o + (size_t)3 * L;
   }
+  running_sum(dr, L, scan, tot, sh);
+  const T base = base0[blockIdx.x];
+  const bool deep = sh.depth > 1;
+  const T* tot1 = tot + sh.off[1];
+  for (int v = threadIdx.x; v * W < L; v += blockDim.x) {
+    T buf[W];
+    for (int e = 0; e < W; ++e) {
+      const int i = v * W + e;
+      buf[e] = i < L ? masked_demand(i, L, scan, tot1, deep, tr, base) : T(0);
+    }
+    put(o, a, v * W, buf, W, L, vec);
+  }
+  __syncthreads();
+  build_levels(a, scan, o, L, P, vec);
+}
+
+int optin_limit() {
+  static int limit = -1;
+  if (limit < 0) {
+    int dev = 0;
+    if (cudaGetDevice(&dev) != cudaSuccess ||
+        cudaDeviceGetAttribute(&limit, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev) != cudaSuccess)
+      limit = 48 * 1024;
+  }
+  return limit;
+}
+
+// Lift the kernel's dynamic shared memory cap to the opt-in limit, once.
+template <typename K>
+int allow_shared(K kernel, bool& done) {
+  if (done) return 0;
+  const cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, optin_limit());
+  done = err == cudaSuccess;
+  return (int)err;
 }
 
 template <typename T>
-int launch(const void* x, int rows, int L, int P, void* out, cudaStream_t stream) {
+bool vec_ok(const void* out, int L) {
+  return reinterpret_cast<uintptr_t>(out) % 16 == 0 && (size_t)L * sizeof(T) % 16 == 0;
+}
+
+template <typename T>
+int launch_rangemax(const void* x, int rows, int L, int P, void* out, cudaStream_t stream) {
+  static bool lifted = false;
   if (rows <= 0) return (int)cudaGetLastError();
-  const size_t bytes = (size_t)L * sizeof(T);
-  if (bytes <= (size_t)kSharedBytes)
-    rangemax_shared<T><<<rows, kThreads, bytes, stream>>>((const T*)x, L, P, (T*)out);
-  else
-    rangemax_global<T><<<rows, kThreads, 0, stream>>>((const T*)x, L, P, (T*)out);
+  const size_t bytes = 2 * (size_t)L * sizeof(T);
+  const bool shared = bytes <= (size_t)optin_limit();
+  if (shared && bytes > 48 * 1024)
+    if (int err = allow_shared(rangemax_kernel<T>, lifted)) return err;
+  rangemax_kernel<T><<<rows, kThreads, shared ? bytes : 0, stream>>>((const T*)x, L, P, (T*)out, shared,
+                                                                      vec_ok<T>(out, L));
   return (int)cudaGetLastError();
 }
+
+template <typename T>
+int launch_fit_tables(const void* t, const void* d, const void* base0, int rows, int L, int P, void* out,
+                      cudaStream_t stream) {
+  static bool lifted = false;
+  if (rows <= 0) return (int)cudaGetLastError();
+  const ScanShape sh = scan_shape(L);
+  if (sh.n[sh.depth - 1] > kBlock) return (int)cudaErrorInvalidValue;  // past 16^8 slots
+  const size_t bytes = ((size_t)L + padded(L) + 1 + sh.slots) * sizeof(T);
+  const bool shared = bytes <= (size_t)optin_limit();
+  // the global path's scratch: padded(L) + 1 slots over rows 1-2, the totals in row 3
+  if (!shared && (P < 4 || sh.slots > L)) return (int)cudaErrorInvalidValue;
+  if (shared && bytes > 48 * 1024)
+    if (int err = allow_shared(fit_tables_kernel<T>, lifted)) return err;
+  fit_tables_kernel<T><<<rows, kThreads, shared ? bytes : 0, stream>>>(
+      (const T*)t, (const T*)d, (const T*)base0, L, P, (T*)out, shared, vec_ok<T>(out, L));
+  return (int)cudaGetLastError();
+}
+
+bool levels_ok(int L, int P) { return L >= 1 && P >= 1 && (1 << (P - 1)) <= L && (2 << (P - 1)) > L; }
 
 }  // namespace
 
 // x (rows, L) -> out (rows, P, L), P = floor(log2 L) + 1; dtype 0 f32, 1 f64.
 extern "C" int rangemax_launch(const void* x, int rows, int L, int P, int dtype, void* out, cudaStream_t stream) {
-  if (L < 1 || P < 1 || (1 << (P - 1)) > L || (2 << (P - 1)) <= L) return (int)cudaErrorInvalidValue;
+  if (!levels_ok(L, P)) return (int)cudaErrorInvalidValue;
   switch (dtype) {
     case 0:
-      return launch<float>(x, rows, L, P, out, stream);
+      return launch_rangemax<float>(x, rows, L, P, out, stream);
     case 1:
-      return launch<double>(x, rows, L, P, out, stream);
+      return launch_rangemax<double>(x, rows, L, P, out, stream);
+    default:
+      return (int)cudaErrorInvalidValue;
+  }
+}
+
+// t, d (rows, L) sorted event times and deltas, base0 (rows,) -> out (rows,
+// P, L): row 0 the masked running demand, rows 1.. its range-max levels.
+extern "C" int fit_tables_launch(const void* t, const void* d, const void* base0, int rows, int L, int P, int dtype,
+                                 void* out, cudaStream_t stream) {
+  if (!levels_ok(L, P)) return (int)cudaErrorInvalidValue;
+  switch (dtype) {
+    case 0:
+      return launch_fit_tables<float>(t, d, base0, rows, L, P, out, stream);
+    case 1:
+      return launch_fit_tables<double>(t, d, base0, rows, L, P, out, stream);
     default:
       return (int)cudaErrorInvalidValue;
   }

@@ -2,7 +2,8 @@
 
 A CUDA tensor goes to the hand-written kernel (or the call raises); a CPU
 tensor goes to the plain PyTorch version.  segmax and wastage serve the
-evaluation engine, rangemax and compaction the cluster's placement
+evaluation engine (wastage runs whole retry ladders), rangemax (with the
+running sums before it) and compaction the cluster's placement
 programs, fitstats the kernels API's regression bank (``kernels.api``),
 flash the language model's attention.  Rows of segmax and wastage index series: row r reads
 ``y[series[r]]``, so rows that share a series (the methods of one
@@ -52,12 +53,31 @@ def attempt_wastage(
     return attempt_outcomes_batch(y[series], lengths[series], interval_s, bounds, values, acc_dtype)
 
 
+def replay_ladder(y, lengths, series, bounds, values, k_eff, selective, cap_jump, *, interval_s, factor, cap_mib,
+                  max_attempts=None, acc_dtype=None):
+    """Every (lane, execution, method) row's whole retry ladder: one launch
+    on the card, rounds of ``attempt_outcomes_batch`` on the CPU (arguments
+    and results as ``wastage.replay_ladder_plain``)."""
+    replay = wastage.replay_ladder_cuda if _route(y) else wastage.replay_ladder_plain
+    return replay(y, lengths, series, bounds, values, k_eff, selective, cap_jump, interval_s=interval_s,
+                  factor=factor, cap_mib=cap_mib, max_attempts=max_attempts, acc_dtype=acc_dtype)
+
+
 def range_max_table(x: torch.Tensor) -> torch.Tensor:
     """(B, L) rows -> (B, P, L) doubling range-max levels,
     ``out[:, p, i] = max(x[:, i : i + 2**p])`` (-inf past the row end)."""
     if _route(x):
         return rangemax.rangemax_cuda(x)
     return rangemax.table_levels(x)
+
+
+def fit_tables(tl_t: torch.Tensor, tl_d: torch.Tensor, base0: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """(N, L) sorted event times and deltas, (N,) base demands -> (csm (N,
+    L) the running demand masked to -inf off tie-group-final events, tbl
+    (N, P, L) its doubling range-max levels): one launch on the card."""
+    if _route(tl_d):
+        return rangemax.fit_tables_cuda(tl_t, tl_d, base0)
+    return rangemax.fit_tables_plain(tl_t, tl_d, base0)
 
 
 def compact_events(t: torch.Tensor, d: torch.Tensor, keep: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:

@@ -27,7 +27,7 @@ its ``while_loop`` of waits a host loop with one device-to-host read per
 iteration; the state stays on the device.  Decisions are bit-identical to
 the reference's: every comparison, ``nextafter``, gather and maximum is
 exact, ties splice ``side="right"``, and the running sums add in the order
-of XLA's CPU ``cumsum`` (``torch_sim._xla_cumsum``) on the CPU and the card
+of XLA's CPU ``cumsum`` (``kernels.scan.xla_cumsum``) on the CPU and the card
 alike, because compaction drops an event exactly when its delta leaves those
 sums' bits unchanged.
 """
@@ -43,7 +43,8 @@ import torch
 from repro_torch.core.timeline import shared_probe_set
 from repro_torch.device import resolve_device
 from repro_torch.kernels import ops
-from repro_torch.sim.torch_sim import _xla_cumsum
+from repro_torch.kernels.rangemax import masked_demand
+from repro_torch.kernels.scan import xla_cumsum
 from repro_torch.sim.traces import bucket_size, fine_bucket
 
 F64 = torch.float64
@@ -128,13 +129,6 @@ def _range_max_query(tbl, log2_tbl, l, r):
     return torch.where(length > 0, torch.maximum(lo, hi), -_INF)
 
 
-def _tie_last(tl_t):
-    """Mask of tie-group-final positions along the last axis: the running
-    sum after event i is a settled profile value only when no later event
-    shares its instant."""
-    return torch.cat([tl_t[..., :-1] != tl_t[..., 1:], torch.isfinite(tl_t[..., -1:])], dim=-1)
-
-
 def _plan_events(t_start, b, v, release):
     """Reservations' k+2 timeline events, batched over leading axes (the
     twin of ``core.timeline.plan_profile_events``): +v_0 at the start, each
@@ -178,11 +172,10 @@ def _splice_row(tn, t_new, channels):
 
 def _fit_tables(tl_t, tl_d, base0):
     """Running demand after every event (``base0`` included), masked to -inf
-    off tie-group-final positions, and its doubling range-max table (the
-    rangemax kernel): (N, L) rows -> (csm (N, L), tbl (N, P, L))."""
-    cs = base0[:, None] + _xla_cumsum(tl_d)
-    csm = torch.where(_tie_last(tl_t), cs, -_INF)
-    return csm, ops.range_max_table(csm)
+    off tie-group-final positions, and its doubling range-max table: (N, L)
+    rows -> (csm (N, L), tbl (N, P, L)).  One rangemax launch on the card
+    (``ops.fit_tables``)."""
+    return ops.fit_tables(tl_t, tl_d, base0)
 
 
 def _fit_probes(tl_t, csm, qmax, base0, b, v, pd, budget, cc, nmask=None):
@@ -519,18 +512,18 @@ def _fold_and_compact(now, base, tl_t, tl_d):
     S, N, L = tl_t.shape
     dev = tl_t.device
     cnt = _count_sorted(tl_t, lambda t: t <= now[:, None, None], (S, N, 1))
-    gain = torch.gather(_xla_cumsum(tl_d), -1, torch.clamp(cnt - 1, min=0))
+    gain = torch.gather(xla_cumsum(tl_d), -1, torch.clamp(cnt - 1, min=0))
     base = base + torch.where(cnt > 0, gain, 0.0)[..., 0]
     idx = torch.arange(L, device=dev) + cnt
     ahead = idx < L
     idxc = torch.clamp(idx, max=L - 1)
     tl_t = torch.where(ahead, torch.gather(tl_t, -1, idxc), _INF)
     tl_d = torch.where(ahead, torch.gather(tl_d, -1, idxc), 0.0)
-    cs = base[..., None] + _xla_cumsum(tl_d)
+    cs = base[..., None] + xla_cumsum(tl_d)
     keep = torch.isfinite(tl_t) & (cs != torch.cat([base[..., None], cs[..., :-1]], dim=-1))
     tl_t, tl_d = ops.compact_events(tl_t.reshape(S * N, L), tl_d.reshape(S * N, L), keep.reshape(S * N, L))
     tl_t, tl_d = tl_t.view(S, N, L), tl_d.view(S, N, L)
-    csm = torch.where(_tie_last(tl_t), base[..., None] + _xla_cumsum(tl_d), -_INF)
+    csm = masked_demand(tl_t, tl_d, base)
     return base, tl_t, tl_d, csm, keep.sum(dim=-1).amax(dim=-1)
 
 
@@ -602,7 +595,7 @@ def _sweep_program(bnd, val, run, pdur, valid, nmask, budget, L, tail_fold):
         tn, dn = tl_t[lanes, node], tl_d[lanes, node]  # (S, L)
         over_loc = placed & (torch.isfinite(tn).sum(dim=-1) + 2 + live.sum(dim=-1) > L)
         t2, d2 = _splice_row(tn, t_new, [(dn, d_new, 0.0)])
-        csm_n = torch.where(_tie_last(t2), base[lanes, node][:, None] + _xla_cumsum(d2), -_INF)
+        csm_n = masked_demand(t2, d2, base[lanes, node])
         pm = placed[:, None]
         tl_t, tl_d, csm = tl_t.clone(), tl_d.clone(), csm.clone()
         tl_t[lanes, node] = torch.where(pm, t2, tn)

@@ -12,21 +12,20 @@ the scan in two:
     the regression statistics, one execution after another in the scan's
     order (``_cumsum``); errors, offsets and predictions are then
     elementwise or running maxima over those prefixes, which are exact.
-(b) **Replay.**  All ``(lane, execution, method)`` rows together, in at
-    most ``MAX_RETRIES + 1`` rounds, each one wastage launch over the rows
-    still active, with the reference's selective / partial / cap-jump
-    bumps.
+(b) **Replay.**  All ``(lane, execution, method)`` rows together, each
+    row's whole retry ladder with the reference's selective / partial /
+    cap-jump bumps: one wastage launch on the card, at most
+    ``MAX_RETRIES + 1`` rounds of attempt scoring on the CPU.
 
 Lanes are a batch dimension: task types of one padded bucket for the Fig. 7
 grid, or the segment counts ``k_eff`` of the Fig. 8 sweep.  The segmax and
 wastage kernels (``repro_torch.kernels.ops``) carry the two data-parallel
-loops: segment peaks at the start of (a), attempt scoring in each round of
-(b).
+loops: segment peaks at the start of (a), the retry ladders of (b).
 
 The grid runs in float32, as the reference with x64 off; the cluster's
 retry ladders (``ladder_lanes``) also run in float64 on request, and sum
 their attempt wastage in float64 either way.  Where the
-reference uses ``jnp.cumsum``, ``_cumsum`` adds in the order XLA's CPU
+reference uses ``jnp.cumsum``, ``_cumsum`` (``kernels.scan``) adds in the order XLA's CPU
 lowering of it does (sequential within 16-wide blocks, the block totals
 scanned the same way, recursively), so those prefix sums equal the
 reference's bit for bit and are the same on the CPU and the card.
@@ -36,15 +35,17 @@ from __future__ import annotations
 
 import numpy as np
 import torch
-import torch.nn.functional as F
 
 from repro_torch.core import regression
 from repro_torch.core.predictor import retry_flags
 from repro_torch.device import resolve_device
-from repro_torch.kernels import ops
+from repro_torch.kernels import ops, wastage
+from repro_torch.kernels.scan import cumsum as _cumsum
+from repro_torch.kernels.scan import exclusive as _exclusive
+from repro_torch.kernels.scan import xla_cumsum as _xla_cumsum
 
 MIB_PER_GIB = 1024.0
-MAX_RETRIES = 64
+MAX_RETRIES = wastage.MAX_RETRIES
 
 # Method rows this engine scores, in output-row order.
 ENGINE_METHODS = (
@@ -58,9 +59,6 @@ ENGINE_METHODS = (
 )
 # Methods of the reference engine that the port does not have yet.
 NOT_PORTED = ("sizey", "ksplus")
-
-_XLA_SCAN_BLOCK = 16
-
 
 def _check_methods(methods) -> tuple[str, ...]:
     for m in methods:
@@ -83,34 +81,6 @@ def _check_error_mode(error_mode: str, insample_window: int) -> None:
 # ---------------------------------------------------------------------------
 # Prefix sums and running maxima along the last axis.
 # ---------------------------------------------------------------------------
-
-
-def _cumsum(a: torch.Tensor, block: int) -> torch.Tensor:
-    """Inclusive prefix sum along the last axis: sequential within blocks of
-    ``block``, plus the block totals' own prefix sum (the same way,
-    recursively).  ``block >= n`` is one sequential fold, the order of a
-    scan; ``block = 16`` is the order of XLA's CPU ``cumsum``."""
-    n = a.shape[-1]
-    if n <= block:
-        out = torch.empty_like(a)
-        acc = torch.zeros_like(a[..., 0])
-        for i in range(n):
-            acc = torch.add(acc, a[..., i], out=out[..., i])
-        return out
-    m = -(-n // block)
-    local = _cumsum(F.pad(a, (0, m * block - n)).reshape(*a.shape[:-1], m, block), block)
-    totals = _cumsum(local[..., -1], block)
-    local += _exclusive(totals)[..., None]
-    return local.reshape(*a.shape[:-1], m * block)[..., :n]
-
-
-def _exclusive(incl: torch.Tensor, fill: float = 0.0) -> torch.Tensor:
-    """Shift an inclusive prefix along the last axis by one, ``fill`` first."""
-    return torch.cat([torch.full_like(incl[..., :1], fill), incl[..., :-1]], dim=-1)
-
-
-def _xla_cumsum(a: torch.Tensor, dim: int = -1) -> torch.Tensor:
-    return _cumsum(a.movedim(dim, -1), _XLA_SCAN_BLOCK).movedim(-1, dim)
 
 
 def _running_max(a: torch.Tensor, dim: int, init: float) -> torch.Tensor:
@@ -336,10 +306,10 @@ def _replay(y, lengths, series, bounds, values, k_eff, *, methods, interval_s, f
     """Phase (b): replay every (lane, execution, method) row with retries.
 
     bounds/values (N, B, M, k) -> (waste (N, M, B), retries (N, M, B) i32),
-    waste summed in ``acc_dtype`` (default: the values' dtype).  Each round
-    scores the rows still active with one wastage launch; a failed row bumps
-    its allocation (selective: the failed segment; partial: it and all later
-    ones; cap jump: the node cap), capped and kept monotone.
+    waste summed in ``acc_dtype`` (default: the values' dtype).  A failed
+    row bumps its allocation (selective: the failed segment; partial: it and
+    all later ones; cap jump: the node cap), capped and kept monotone; on
+    the card the whole ladder is one wastage launch (``ops.replay_ladder``).
 
     With ``max_attempts`` set, every attempt is also recorded (the
     reference's ``_replay_multi`` with ``max_attempts``): values (N, M, B,
@@ -347,61 +317,16 @@ def _replay(y, lengths, series, bounds, values, k_eff, *, methods, interval_s, f
     the ladder, wastage (N, M, B, A) and n_attempts (N, M, B); a row stops
     after A attempts, its last failure index then >= 0."""
     N, B, M, k = values.shape
-    dev = values.device
-    R = N * B * M
-    acc = acc_dtype or values.dtype
-    bounds = bounds.reshape(R, k)
-    vals = torch.clamp(values.reshape(R, k), max=cap_mib)
-    row_series = series.reshape(-1).repeat_interleave(M)
-    row_keff = k_eff.repeat_interleave(B * M)
     selective, cap_jump = retry_flags(methods)
-    row_sel = torch.tensor(selective, device=dev).repeat(N * B)
-    row_cap = torch.tensor(cap_jump, device=dev).repeat(N * B)
-    seg_pos = torch.arange(k, device=dev)
-    waste = torch.zeros(R, dtype=acc, device=dev)
-    retries = torch.zeros(R, dtype=torch.int32, device=dev)
-    record = max_attempts is not None
-    if record:
-        A = int(max_attempts)
-        vbuf = torch.zeros((R, A, k), dtype=values.dtype, device=dev)
-        fbuf = torch.full((R, A), -1, dtype=torch.int32, device=dev)
-        wbuf = torch.zeros((R, A), dtype=acc, device=dev)
-        natt = torch.zeros(R, dtype=torch.int64, device=dev)
-        # every row records its first attempt: an empty execution succeeds
-        # at once with zero waste, as the reference scores it
-        active = torch.arange(R, device=dev)
-    else:
-        # an empty (padding) execution succeeds at once with zero waste
-        active = torch.nonzero(lengths[row_series] > 0).squeeze(1)
-    while active.numel():
-        b, v = bounds[active], vals[active]
-        w, fail_idx = ops.attempt_wastage(y, lengths, row_series[active], b, v, interval_s, acc)
-        waste[active] += w
-        if record:
-            att = natt[active]
-            vbuf[active, att] = v
-            fbuf[active, att] = fail_idx
-            wbuf[active, att] = w
-            natt[active] += 1
-        failed = fail_idx >= 0
-        active = active[failed]
-        if not active.numel():
-            break
-        b, v = b[failed], v[failed]
-        t_fail = (fail_idx[failed].to(b.dtype) + 0.5) * interval_s
-        seg = torch.minimum((t_fail[:, None] > b).sum(dim=1), row_keff[active] - 1)[:, None]
-        bump_sel = v * torch.where(seg_pos == seg, factor, 1.0)
-        bump_par = torch.where(seg_pos >= seg, v * factor, v)
-        bumped = torch.where(row_cap[active, None], cap_mib, torch.where(row_sel[active, None], bump_sel, bump_par))
-        vals[active] = torch.clamp(torch.cummax(bumped, dim=1).values, max=cap_mib)
-        retries[active] += 1
-        go_on = retries[active] <= MAX_RETRIES
-        if record:
-            go_on &= natt[active] < A  # ladder buffer full
-        active = active[go_on]
-    waste, retries = waste.view(N, B, M).transpose(1, 2), retries.view(N, B, M).transpose(1, 2)
-    if not record:
+    out = ops.replay_ladder(
+        y, lengths, series.contiguous(), bounds.contiguous(), values.contiguous(), k_eff, selective, cap_jump,
+        interval_s=interval_s, factor=factor, cap_mib=cap_mib, max_attempts=max_attempts, acc_dtype=acc_dtype,
+    )
+    waste, retries = (a.view(N, B, M).transpose(1, 2) for a in out[:2])
+    if max_attempts is None:
         return waste, retries
+    vbuf, fbuf, wbuf, natt = out[2]
+    A = int(max_attempts)
     rec = (
         vbuf.view(N, B, M, A, k).transpose(1, 2),
         fbuf.view(N, B, M, A).transpose(1, 2),

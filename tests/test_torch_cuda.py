@@ -4,8 +4,9 @@ nothing of JAX, so they run where only PyTorch is installed:
 
     python -m pytest -q tests/test_torch_cuda.py
 
-Tolerances: segment peaks, fail indices, range-max tables, compacted rows
-and cluster placements exact; wastage rtol 1e-5 with atol 1e-4 GiB*s when
+Tolerances: segment peaks, fail indices, range-max and fit tables (bit for
+bit), ladder values, retries and attempt counts, compacted rows and
+cluster placements exact; wastage rtol 1e-5 with atol 1e-4 GiB*s when
 summed in f32, rtol 1e-9 with atol 1e-9 GiB*s when summed in f64, because
 the sums over a series run in another order.  flash in float32 atol 3e-5 /
 rtol 1e-4 (the reference's own kernel tolerance); in bf16 on N(0, 1)
@@ -106,7 +107,7 @@ def test_wastage_kernel_f64_sums_match_plain_on_card(cuda, vdt, acc):
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
-@pytest.mark.parametrize("L", [1, 77, 256, 1024, 8192])  # f64 at 8192 takes the global-memory path
+@pytest.mark.parametrize("L", [1, 77, 256, 1024, 8192, 20000])  # f64 past ~14,500 takes the global-memory path
 def test_rangemax_kernel_matches_plain_on_card(cuda, dtype, L):
     rng = np.random.default_rng(L)
     x = np.round(rng.standard_normal((16, L)) * 3e4, 1)
@@ -116,6 +117,130 @@ def test_rangemax_kernel_matches_plain_on_card(cuda, dtype, L):
     got = ops.range_max_table(xt)
     assert rangemax.launches == before + 1
     assert torch.equal(got, rangemax.table_levels(xt))
+
+
+# Launching no kernel: allocations, views and the argument checks' reads of
+# shapes.  A call whose dispatched aten ops all lie in this set launches
+# only the hand-written kernel its wrapper counts.
+_NO_LAUNCH_OPS = {"empty", "empty_strided", "select", "slice", "view", "_unsafe_view", "transpose", "alias",
+                  "as_strided", "expand", "unsqueeze", "detach", "t", "permute", "reshape", "_reshape_alias"}
+
+
+def _aten_ops(fn):
+    """The aten ops ``fn()`` dispatches (their base names), and its result."""
+    from torch.utils._python_dispatch import TorchDispatchMode
+
+    seen = []
+
+    class Record(TorchDispatchMode):
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            seen.append(func.__name__.split(".")[0])
+            return func(*args, **(kwargs or {}))
+
+    with Record():
+        out = fn()
+    return seen, out
+
+
+def _fit_rows(N: int, L: int, dtype, seed: int, dev):
+    """Node event rows as the epoch program holds them: sorted times with
+    ties and a +inf tail, MiB deltas (some -0.0), base demands."""
+    rng = np.random.default_rng(seed)
+    t = np.sort(np.round(rng.random((N, L)) * 5e3, 1), axis=1)
+    fin = np.arange(L)[None, :] < rng.integers(L // 2, L + 1, size=N)[:, None]
+    t = np.where(fin, t, np.inf)
+    d = np.where(fin, np.round(rng.standard_normal((N, L)) * 4096.0, 3), 0.0)
+    d[:, ::7] = -0.0
+    base0 = np.round(rng.random(N) * 65536.0, 2)
+    return [torch.from_numpy(a).to(dev, dtype) for a in (t, d, base0)]
+
+
+@pytest.mark.parametrize("dtype,L", [(torch.float64, L) for L in (1, 17, 224, 256, 257, 1024, 8192, 20000)]
+                         + [(torch.float32, L) for L in (224, 8192, 60000)])  # 20000 f64, 60000 f32: global path
+def test_fit_tables_kernel_matches_plain_on_card(cuda, dtype, L):
+    t, d, base0 = _fit_rows(16, L, dtype, L, cuda)
+    before = rangemax.launches
+    csm, tbl = ops.fit_tables(t, d, base0)
+    assert rangemax.launches == before + 1
+    want_csm, want_tbl = rangemax.fit_tables_plain(t, d, base0)
+    torch.cuda.synchronize()
+    bits = torch.int64 if dtype == torch.float64 else torch.int32
+    assert torch.equal(csm.view(bits) if csm.is_contiguous() else csm.contiguous().view(bits), want_csm.view(bits))
+    assert torch.equal(tbl.view(bits), want_tbl.view(bits))
+
+
+def test_fit_tables_is_one_launch_on_card(cuda):
+    """``device_timeline._fit_tables`` on the card: the kernel's one launch
+    and no other op that launches."""
+    from repro_torch.sim import device_timeline
+
+    t, d, base0 = _fit_rows(16, 224, torch.float64, 3, cuda)
+    before = rangemax.launches
+    seen, (csm, tbl) = _aten_ops(lambda: device_timeline._fit_tables(t, d, base0))
+    assert rangemax.launches == before + 1
+    assert set(seen) <= _NO_LAUNCH_OPS, seen
+    assert torch.equal(tbl, rangemax.fit_tables_plain(t, d, base0)[1])
+
+
+LADDER_METHODS = ("default", "ksegments-selective", "ksegments-partial", "ppm")  # selective, partial, cap jump
+
+
+def _ladder_inputs(vdt, seed: int, dev, N: int = 2, B: int = 150, T: int = 2048, k: int = 4):
+    y, lengths = _series(seed, N * B, T)
+    bounds, values = _schedules(seed + 1, N * B * len(LADDER_METHODS), T, k, 2.0)
+    values = values * 0.6  # so that most rows retry
+    values[::7] = 1e-25  # rows that reach the retry bound or fill the slots
+    t = dict(
+        y=torch.from_numpy(y).to(dev), lengths=torch.from_numpy(lengths).to(dev),
+        series=torch.arange(N * B, dtype=torch.int32, device=dev).view(N, B),
+        bounds=torch.from_numpy(bounds).to(dev, vdt).view(N, B, len(LADDER_METHODS), k),
+        values=torch.from_numpy(values).to(dev, vdt).view(N, B, len(LADDER_METHODS), k),
+        k_eff=torch.tensor([k, k - 1], dtype=torch.int32, device=dev),
+    )
+    return t
+
+
+@pytest.mark.parametrize("max_attempts", [None, 32])
+@pytest.mark.parametrize("factor", [2.0, 1.2])
+@pytest.mark.parametrize("vdt,acc", [(torch.float32, torch.float32), (torch.float32, torch.float64),
+                                     (torch.float64, torch.float64)])
+def test_ladder_kernel_matches_plain_on_card(cuda, vdt, acc, factor, max_attempts):
+    from repro_torch.core.predictor import retry_flags
+
+    t = _ladder_inputs(vdt, 21, cuda)
+    sel, cap = retry_flags(LADDER_METHODS)
+    kw = dict(interval_s=2.0, factor=factor, cap_mib=4096.0, max_attempts=max_attempts, acc_dtype=acc)
+    args = (t["y"], t["lengths"], t["series"], t["bounds"], t["values"], t["k_eff"], sel, cap)
+    before = wastage.launches
+    got = ops.replay_ladder(*args, **kw)
+    assert wastage.launches == before + 1
+    want = wastage.replay_ladder_plain(*args, **kw)
+    torch.cuda.synchronize()
+    tol = WASTE_TOL if acc == torch.float32 else WASTE_TOL_F64
+    assert torch.equal(got[1], want[1])  # retries
+    assert int(want[1].max()) == (65 if max_attempts is None else 32)  # the bound, or full slots
+    torch.testing.assert_close(got[0], want[0], **tol)
+    if max_attempts is not None:
+        for g, w in zip(got[2][:2], want[2][:2]):  # values, failure indices
+            assert torch.equal(g, w)
+        torch.testing.assert_close(got[2][2], want[2][2], **tol)
+        assert torch.equal(got[2][3], want[2][3])  # n_attempts
+
+
+@pytest.mark.parametrize("max_attempts", [None, 32])
+def test_replay_is_one_wastage_launch_on_card(cuda, max_attempts):
+    """``torch_sim._replay`` on the card: one wastage launch per call and no
+    other op that launches."""
+    from repro_torch.sim import torch_sim
+
+    t = _ladder_inputs(torch.float32, 22, cuda)
+    before = wastage.launches
+    seen, out = _aten_ops(lambda: torch_sim._replay(
+        t["y"], t["lengths"], t["series"], t["bounds"], t["values"], t["k_eff"], methods=LADDER_METHODS,
+        interval_s=2.0, factor=2.0, cap_mib=4096.0, max_attempts=max_attempts, acc_dtype=torch.float64))
+    assert wastage.launches == before + 1
+    assert set(seen) <= _NO_LAUNCH_OPS, seen
+    assert out[0].shape == (2, len(LADDER_METHODS), 150)
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
