@@ -12,7 +12,11 @@ Phases, each of which fails the run on a wrong result:
    card, at the shapes of the largest bucket of the grid (peaks and fail
    indices exact, float32 wastage within rtol 1e-5 / atol 1e-4 GiB*s, the
    float64-summed instantiations within rtol 1e-9 / atol 1e-9), and time both
-   (segmax also profiled); then the bucket's whole replay, every row's retry
+   (segmax also profiled, beside its bound and the block-per-row kernel's
+   time before it); segmax also
+   exact on its edge cases (lengths 0, below k_eff and not a multiple of 4,
+   odd T, an unaligned row base, k_max 1 / 15 / 128, rows sharing a
+   series); then the bucket's whole replay, every row's retry
    ladder in one wastage launch, against the plain loop of rounds, with the
    totals and with recorded ladders (32 attempts), in f32/f32, f32/f64 and
    f64/f64 (values, failure indices, retries and attempt counts exact,
@@ -28,13 +32,21 @@ Phases, each of which fails the run on a wrong result:
    each run launching the kernels of its engine (counted per run: rangemax
    on windows, compaction on the sweep, segmax and wastage on both, wastage
    once per replay); one profiled warm windows run and one sweep run (each
-   wall beside its total launches); the ``auto`` router's four constants;
+   wall beside its total launches, the sweep's beside its total before
+   the fold was one launch); the
+   ``auto`` router's four constants;
 6. rangemax and compaction against their plain versions on the card
    (bit-exact), at the shapes of phase 5 and at L = 256, 1024, 8192, in
    float64 and float32, and timed: the fit tables (running demand, tie
    mask and table in one launch, as the epoch program calls them) bitwise,
    also at L = 20,000 (the global-memory path), and profiled at the
-   cluster's most frequent shape; compaction profiled at its shape;
+   cluster's most frequent shape; compaction alone profiled at the sweep's
+   shape; the sweep's chunk-boundary fold (fold, shift, keep mask,
+   compaction and masked running demand in one compaction launch) bitwise,
+   also past the shared memory (f64 L = 20,000, f32 L = 40,000), profiled
+   at the sweep's most frequent shape, where ``device_timeline.
+   _fold_and_compact`` must be one launch and at most one aten op that
+   launches (counted at dispatch, beside the plain chain's count);
 7. flash against its plain version on the card, in float32 (atol 3e-5,
    rtol 1e-4, the reference's kernel tolerance) and bf16 on N(0, 1) inputs
    (max |d| <= 1e-2, mean |d| <= 1e-3: p is rounded to bf16 after a running
@@ -111,6 +123,13 @@ BF16_OPS_PER_S = 989e12  # H100 SXM bf16 on the tensor cores, dense
 CORPUS_SCALE = 1.0  # the paper's corpus: 33 eligible tasks
 FIG8_KS = tuple(range(1, 16))
 GRID_KERNELS = ("segmax", "wastage")  # the kernels of the grid and k-sweep paths
+# Earlier designs' figures, printed beside this run's (NVIDIA H100 80GB HBM3,
+# 700 W): segmax and compaction as a block per row, profiled at the shapes
+# this script times them at, and the warm sweep run's profiled launches
+# while its chunk-boundary fold was a chain of small ops
+SEGMAX_BLOCK_PER_ROW_MS = 0.0206  # 6,144 rows of T 2,048, k 4
+COMPACTION_BLOCK_PER_ROW_MS = 0.0028  # (64, 1,024) f64
+SWEEP_CHAIN_LAUNCHES = 906_000
 
 
 def _ptxas_summary(log: str) -> list[tuple[str, str, str]]:
@@ -322,6 +341,41 @@ def ladder_phase(y, lengths, series, bounds, values, k_eff, methods, cap_mib, kc
     return out
 
 
+def segmax_edges(dev) -> None:
+    """segmax against its plain version, exact, where its loads and loops
+    change course: lengths 0, below k_eff and not a multiple of 4, odd T
+    and a row base off 16 bytes (scalar loads), k_max 1 / 15 / 128 (128: four
+    chunks of 32 segments), k_eff below 1 and past k_max, and rows that
+    share a series."""
+    import numpy as np
+    import torch
+
+    from repro_torch.core.segmentation import segment_peaks_dynamic
+    from repro_torch.kernels import segmax
+
+    rng = np.random.default_rng(3)
+    S, cases = 40, 0
+    for T, offset in ((2048, 0), (2047, 0), (63, 0), (2048, 1)):
+        y = (rng.random(S * T + offset) * 4000.0 + 10.0).astype(np.float32)
+        lengths = rng.integers(0, T + 1, size=S).astype(np.int32)
+        lengths[:8] = [0, 1, 2, 3, 5, 7, T - 1, T]
+        yt = torch.from_numpy(y).to(dev)[offset:].view(S, T)
+        lt = torch.from_numpy(lengths).to(dev)
+        series = torch.arange(S, dtype=torch.int32, device=dev).repeat(3)
+        for k_max in (1, 15, 128):
+            k_eff = torch.from_numpy(rng.integers(-1, k_max + 3, size=3 * S).astype(np.int32)).to(dev)
+            k_eff[:3] = torch.tensor([k_max, 0, 1], dtype=torch.int32)
+            got = segmax.segmax_cuda(yt, lt, series, k_eff, k_max)
+            want = segment_peaks_dynamic(yt[series], lt[series], k_eff, k_max)
+            torch.cuda.synchronize()
+            if not torch.equal(got, want):
+                _fail(f"segmax edge case T={T} offset={offset} k_max={k_max}: {(got != want).sum().item()} peaks "
+                      "differ from the plain version")
+            cases += 1
+    print(f"  segmax edge cases: {cases} exact (lengths 0 / < k_eff / odd, T 2048 / 2047 / 63, an unaligned base, "
+          "k_max 1 / 15 / 128, k_eff -1 to k_max + 2, rows sharing a series)")
+
+
 def kernels_phase(batch, cfg, dev) -> dict[str, dict]:
     """Each kernel against its plain version at the largest bucket's shapes."""
     import torch
@@ -341,6 +395,7 @@ def kernels_phase(batch, cfg, dev) -> dict[str, dict]:
     out = {}
 
     print(f"kernels phase: largest bucket L={L} B={B} T={T} ({batch.y.nbytes / 1e6:.1f} MB of series)")
+    segmax_edges(dev)
     for k_max, k_eff in (
         (cfg.ksegments.k, torch.full((S,), cfg.ksegments.k, dtype=torch.int32, device=dev)),
         (15, (torch.arange(S, device=dev) % 15 + 1).to(torch.int32)),
@@ -353,11 +408,14 @@ def kernels_phase(batch, cfg, dev) -> dict[str, dict]:
         ms = _cuda_ms(lambda: segmax.segmax_cuda(y, lengths, series, k_eff, k_max), 50)
         plain_ms = _cuda_ms(lambda: segment_peaks_dynamic(y[series], lengths[series], k_eff, k_max), 5)
         device_ms = _device_ms(lambda: segmax.segmax_cuda(y, lengths, series, k_eff, k_max), "segmax_kernel", 40)
-        print(f"  segmax k_max={k_max}: exact; kernel {ms:.4f} ms, profiled device {device_ms:.4f} ms, "
+        # bytes: each valid sample read once, the lengths, series and k_eff,
+        # the peaks written once; operations: one compare a sample
+        nbytes = 4 * valid.sum().item() + 4 * 3 * S + 4 * S * k_max
+        bound_ms, bound_by = _bound(nbytes, valid.sum().item())
+        print(f"  segmax k_max={k_max}: exact; kernel {ms:.4f} ms back to back, profiled device {device_ms:.4f} ms "
+              f"(a block per row: {SEGMAX_BLOCK_PER_ROW_MS} ms at k_max 4), bound {bound_ms:.5f} ms ({bound_by}), "
               f"plain {plain_ms:.4f} ms")
         if k_max == cfg.ksegments.k:  # the main path's shape
-            nbytes = 4 * valid.sum().item() + 4 * 3 * S + 4 * S * k_max
-            bound_ms, bound_by = _bound(nbytes, valid.sum().item())
             out["segmax"] = dict(max_abs_err=(got - want).abs().max().item(), ms=ms, plain_ms=plain_ms,
                                  bound_ms=bound_ms, bound_by=bound_by, device_ms=device_ms)
 
@@ -564,7 +622,7 @@ def cluster_phase(wfs) -> dict:
     shapes = {"rangemax": collections.Counter(), "compaction": collections.Counter()}
     with _patched(cluster, "compute_cluster_ladders", timed), \
             _patched(rangemax, "fit_tables_cuda", _shape_counter(shapes["rangemax"])), \
-            _patched(compaction, "compaction_cuda", _shape_counter(shapes["compaction"])):
+            _patched(compaction, "fold_compact_cuda", _shape_counter(shapes["compaction"])):
         return _cluster_runs(wfs, ladder_s, shapes)
 
 
@@ -638,7 +696,10 @@ def _cluster_runs(wfs, ladder_s: list, shapes: dict) -> dict:
         counts_p = ops.launch_counts()
         busy = prof["kernel_ms"] / 1e3 / prof["wall_s"]
         per_row = (f", {prof['launches'] / counts_p['rangemax']:.1f} per rangemax launch"
-                   if counts_p["rangemax"] else "")
+                   if counts_p["rangemax"] else
+                   f"; with the fold as a chain {SWEEP_CHAIN_LAUNCHES:,}, {prof['launches'] - SWEEP_CHAIN_LAUNCHES:+,} "
+                   f"here, {(prof['launches'] - SWEEP_CHAIN_LAUNCHES) / counts_p['compaction']:+.1f} per compaction "
+                   "launch")
         print(f"  profiled warm {placement} run: wall {prof['wall_s']:.3f} s; kernels {prof['kernel_ms']:.2f} ms on "
               f"the device ({100 * busy:.2f}% busy, {prof['launches']} launches{per_row}); copies "
               f"{prof['copy_ms']:.2f} ms; kernel launches of this run {counts_p}")
@@ -688,7 +749,7 @@ def _cluster_runs(wfs, ladder_s: list, shapes: dict) -> dict:
           f"{tau1 * 1e3:.4f} ms/row-step/lane, L={L2} {tau2 * 1e3:.4f}; rmax {rmax}, {S} lanes, {N} nodes)")
     if not _same_placements(sw4[0], ref):
         _fail("cluster placements changed with the timeline axis")
-    return {"counts": counts, "shapes": shapes, "sweep_axis": L1}
+    return {"counts": counts, "shapes": shapes, "sweep_axis": L1, "n_nodes": N}
 
 
 def _demand_rows(B: int, L: int, dtype, seed: int, dev):
@@ -729,10 +790,46 @@ def _fit_rows(B: int, L: int, dtype, seed: int, dev):
     return [torch.from_numpy(a).to(dev, dtype) for a in (t, d, np.round(rng.random(B) * 65536.0, 2))]
 
 
+def _fold_rows(S: int, N: int, L: int, dtype, seed: int, dev):
+    """The sweep's carried node rows: S lanes of N nodes of sorted event
+    times with ties and +inf tails, MiB deltas (some -0.0, some cancelling,
+    so that their events drop), bases (some -0.0), and each lane's clock,
+    before, after, on and between events."""
+    import numpy as np
+    import torch
+
+    rng = np.random.default_rng(seed)
+    R = S * N
+    t = np.sort(np.round(rng.random((R, L)) * 5e3, 1), axis=1)
+    fin = np.arange(L)[None, :] < rng.integers(L // 4, L + 1, size=R)[:, None]
+    t = np.where(fin, t, np.inf)
+    d = np.where(fin, np.round(rng.standard_normal((R, L)) * 4096.0, 3), 0.0)
+    d[1:, ::7] = -0.0
+    q = L // 4
+    d[1::3, q:2 * q] = -d[1::3, :q]
+    base = np.round(rng.random(R) * 65536.0, 2)
+    base[::3] = -0.0
+    now = np.round(rng.random(S) * 5e3, 1)
+    now[0], now[1 % S] = -1.0, 1e4
+    if S > 2:
+        now[2] = t[2 * N, L // 3]
+    return [torch.from_numpy(a).to(dev, dtype) for a in (t, d, base, now)]
+
+
+def _same_bits(a, b) -> bool:
+    import torch
+
+    if a.is_floating_point():
+        bits = torch.int64 if a.dtype == torch.float64 else torch.int32
+        a, b = a.view(bits), b.view(bits)
+    return torch.equal(a, b)
+
+
 def sched_kernels_phase(cluster_info: dict, dev) -> dict[str, dict]:
     """rangemax (the fit tables the epoch program builds, and the table of
-    given rows) and compaction against their plain versions, bit-exact, at
-    the shapes the cluster path gave them and at L = 256, 1024, 8192."""
+    given rows) and compaction (alone, and the sweep's fold around it)
+    against their plain versions, bit-exact, at the shapes the cluster path
+    gave them and at L = 256, 1024, 8192."""
     import torch
 
     from repro_torch.kernels import compaction, rangemax
@@ -767,6 +864,29 @@ def sched_kernels_phase(cluster_info: dict, dev) -> dict[str, dict]:
         return dict(max_abs_err=0.0, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
                     device_ms=device_ms)
 
+    def check_fold(t, d, base, now, n_nodes, profiled=False):
+        got = compaction.fold_compact_cuda(t, d, base, now, n_nodes)
+        want = compaction.fold_compact_plain(t, d, base, now, n_nodes)
+        torch.cuda.synchronize()
+        if not all(_same_bits(g, w) for g, w in zip(got, want)):
+            _fail(f"fold {t.dtype} {tuple(t.shape)}: not bitwise equal to the plain version")
+        ms = _cuda_ms(lambda: compaction.fold_compact_cuda(t, d, base, now, n_nodes), 100)
+        plain_ms = _cuda_ms(lambda: compaction.fold_compact_plain(t, d, base, now, n_nodes), 10)
+        R, L = t.shape
+        es = t.element_size()
+        # bytes: t and d read once, base and now, and t, d, csm, base and the
+        # kept counts written once; operations: this run's adds and compares
+        # (the folded prefix's sum, the shifted row's sum, two adds of the
+        # base and a compare a shifted slot, the kept row's sum and its add)
+        cnt = (t <= now.repeat_interleave(n_nodes)[:, None]).sum().item()
+        nops = cnt + 4 * (R * L - cnt) + 2 * want[4].sum().item()
+        bound_ms, bound_by = _bound(es * (5 * R * L + 2 * R + now.numel()) + 8 * R, nops, F64_OPS_PER_S)
+        out = dict(max_abs_err=0.0, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by)
+        if profiled:
+            out["device_ms"] = _device_ms(lambda: compaction.fold_compact_cuda(t, d, base, now, n_nodes),
+                                          "fold_kernel", 60)
+        return out
+
     def check_compaction(t, d, keep, profiled=False):
         got, want = compaction.compaction_cuda(t, d, keep), compaction.compact_events_plain(t, d, keep)
         torch.cuda.synchronize()
@@ -781,8 +901,8 @@ def sched_kernels_phase(cluster_info: dict, dev) -> dict[str, dict]:
             out["device_ms"] = _device_ms(lambda: compaction.compaction_cuda(t, d, keep), "compact_kernel", 60)
         return out
 
-    print("sched kernels phase: fit tables and rangemax (16, L), compaction (64, L); bit-exact against the plain "
-          "versions")
+    print("sched kernels phase: fit tables and rangemax (16, L), compaction and the fold (64, L); bit-exact against "
+          "the plain versions")
     for dtype in (torch.float64, torch.float32):
         for L in (256, 1024, 8192):
             f = check_fit_tables(*_fit_rows(16, L, dtype, L, dev))
@@ -796,8 +916,15 @@ def sched_kernels_phase(cluster_info: dict, dev) -> dict[str, dict]:
                 if mode == "half":
                     print(f"  compaction {str(dtype)[6:]} L={L} (keep none/all/half exact): kernel {c['ms']:.4f} ms, "
                           f"plain {c['plain_ms']:.4f} ms, bound {c['bound_ms']:.5f} ms")
+            c = check_fold(*_fold_rows(4, 16, L, dtype, L + 2, dev), 16)
+            print(f"  fold {str(dtype)[6:]} (64, {L}): bitwise; kernel {c['ms']:.4f} ms back to back, plain chain "
+                  f"{c['plain_ms']:.4f} ms, bound {c['bound_ms']:.5f} ms")
     f = check_fit_tables(*_fit_rows(16, 20000, torch.float64, 9, dev))
     print(f"  fit tables f64 L=20000 (past the shared memory: the global path): bitwise; kernel {f['ms']:.4f} ms")
+    for dtype, L in ((torch.float64, 20000), (torch.float32, 40000)):
+        c = check_fold(*_fold_rows(4, 16, L, dtype, 9, dev), 16)
+        print(f"  fold {str(dtype)[6:]} (64, {L}) (past the shared memory: the global path): bitwise; kernel "
+              f"{c['ms']:.4f} ms")
     # the main path's shapes: the most frequent of the cluster runs
     (B, L), _ = cluster_info["shapes"]["rangemax"].most_common(1)[0]
     rows = _fit_rows(B, L, torch.float64, 7, dev)
@@ -814,9 +941,29 @@ def sched_kernels_phase(cluster_info: dict, dev) -> dict[str, dict]:
           f"{out['rangemax']['ms']:.4f} ms back to back, profiled device {out['rangemax']['device_ms']:.4f} ms, "
           f"plain chain {out['rangemax']['plain_ms']:.4f} ms, bound {out['rangemax']['bound_ms']:.6f} ms")
     (B, L), _ = cluster_info["shapes"]["compaction"].most_common(1)[0]
-    out["compaction"] = check_compaction(*_event_rows(B, L, torch.float64, 8, "half", dev), profiled=True)
-    print(f"  compaction at the cluster path's shape ({B} lanes x nodes, L={L}) f64: "
-          f"kernel {out['compaction']['ms']:.4f} ms, profiled device {out['compaction']['device_ms']:.4f} ms")
+    c = check_compaction(*_event_rows(B, L, torch.float64, 8, "half", dev), profiled=True)
+    print(f"  compaction alone at the sweep's shape ({B} lanes x nodes, L={L}) f64: kernel {c['ms']:.4f} ms back to "
+          f"back, profiled device {c['device_ms']:.4f} ms (a block per row: {COMPACTION_BLOCK_PER_ROW_MS} ms), bound "
+          f"{c['bound_ms']:.6f} ms")
+    # the main path's call: the sweep's whole chunk-boundary fold
+    N = cluster_info["n_nodes"]
+    S = B // N
+    rows = _fold_rows(S, N, L, torch.float64, 8, dev)
+    out["compaction"] = check_fold(*rows, N, profiled=True)
+    t, d, base, now = rows
+    step = (lambda: device_timeline._fold_and_compact(now, base.view(S, N), t.view(S, N, L), d.view(S, N, L)))
+    before = compaction.launches
+    site = _launching_ops(step)
+    if compaction.launches != before + 1 or site > 1:
+        _fail(f"device_timeline._fold_and_compact took {compaction.launches - before} compaction launches and {site} "
+              "aten ops that launch, where it should take one launch and at most one op (the max over nodes)")
+    plain = _launching_ops(lambda: compaction.fold_compact_plain(t, d, base, now, N))
+    print(f"  device_timeline._fold_and_compact at the sweep's shape is 1 compaction launch and {site} aten op that "
+          f"launches (the max over nodes); the plain chain dispatches {plain} aten ops that launch")
+    print(f"  fold at the sweep's shape ({S} lanes x {N} nodes, L={L}) f64: bitwise; kernel "
+          f"{out['compaction']['ms']:.4f} ms back to back, profiled device {out['compaction']['device_ms']:.4f} ms, "
+          f"plain chain {out['compaction']['plain_ms']:.4f} ms, bound {out['compaction']['bound_ms']:.6f} ms "
+          f"({out['compaction']['bound_by']})")
     return out
 
 

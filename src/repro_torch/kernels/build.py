@@ -3,8 +3,9 @@
 Each source compiles with ``nvcc`` into a shared library with a plain C
 interface, loaded with ``ctypes``.  Libraries land in ``_build/`` beside this
 file (listed in ``.gitignore``), each with its compiler output (``.log``:
-registers and spills), named by a hash of the source and the flags,
-so a changed source or flag rebuilds and an unchanged one loads at once.  All
+registers and spills), named by a hash of the source, the headers under
+``csrc/`` and the flags, so a changed source, header or flag rebuilds and an
+unchanged one loads at once.  All
 missing libraries build in parallel, one ``nvcc`` each.  A failed build
 raises; there is no fallback.
 """
@@ -69,8 +70,14 @@ def nvcc_flags(name: str) -> tuple[str, ...]:
 
 
 def library_path(name: str) -> Path:
-    digest = hashlib.sha256((CSRC / f"{name}.cu").read_bytes() + " ".join(nvcc_flags(name)).encode()).hexdigest()[:16]
-    return BUILD_DIR / f"lib{name}-{digest}.so"
+    """Where ``csrc/<name>.cu``'s library lives: named by a hash of the
+    source, every header of ``csrc/`` (a source may include any of them)
+    and the flags."""
+    h = hashlib.sha256((CSRC / f"{name}.cu").read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):
+        h.update(header.name.encode() + header.read_bytes())
+    h.update(" ".join(nvcc_flags(name)).encode())
+    return BUILD_DIR / f"lib{name}-{h.hexdigest()[:16]}.so"
 
 
 def build_all() -> list[str]:

@@ -17,13 +17,8 @@
 //     card that chain was ~46 small launches before the table's one.
 //
 // The running sum reproduces scan.cumsum(d, 16) bit for bit, since
-// placements are held bit-identical to the reference's: each thread folds
-// one block of 16 in order from +0.0 (so a leading -0.0 becomes +0.0); the
-// block totals are folded the same way, recursively, until at most 16 are
-// left (three levels past L = 256); then each block adds its exclusive
-// prefix (+0.0 for block 0), top level first.  Scan buffers pad one slot
-// per 16 so that the folds' strided reads spread over the banks.  Only
-// additions are involved; the source still builds with -fmad=false.
+// placements are held bit-identical to the reference's; its device code
+// (xla_scan.cuh) is shared with the sweep's fold in compaction.cu.
 //
 // Shared path: the row stays in shared memory from the sum through every
 // level (the 48 KB cap lifted to the card's opt-in limit, 227 KB on H100:
@@ -40,14 +35,19 @@
 #include <cuda_runtime.h>
 #include <cstdint>
 
+#include "xla_scan.cuh"
+
 namespace {
 
-constexpr int kThreads = 512;
-constexpr int kBlock = 16;  // XLA's CPU cumsum block (scan.XLA_SCAN_BLOCK)
-constexpr int kMaxScanLevels = 8;
+using xla_scan::allow_shared;
+using xla_scan::masked_demand;
+using xla_scan::optin_limit;
+using xla_scan::padded;
+using xla_scan::running_sum;
+using xla_scan::scan_shape;
+using xla_scan::ScanShape;
 
-// Slot of element i in a scan buffer: one pad slot after every 16.
-__host__ __device__ __forceinline__ int padded(int i) { return i + i / kBlock; }
+constexpr int kThreads = 512;
 
 // One 16-byte store of W = 16 / sizeof(T) slots.
 __device__ __forceinline__ void store16(float* p, const float* o) {
@@ -60,87 +60,6 @@ __device__ __forceinline__ void store16(double* p, const double* o) {
 template <typename T>
 __device__ __forceinline__ T vmax(T a, T b) {
   return a < b ? b : a;
-}
-
-template <typename T>
-__device__ __forceinline__ T neg_inf();
-template <>
-__device__ __forceinline__ float neg_inf<float>() {
-  return __int_as_float(0xff800000);
-}
-template <>
-__device__ __forceinline__ double neg_inf<double>() {
-  return __longlong_as_double(0xfff0000000000000ULL);
-}
-
-// The levels of the running sum: n[0] = L, n[l + 1] = ceil(n[l] / 16) while
-// n[l] > 16; level l >= 1 lives at off[l] of the totals scratch.
-struct ScanShape {
-  int depth;
-  int n[kMaxScanLevels];
-  int off[kMaxScanLevels];
-  int slots;  // of the totals scratch
-};
-
-__host__ __device__ ScanShape scan_shape(int L) {
-  ScanShape s{};
-  s.depth = 1;
-  s.n[0] = L;
-  int off = 0;
-  while (s.n[s.depth - 1] > kBlock && s.depth < kMaxScanLevels) {
-    const int m = (s.n[s.depth - 1] + kBlock - 1) / kBlock;
-    s.n[s.depth] = m;
-    s.off[s.depth] = off;
-    off += padded(m) + 1;
-    ++s.depth;
-  }
-  s.slots = off;
-  return s;
-}
-
-// Block-collective: the running sum of d[0..L) in scan.cumsum(d, 16)'s
-// order.  Leaves level 0's block-local sums in scan[padded(i)] and every
-// upper level's finished prefix in tot; element i's sum is then
-// scan[padded(i)] + (L > 16 ? prefix of block i / 16 - 1, or +0.0 : nothing).
-template <typename T>
-__device__ void running_sum(const T* __restrict__ d, int L, T* scan, T* tot, const ScanShape& sh) {
-  for (int i = threadIdx.x; i < L; i += blockDim.x) scan[padded(i)] = d[i];
-  __syncthreads();
-  for (int l = 0; l < sh.depth; ++l) {  // fold every block of 16, bottom up
-    T* buf = l == 0 ? scan : tot + sh.off[l];
-    T* up = l + 1 < sh.depth ? tot + sh.off[l + 1] : nullptr;
-    const int n = sh.n[l];
-    for (int j = threadIdx.x; j * kBlock < n; j += blockDim.x) {
-      T acc = T(0);
-      const int end = min(n, (j + 1) * kBlock);
-      for (int i = j * kBlock; i < end; ++i) {
-        acc = acc + buf[padded(i)];
-        buf[padded(i)] = acc;
-      }
-      if (up) up[padded(j)] = acc;
-    }
-    __syncthreads();
-  }
-  for (int l = sh.depth - 2; l >= 1; --l) {  // add each block's exclusive prefix, top down
-    T* buf = tot + sh.off[l];
-    const T* up = tot + sh.off[l + 1];
-    for (int i = threadIdx.x; i < sh.n[l]; i += blockDim.x) {
-      const int b = i / kBlock;
-      buf[padded(i)] = buf[padded(i)] + (b ? up[padded(b - 1)] : T(0));
-    }
-    __syncthreads();
-  }
-}
-
-// Element i of the masked running demand: base0 + the sum, -inf unless i
-// is the last event of its instant.
-template <typename T>
-__device__ __forceinline__ T masked_demand(int i, int L, const T* scan, const T* tot, bool deep,
-                                           const T* __restrict__ t, T base) {
-  T cs = scan[padded(i)];
-  if (deep) cs = cs + (i >= kBlock ? tot[padded(i / kBlock - 1)] : T(0));
-  const bool last = i + 1 < L ? t[i] != t[i + 1] : isfinite(t[i]);
-  return last ? base + cs : neg_inf<T>();
 }
 
 // Write one level's slots [v * W, v * W + W) held in o to out and, unless
@@ -244,26 +163,6 @@ __global__ void __launch_bounds__(kThreads) fit_tables_kernel(const T* __restric
   build_levels(a, scan, o, L, P, vec);
 }
 
-int optin_limit() {
-  static int limit = -1;
-  if (limit < 0) {
-    int dev = 0;
-    if (cudaGetDevice(&dev) != cudaSuccess ||
-        cudaDeviceGetAttribute(&limit, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev) != cudaSuccess)
-      limit = 48 * 1024;
-  }
-  return limit;
-}
-
-// Lift the kernel's dynamic shared memory cap to the opt-in limit, once.
-template <typename K>
-int allow_shared(K kernel, bool& done) {
-  if (done) return 0;
-  const cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, optin_limit());
-  done = err == cudaSuccess;
-  return (int)err;
-}
-
 template <typename T>
 bool vec_ok(const void* out, int L) {
   return reinterpret_cast<uintptr_t>(out) % 16 == 0 && (size_t)L * sizeof(T) % 16 == 0;
@@ -288,7 +187,7 @@ int launch_fit_tables(const void* t, const void* d, const void* base0, int rows,
   static bool lifted = false;
   if (rows <= 0) return (int)cudaGetLastError();
   const ScanShape sh = scan_shape(L);
-  if (sh.n[sh.depth - 1] > kBlock) return (int)cudaErrorInvalidValue;  // past 16^8 slots
+  if (xla_scan::too_long(L)) return (int)cudaErrorInvalidValue;  // past 16^8 slots
   const size_t bytes = ((size_t)L + padded(L) + 1 + sh.slots) * sizeof(T);
   const bool shared = bytes <= (size_t)optin_limit();
   // the global path's scratch: padded(L) + 1 slots over rows 1-2, the totals in row 3

@@ -3,9 +3,9 @@
 A CUDA tensor goes to the hand-written kernel (or the call raises); a CPU
 tensor goes to the plain PyTorch version.  segmax and wastage serve the
 evaluation engine (wastage runs whole retry ladders), rangemax (with the
-running sums before it) and compaction the cluster's placement
-programs, fitstats the kernels API's regression bank (``kernels.api``),
-flash the language model's attention.  Rows of segmax and wastage index series: row r reads
+running sums before it) and compaction (with the sweep's fold around it)
+the cluster's placement programs, fitstats the kernels API's regression
+bank (``kernels.api``), flash the language model's attention.  Rows of segmax and wastage index series: row r reads
 ``y[series[r]]``, so rows that share a series (the methods of one
 execution, the k values of a sweep) never copy it on the card.
 """
@@ -86,6 +86,16 @@ def compact_events(t: torch.Tensor, d: torch.Tensor, keep: torch.Tensor) -> tupl
     if _route(t):
         return compaction.compaction_cuda(t, d, keep)
     return compaction.compact_events_plain(t, d, keep)
+
+
+def fold_compact(t: torch.Tensor, d: torch.Tensor, base: torch.Tensor, now: torch.Tensor, n_nodes: int):
+    """The sweep's chunk-boundary fold of (R, L) node event rows, node
+    ``r % n_nodes`` of lane ``r // n_nodes`` at clock ``now`` (R / n_nodes,)
+    -> (base, t, d, csm, kept) as ``compaction.fold_compact_plain``: one
+    launch on the card."""
+    if _route(t):
+        return compaction.fold_compact_cuda(t, d, base, now, n_nodes)
+    return compaction.fold_compact_plain(t, d, base, now, n_nodes)
 
 
 def fit_stats(x: torch.Tensor, peaks: torch.Tensor, valid: torch.Tensor) -> torch.Tensor:

@@ -35,6 +35,7 @@ def segmax_cuda(
 ) -> torch.Tensor:
     """y (S, T) f32, lengths (S,) i32, series/k_eff (R,) i32 -> (R, k_max) f32 peaks."""
     global launches
+    build.check_cuda("segmax", y)
     dev = y.device
     build.check_arg("y", y, torch.float32, 2, dev)
     build.check_arg("lengths", lengths, torch.int32, 1, dev)

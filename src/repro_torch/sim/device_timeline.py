@@ -19,8 +19,8 @@ float32 resolution at cluster timestamps).  Three programs place rows:
   end to end in one program.  Lanes are an explicit leading axis (the
   reference's ``vmap``); at every 8-row chunk boundary the carried
   timelines are folded at the clock and compacted to the events that change
-  the running demand's bits (the **compaction** kernel, one launch for all
-  lanes x nodes).
+  the running demand's bits (the **compaction** kernel's fold, one launch
+  for all lanes x nodes).
 
 The reference's ``lax.scan`` over rows becomes a host loop over rows, and
 its ``while_loop`` of waits a host loop with one device-to-host read per
@@ -44,7 +44,6 @@ from repro_torch.core.timeline import shared_probe_set
 from repro_torch.device import resolve_device
 from repro_torch.kernels import ops
 from repro_torch.kernels.rangemax import masked_demand
-from repro_torch.kernels.scan import xla_cumsum
 from repro_torch.sim.traces import bucket_size, fine_bucket
 
 F64 = torch.float64
@@ -506,25 +505,15 @@ def _fold_and_compact(now, base, tl_t, tl_d):
     """The chunk-boundary step of the sweep, all lanes x nodes at once: fold
     the events at or before each lane's clock into its nodes' base demand,
     then drop every event whose delta leaves the running sum's bits
-    unchanged and front-compact the rest (the compaction kernel).  Returns
-    (base, tl_t, tl_d, csm, carried) with csm the tie-masked running sums
-    and carried (S,) the busiest node's kept count."""
+    unchanged and front-compact the rest.  One compaction launch on the
+    card (``ops.fold_compact``), and the max over nodes.  Returns (base,
+    tl_t, tl_d, csm, carried) with csm the tie-masked running sums and
+    carried (S,) the busiest node's kept count."""
     S, N, L = tl_t.shape
-    dev = tl_t.device
-    cnt = _count_sorted(tl_t, lambda t: t <= now[:, None, None], (S, N, 1))
-    gain = torch.gather(xla_cumsum(tl_d), -1, torch.clamp(cnt - 1, min=0))
-    base = base + torch.where(cnt > 0, gain, 0.0)[..., 0]
-    idx = torch.arange(L, device=dev) + cnt
-    ahead = idx < L
-    idxc = torch.clamp(idx, max=L - 1)
-    tl_t = torch.where(ahead, torch.gather(tl_t, -1, idxc), _INF)
-    tl_d = torch.where(ahead, torch.gather(tl_d, -1, idxc), 0.0)
-    cs = base[..., None] + xla_cumsum(tl_d)
-    keep = torch.isfinite(tl_t) & (cs != torch.cat([base[..., None], cs[..., :-1]], dim=-1))
-    tl_t, tl_d = ops.compact_events(tl_t.reshape(S * N, L), tl_d.reshape(S * N, L), keep.reshape(S * N, L))
-    tl_t, tl_d = tl_t.view(S, N, L), tl_d.view(S, N, L)
-    csm = masked_demand(tl_t, tl_d, base)
-    return base, tl_t, tl_d, csm, keep.sum(dim=-1).amax(dim=-1)
+    base, tl_t, tl_d, csm, kept = ops.fold_compact(tl_t.reshape(S * N, L), tl_d.reshape(S * N, L),
+                                                   base.reshape(S * N), now, N)
+    return (base.view(S, N), tl_t.view(S, N, L), tl_d.view(S, N, L), csm.view(S, N, L),
+            kept.view(S, N).amax(dim=-1))
 
 
 def _sweep_program(bnd, val, run, pdur, valid, nmask, budget, L, tail_fold):

@@ -5,8 +5,8 @@ nothing of JAX, so they run where only PyTorch is installed:
     python -m pytest -q tests/test_torch_cuda.py
 
 Tolerances: segment peaks, fail indices, range-max and fit tables (bit for
-bit), ladder values, retries and attempt counts, compacted rows and
-cluster placements exact; wastage rtol 1e-5 with atol 1e-4 GiB*s when
+bit), ladder values, retries and attempt counts, compacted rows, the
+sweep's fold (bit for bit) and cluster placements exact; wastage rtol 1e-5 with atol 1e-4 GiB*s when
 summed in f32, rtol 1e-9 with atol 1e-9 GiB*s when summed in f64, because
 the sums over a series run in another order.  flash in float32 atol 3e-5 /
 rtol 1e-4 (the reference's own kernel tolerance); in bf16 on N(0, 1)
@@ -122,6 +122,25 @@ def test_rangemax_kernel_matches_plain_on_card(cuda, dtype, L):
 # Launching no kernel: allocations, views and the argument checks' reads of
 # shapes.  A call whose dispatched aten ops all lie in this set launches
 # only the hand-written kernel its wrapper counts.
+@pytest.mark.parametrize("k_max", [1, 15, 128])
+@pytest.mark.parametrize("T,offset", [(2048, 0), (2047, 0), (63, 0), (2048, 1)])  # offset 1: an unaligned base
+def test_segmax_kernel_edge_cases_on_card(cuda, T, offset, k_max):
+    """Lengths 0, below k_eff and not a multiple of 4, odd T, an unaligned
+    row base, k_eff past k_max and below 1, and rows that share a series."""
+    S = 40
+    y, lengths = _series(11, S, T)
+    lengths[4:8] = [5, 7, T - 1, T - 3]
+    flat = torch.from_numpy(np.concatenate([np.zeros(offset, np.float32), y.reshape(-1)])).to(cuda)
+    yt, lt = flat[offset:].view(S, T), torch.from_numpy(lengths).to(cuda)
+    series = torch.arange(S, dtype=torch.int32, device=cuda).repeat(3)
+    k_eff = torch.from_numpy(np.random.default_rng(12).integers(-1, k_max + 3, size=3 * S).astype(np.int32)).to(cuda)
+    k_eff[:3] = torch.tensor([k_max, 0, 1], dtype=torch.int32)
+    got = ops.segment_peaks(yt, lt, series, k_eff, k_max)
+    want = segment_peaks_dynamic(yt[series], lt[series], k_eff, k_max)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
+
+
 _NO_LAUNCH_OPS = {"empty", "empty_strided", "select", "slice", "view", "_unsafe_view", "transpose", "alias",
                   "as_strided", "expand", "unsqueeze", "detach", "t", "permute", "reshape", "_reshape_alias"}
 
@@ -245,7 +264,7 @@ def test_replay_is_one_wastage_launch_on_card(cuda, max_attempts):
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
 @pytest.mark.parametrize("mode", ["none", "all", "half"])
-@pytest.mark.parametrize("L", [1, 77, 256, 8192])
+@pytest.mark.parametrize("L", [1, 5, 77, 129, 256, 1023, 8192])
 def test_compaction_kernel_matches_plain_on_card(cuda, dtype, mode, L):
     rng = np.random.default_rng(L + 1)
     t = np.sort(rng.random((64, L)) * 1e4, axis=1)
@@ -260,6 +279,68 @@ def test_compaction_kernel_matches_plain_on_card(cuda, dtype, mode, L):
     assert compaction.launches == before + 1
     want_t, want_d = compaction.compact_events_plain(tt, dd, kk)
     assert torch.equal(got_t, want_t) and torch.equal(got_d, want_d)
+
+
+def _fold_rows(S: int, N: int, L: int, dtype, seed: int, dev):
+    """Node event rows of S lanes as the sweep carries them: sorted times
+    with ties and +inf tails, MiB deltas (some -0.0, some cancelling), bases
+    (some -0.0), and clocks before, after, on and between events."""
+    rng = np.random.default_rng(seed)
+    R = S * N
+    t = np.sort(np.round(rng.random((R, L)) * 5e3, 1), axis=1)
+    fin = np.arange(L)[None, :] < rng.integers(L // 4, L + 1, size=R)[:, None]
+    fin[0] = True
+    t = np.where(fin, t, np.inf)
+    d = np.where(fin, np.round(rng.standard_normal((R, L)) * 4096.0, 3), 0.0)
+    d[1:, ::7] = -0.0
+    q = L // 4
+    d[1, q:2 * q] = -d[1, :q]
+    base = np.round(rng.random(R) * 65536.0, 2)
+    base[::3] = -0.0
+    now = np.round(rng.random(S) * 5e3, 1)
+    now[0], now[1 % S] = -1.0, 1e4
+    if S > 2:
+        now[2] = t[2 * N, L // 3]
+    return [torch.from_numpy(a).to(dev, dtype) for a in (t, d, base, now)]
+
+
+def _same_bits(a, b) -> bool:
+    if a.is_floating_point():
+        bits = torch.int64 if a.dtype == torch.float64 else torch.int32
+        a, b = a.view(bits), b.view(bits)
+    return torch.equal(a, b)
+
+
+@pytest.mark.parametrize("dtype,L", [(dt, L) for dt in (torch.float64, torch.float32) for L in (1, 17, 256, 1024, 8192)]
+                         + [(torch.float64, 20000), (torch.float32, 40000)])  # past the shared memory
+def test_fold_kernel_matches_plain_on_card(cuda, dtype, L):
+    t, d, base, now = _fold_rows(4, 16, L, dtype, L, cuda)
+    before = compaction.launches
+    got = ops.fold_compact(t, d, base, now, 16)
+    assert compaction.launches == before + 1
+    want = compaction.fold_compact_plain(t, d, base, now, 16)
+    torch.cuda.synchronize()
+    for g, w in zip(got, want):
+        assert _same_bits(g, w)
+    assert (want[4] > 0).any() and (want[4] < torch.isfinite(t).sum(dim=-1)).any()
+
+
+def test_fold_and_compact_is_one_launch_on_card(cuda):
+    """``device_timeline._fold_and_compact`` on the card: the kernel's one
+    launch, and the max over nodes its only other op that launches."""
+    from repro_torch.sim import device_timeline
+
+    S, N, L = 4, 16, 1024
+    t, d, base, now = _fold_rows(S, N, L, torch.float64, 5, cuda)
+    before = compaction.launches
+    seen, out = _aten_ops(lambda: device_timeline._fold_and_compact(now, base.view(S, N), t.view(S, N, L),
+                                                                    d.view(S, N, L)))
+    assert compaction.launches == before + 1
+    launching = [op for op in seen if op not in _NO_LAUNCH_OPS]
+    assert launching == ["amax"], seen
+    want = compaction.fold_compact_plain(t, d, base, now, N)
+    assert _same_bits(out[1].reshape(-1, L), want[1]) and _same_bits(out[3].reshape(-1, L), want[3])
+    assert torch.equal(out[4], want[4].view(S, N).amax(dim=-1))
 
 
 @pytest.mark.parametrize("placement,x64", [("windows", False), ("sweep", False), ("windows", True)])
