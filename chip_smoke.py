@@ -5,9 +5,9 @@
 
 Phases, each of which fails the run on a wrong result:
 
-1. build the segmax, wastage, rangemax, compaction, fitstats and flash
-   kernels from ``src/repro_torch/kernels/csrc`` (one ``nvcc`` per source,
-   in parallel);
+1. build the segmax, wastage, rangemax, compaction, fitstats, scan and
+   flash kernels from ``src/repro_torch/kernels/csrc`` (one ``nvcc`` per
+   source, in parallel);
 2. hold segmax and wastage against their plain PyTorch versions on the
    card, at the shapes of the largest bucket of the grid (peaks and fail
    indices exact, float32 wastage within rtol 1e-5 / atol 1e-4 GiB*s, the
@@ -21,9 +21,20 @@ Phases, each of which fails the run on a wrong result:
    totals and with recorded ladders (32 attempts), in f32/f32, f32/f64 and
    f64/f64 (values, failure indices, retries and attempt counts exact,
    waste within the same gates), timed, profiled and beside its bound;
-3. the paper's Fig. 7 grid at full corpus size on the card (cold and warm),
-   with the launch counts of that run, held against the port's own CPU run
-   (every Fig. 7a cell within rtol 1e-3);
+2b. the scan kernel (every running sum of the engine's predict phase)
+   bitwise against ``scan.cumsum`` in both of its orders (sequential, and
+   XLA's blocks of 16) in f32 and f64, at n = 1 to 20,000 and 60,000 (past
+   the shared memory), at the grid's largest bucket shapes ((4, 1,536, 25)
+   sequential along the executions, (4, 1,536, 1,536) in XLA's order along
+   the last axis) and on a non-contiguous input; timed there (CUDA events,
+   profiled device time) beside its bound and ``torch.cumsum``'s time; and
+   ``predict_lanes`` at the largest bucket must dispatch fewer aten ops
+   that launch than the bucket has executions (counted at dispatch, beside
+   the count with the plain scan);
+3. the paper's Fig. 7 grid (all eight methods) at full corpus size on the
+   card (cold and warm), with the launch counts of that run, held against
+   the port's own CPU run (every Fig. 7a cell within rtol 1e-3), the
+   profiled run's launches and predict-phase host time beside the chains';
 4. the Fig. 8 k-sweep (k = 1..15) on a sawtooth and a ramp/staged task, on
    the card against the CPU;
 5. the cluster scheduler (Sec. IV-E) at the standard configuration, uncut:
@@ -91,9 +102,9 @@ Phases, each of which fails the run on a wrong result:
    first 512 executions of the corpus' largest task (32 reoptimisations of
    6 candidates, each a replay through segmax and wastage), its
    ``history_k`` equal to its CPU run's, and one profiled run (wall and
-   total launches); and ``simulate_grid`` on the card
+   total launches, beside the chains'); and ``simulate_grid`` on the card
    against the sequential oracle ``simulate_suite`` (scale 0.35,
-   progressive offsets, the seven engine methods, fraction 0.5) under the
+   progressive offsets, all nine engine methods, fraction 0.5) under the
    reference's gate (``tests/test_batch_engine.py:36-47``) on every cell.
 
 Prints the card's name and power limit, a ``{"kernels": [...]}`` line, and
@@ -122,7 +133,7 @@ F64_OPS_PER_S = 34e12  # H100 SXM float64 outside the tensor cores
 BF16_OPS_PER_S = 989e12  # H100 SXM bf16 on the tensor cores, dense
 CORPUS_SCALE = 1.0  # the paper's corpus: 33 eligible tasks
 FIG8_KS = tuple(range(1, 16))
-GRID_KERNELS = ("segmax", "wastage")  # the kernels of the grid and k-sweep paths
+GRID_KERNELS = ("segmax", "wastage", "scan")  # the kernels of the engine's paths
 # Earlier designs' figures, printed beside this run's (NVIDIA H100 80GB HBM3,
 # 700 W): segmax and compaction as a block per row, profiled at the shapes
 # this script times them at, and the warm sweep run's profiled launches
@@ -130,6 +141,12 @@ GRID_KERNELS = ("segmax", "wastage")  # the kernels of the grid and k-sweep path
 SEGMAX_BLOCK_PER_ROW_MS = 0.0206  # 6,144 rows of T 2,048, k 4
 COMPACTION_BLOCK_PER_ROW_MS = 0.0028  # (64, 1,024) f64
 SWEEP_CHAIN_LAUNCHES = 906_000
+# The profiled runs while the predict phase's running sums were chains of
+# small ops (the same card and limit; the grid then ran six methods): the
+# warm grid's and the tuner's total launches and their torch_sim.predict
+# host ms
+GRID_CHAIN_LAUNCHES, GRID_CHAIN_PREDICT_MS = 11_043, 230.76
+TUNER_CHAIN_LAUNCHES, TUNER_CHAIN_PREDICT_MS = 80_595, 1_888.4
 
 
 def _ptxas_summary(log: str) -> list[tuple[str, str, str]]:
@@ -481,6 +498,103 @@ def kernels_phase(batch, cfg, dev) -> dict[str, dict]:
     return out
 
 
+SCAN_LENGTHS = (1, 15, 16, 17, 255, 256, 257, 1536, 4096, 20000, 60000)  # 60,000: past the shared memory
+
+
+def _scan_rows(shape, dtype, seed: int, dev):
+    """N(0, 1e3) values with exact zeros of both signs, -0.0 first."""
+    import numpy as np
+    import torch
+
+    rng = np.random.default_rng(seed)
+    a = rng.standard_normal(shape) * 1e3
+    a[rng.random(shape) < 0.05] = -0.0
+    a[..., 0] = -0.0
+    return torch.from_numpy(a).to(dev, dtype)
+
+
+def scan_phase(batch, cfg, dev) -> dict:
+    """The scan kernel bitwise against ``scan.cumsum`` in both orders, and
+    timed at the grid's largest bucket; ``predict_lanes`` there dispatches
+    fewer launching aten ops than the bucket has executions."""
+    import torch
+
+    from repro_torch.kernels import ops, scan
+    from repro_torch.sim import torch_sim
+    from repro_torch.sim.batch_engine import GRID_METHODS
+
+    L, B, T = batch.shape
+    cases = 0
+    for dtype in (torch.float32, torch.float64):
+        for n in SCAN_LENGTHS:
+            a = _scan_rows((3 if n > 4096 else 16, n), dtype, n, dev)
+            for block in (n, scan.XLA_SCAN_BLOCK):
+                got, want = scan.scan_cuda(a, -1, block), scan.cumsum(a, block)
+                torch.cuda.synchronize()
+                if not _same_bits(got, want):
+                    _fail(f"scan {str(dtype)[6:]} n={n} block={block}: not bitwise equal to scan.cumsum")
+                cases += 1
+        a = _scan_rows((L, B, 40), dtype, 5, dev).transpose(1, 2)  # non-contiguous, along the last axis
+        for block in (B, scan.XLA_SCAN_BLOCK):
+            if not _same_bits(scan.scan_cuda(a, -1, block), scan.prefix_sum_plain(a, -1, block)):
+                _fail(f"scan {str(dtype)[6:]} on a non-contiguous input, block {block}: not bitwise equal")
+            cases += 1
+    print(f"scan phase: {cases} cases bitwise equal to scan.cumsum (n = {', '.join(map(str, SCAN_LENGTHS))}, "
+          f"sequential and XLA order, f32 and f64, and a non-contiguous input)")
+
+    # the largest bucket's calls: the fold (L, B, 5 (1 + k)) along the
+    # executions, and PPM's masked sums (L, B, B) in XLA's order along the last axis
+    C = 5 * (1 + cfg.ksegments.k)
+    out = {}
+    for name, shape, dim, block, kernel in (("fold", (L, B, C), 1, B, "seq_kernel"),
+                                            ("xla", (L, B, B), 2, scan.XLA_SCAN_BLOCK, "xla_kernel")):
+        for dtype in (torch.float32, torch.float64):
+            a = _scan_rows(shape, dtype, B + len(name), dev)
+            got, want = scan.scan_cuda(a, dim, block), scan.prefix_sum_plain(a, dim, block)
+            torch.cuda.synchronize()
+            if not _same_bits(got, want):
+                _fail(f"scan {name} {str(dtype)[6:]} {shape}: not bitwise equal to scan.cumsum")
+            ms = _cuda_ms(lambda: scan.scan_cuda(a, dim, block), 50)
+            device_ms = _device_ms(lambda: scan.scan_cuda(a, dim, block), kernel, 40)
+            plain_ms = _cuda_ms(lambda: scan.prefix_sum_plain(a, dim, block), 2)
+            library_ms = _cuda_ms(lambda: torch.cumsum(a, dim), 50)  # the yardstick: it adds in another order
+            n = shape[dim]
+            # bytes: each element read once and written once; operations:
+            # one add an element, and a second for a block's prefix in XLA's order
+            bound_ms, bound_by = _bound(2 * a.numel() * a.element_size(),
+                                        a.numel() * (1 if block >= n else 2),
+                                        F32_OPS_PER_S if dtype == torch.float32 else F64_OPS_PER_S)
+            print(f"  {name} {str(dtype)[6:]} {shape} along axis {dim}: bitwise; kernel {ms:.4f} ms back to back, "
+                  f"profiled device {device_ms:.4f} ms, bound {bound_ms:.6f} ms ({bound_by}), plain {plain_ms:.4f} "
+                  f"ms, torch.cumsum {library_ms:.4f} ms")
+            out[(name, dtype)] = dict(max_abs_err=(got - want).abs().max().item(), ms=ms, plain_ms=plain_ms,
+                                      bound_ms=bound_ms, bound_by=bound_by, library_ms=library_ms, device_ms=device_ms)
+
+    # predict_lanes at the largest bucket: launching aten ops with the
+    # kernel, and with the plain scan (the chains it replaced) on the same tensors
+    kc = cfg.ksegments
+    S = L * B
+    x = torch.as_tensor(batch.x, dtype=torch.float32).to(dev)
+    args = (x - x[:, :1], torch.as_tensor(batch.y.reshape(S, T)).to(dev),
+            torch.as_tensor(batch.lengths.reshape(S)).to(dev),
+            torch.arange(S, dtype=torch.int32, device=dev).view(L, B),
+            torch.as_tensor(batch.default_mib, dtype=torch.float32).to(dev),
+            torch.full((L,), kc.k, dtype=torch.int32, device=dev))
+    kw = dict(methods=GRID_METHODS, k=kc.k, interval_s=kc.interval_s, floor_mib=kc.floor_mib,
+              cap_mib=cfg.node_cap_mib, error_mode=kc.error_mode, insample_window=kc.insample_window)
+    before = scan.launches
+    site = _launching_ops(lambda: torch_sim.predict_lanes(*args, **kw))
+    n_scan = scan.launches - before
+    with _patched(ops, "prefix_sum", lambda orig: scan.prefix_sum_plain):
+        plain = _launching_ops(lambda: torch_sim.predict_lanes(*args, **kw))
+    execs = int(batch.n_execs.sum())
+    print(f"  predict_lanes at the largest bucket ({L} lanes, {execs} executions, {len(GRID_METHODS)} methods): "
+          f"{site} aten ops that launch and {n_scan} scan launches; with the plain scan {plain} aten ops that launch")
+    if site >= execs or n_scan < 1:
+        _fail(f"predict_lanes dispatched {site} launching aten ops ({n_scan} scan launches) for {execs} executions")
+    return out[("xla", torch.float32)]
+
+
 def _retry_diffs(got, want) -> int:
     return sum(int((g.retries != w.retries).sum()) for g, w in zip(got, want))
 
@@ -505,6 +619,9 @@ def grid_phase(wfs, cfg):
           f"({100 * busy:.2f}% busy, {prof['launches']} launches); copies {prof['copy_ms']:.2f} ms")
     print(f"  phases, host ms {json.dumps({k: round(v, 2) for k, v in prof['phases_host_ms'].items()})}; "
           f"device span ms {json.dumps({k: round(v, 2) for k, v in prof['phases_device_ms'].items()})}")
+    print(f"  against the predict phase's chains (6 methods): launches {prof['launches']} (was "
+          f"{GRID_CHAIN_LAUNCHES}), torch_sim.predict host {prof['phases_host_ms'].get('torch_sim.predict', 0.0):.2f} "
+          f"ms (was {GRID_CHAIN_PREDICT_MS})")
     for name, (ms, n) in prof["top"]:
         print(f"    {ms:8.3f} ms {n:6d} x  {name[:100]}")
     t0 = time.perf_counter()
@@ -1469,8 +1586,9 @@ def online_phase(wfs, seed: int) -> None:
     prof = _profile(lambda: [sel.observe(e.input_size, e.series) for sel in [AdaptiveKSelector()] for e in execs])
     busy = prof["kernel_ms"] / 1e3 / prof["wall_s"]
     print(f"  profiled tuner run: wall {prof['wall_s']:.3f} s; kernels {prof['kernel_ms']:.2f} ms on the device "
-          f"({100 * busy:.2f}% busy, {prof['launches']} launches); host ms "
-          f"{json.dumps({k: round(v, 2) for k, v in prof['phases_host_ms'].items()})}")
+          f"({100 * busy:.2f}% busy, {prof['launches']} launches, {TUNER_CHAIN_LAUNCHES} with the chains); host ms "
+          f"{json.dumps({k: round(v, 2) for k, v in prof['phases_host_ms'].items()})} (torch_sim.predict was "
+          f"{TUNER_CHAIN_PREDICT_MS})")
     if min(counts[k] for k in GRID_KERNELS) < 1 or counts["wastage"] != counts["segmax"]:
         _fail(f"the tuner's replays did not launch segmax and wastage once each: {counts}")
     if card.history_k != cpu.history_k or len(card.history_k) != len(execs) // card.refresh:
@@ -1488,7 +1606,8 @@ def online_phase(wfs, seed: int) -> None:
         _fail("grid and oracle rows differ")
     bad = [(r.task, r.method) for r, w in zip(got, want) if not _gate(r, w)]
     exact = sum(np.array_equal(r.retries, w.retries) for r, w in zip(got, want))
-    print(f"  grid on the card vs the sequential oracle (scale {ORACLE_SCALE}, progressive, 7 methods, fraction 0.5): "
+    print(f"  grid on the card vs the sequential oracle (scale {ORACLE_SCALE}, progressive, {len(ENGINE_METHODS)} "
+          f"methods, fraction 0.5): "
           f"{len(got)} cells; card {grid_s:.3f} s, oracle {oracle_s:.3f} s; gate failed on {len(bad)}; retries "
           f"equal on {exact}; launches {counts}")
     if bad or min(counts[k] for k in GRID_KERNELS) < 1:
@@ -1536,7 +1655,9 @@ def main() -> int:
     print(f"corpus: {len(tasks)} eligible tasks in {len(batches)} buckets, "
           f"{sum(b.y.nbytes for b in batches) / 1e6:.1f} MB padded series ({time.perf_counter() - t0:.2f} s)")
 
-    per_kernel = kernels_phase(max(batches, key=lambda b: b.y.nbytes), cfg, dev)
+    largest = max(batches, key=lambda b: b.y.nbytes)
+    per_kernel = kernels_phase(largest, cfg, dev)
+    per_kernel["scan"] = scan_phase(largest, cfg, dev)
     counts, _, _ = grid_phase(wfs, cfg)
     sweep_phase(wfs, cfg)
     cluster_info = cluster_phase(wfs)
@@ -1557,6 +1678,10 @@ def main() -> int:
         "compaction": ("src/repro_torch/kernels/csrc/compaction.cu", "src/repro/kernels/compaction.py:92"),
         "fitstats": ("src/repro_torch/kernels/csrc/fitstats.cu", "src/repro/kernels/fitstats.py:53"),
         "flash": ("src/repro_torch/kernels/csrc/flash.cu", "src/repro/kernels/flash.py:77"),
+        # no TPU kernel: the reference engine's lax.scan carry and its jnp.cumsum calls
+        "scan": ("src/repro_torch/kernels/csrc/scan.cu",
+                 "src/repro/sim/jax_sim.py:621 (lax.scan carry); jnp.cumsum at src/repro/sim/jax_sim.py:241, 277, "
+                 "278, 295, 319, 347"),
     }
     line = {"kernels": [
         {"name": name, "route": "cuda", "source": src, "replaces": rep, "launches": counts[name],

@@ -43,8 +43,8 @@ class KSegmentsConfig:
     insample_window: int | None = None
     insample_refresh_tol: float = 1e-3
     # "absolute" offsets (MiB / seconds, the paper) or "relative" (KS+:
-    # residuals normalized by the prediction, the ``"ksplus"`` method; the
-    # host model only, the engine's ksplus is ROADMAP Queue 1 item 1).
+    # residuals normalized by the prediction, the ``"ksplus"`` method, which
+    # the engine, ``sim.torch_sim``, also runs).
     offset_mode: str = "absolute"
 
 

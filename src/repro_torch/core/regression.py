@@ -41,6 +41,11 @@ def update_stats(stats: torch.Tensor, x, y) -> torch.Tensor:
     return stats + stats_terms(x, y)
 
 
+def merge_stats(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """Sufficient statistics of the union of two observation sets."""
+    return a + b
+
+
 def fit(stats: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
     """Solve each regression: ``(intercept, slope)``.  With fewer than two
     observations or all x identical the slope is 0 and the intercept the

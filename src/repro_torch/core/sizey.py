@@ -29,8 +29,8 @@ each observation was folded, so the selection never rewards hindsight.
 The quantile rank is computed in exact integer arithmetic
 (``ceil(pct * (n - 1) / 100)`` over the ascending sort — numpy's "higher"
 interpolation) so a float32 device engine and this float64 host model pick
-the same order statistic (the reference engine's
-``_sizey_prefix_values``; the port's engine does not run Sizey yet).
+the same order statistic (the engine's ``sim.torch_sim._sizey_prefix_values``,
+as the reference engine's).
 
 Failure handling follows the baseline protocol: double the allocation, capped
 at the node's memory (the k = 1 ``StepAllocation`` special case).

@@ -49,6 +49,7 @@ SOURCES = {
     "rangemax": _EXACT,
     "compaction": _EXACT,
     "fitstats": _EXACT,
+    "scan": _EXACT,
     "flash": (),
 }
 

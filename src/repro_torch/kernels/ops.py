@@ -5,7 +5,9 @@ tensor goes to the plain PyTorch version.  segmax and wastage serve the
 evaluation engine (wastage runs whole retry ladders), rangemax (with the
 running sums before it) and compaction (with the sweep's fold around it)
 the cluster's placement programs, fitstats the kernels API's regression
-bank (``kernels.api``), flash the language model's attention.  Rows of segmax and wastage index series: row r reads
+bank (``kernels.api``), flash the language model's attention, scan the
+engine's predict phase (every running sum of it, in the reference's
+order).  Rows of segmax and wastage index series: row r reads
 ``y[series[r]]``, so rows that share a series (the methods of one
 execution, the k values of a sweep) never copy it on the card.
 """
@@ -16,7 +18,7 @@ import torch
 
 from repro_torch.core.allocation import attempt_outcomes_batch
 from repro_torch.core.segmentation import segment_peaks_dynamic
-from repro_torch.kernels import compaction, fitstats, flash, rangemax, segmax, wastage
+from repro_torch.kernels import compaction, fitstats, flash, rangemax, scan, segmax, wastage
 
 
 def _route(y: torch.Tensor) -> bool:
@@ -61,6 +63,15 @@ def replay_ladder(y, lengths, series, bounds, values, k_eff, selective, cap_jump
     replay = wastage.replay_ladder_cuda if _route(y) else wastage.replay_ladder_plain
     return replay(y, lengths, series, bounds, values, k_eff, selective, cap_jump, interval_s=interval_s,
                   factor=factor, cap_mib=cap_mib, max_attempts=max_attempts, acc_dtype=acc_dtype)
+
+
+def prefix_sum(a: torch.Tensor, dim: int = -1, block: int = scan.XLA_SCAN_BLOCK) -> torch.Tensor:
+    """Inclusive prefix sum of ``a`` along ``dim`` in ``scan.cumsum``'s order
+    (``block >= n``: one sequential fold; 16: XLA's CPU order): one launch
+    on the card."""
+    if _route(a):
+        return scan.scan_cuda(a, dim, block)
+    return scan.prefix_sum_plain(a, dim, block)
 
 
 def range_max_table(x: torch.Tensor) -> torch.Tensor:
@@ -131,6 +142,7 @@ _KERNELS = {
     "compaction": compaction,
     "fitstats": fitstats,
     "flash": flash,
+    "scan": scan,
 }
 
 

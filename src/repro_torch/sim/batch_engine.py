@@ -24,11 +24,10 @@ from repro_torch.core.allocation import AttemptLadder
 from repro_torch.core.ksegments import KSegmentsConfig
 from repro_torch.device import resolve_device
 from repro_torch.sim.simulator import SimConfig, TaskResult
-from repro_torch.sim.torch_sim import MAX_RETRIES, _check_methods, ladder_lanes, simulate_lanes
+from repro_torch.sim.torch_sim import ENGINE_METHODS, MAX_RETRIES, _check_methods, ladder_lanes, simulate_lanes
 from repro_torch.sim.traces import TaskTrace, WorkflowTrace, pack_traces
 
-# The reference's grid methods less those not ported yet (sizey, ksplus).
-GRID_METHODS = ("default", "witt-lr", "ppm", "ppm-improved", "ksegments-selective", "ksegments-partial")
+GRID_METHODS = tuple(m for m in ENGINE_METHODS if m != "witt-lr-max")
 
 
 def _engine_error_mode(kcfg: KSegmentsConfig) -> tuple[str, int]:

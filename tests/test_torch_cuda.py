@@ -6,7 +6,8 @@ nothing of JAX, so they run where only PyTorch is installed:
 
 Tolerances: segment peaks, fail indices, range-max and fit tables (bit for
 bit), ladder values, retries and attempt counts, compacted rows, the
-sweep's fold (bit for bit) and cluster placements exact; wastage rtol 1e-5 with atol 1e-4 GiB*s when
+sweep's fold (bit for bit), the scan's running sums (bit for bit) and
+cluster placements exact; wastage rtol 1e-5 with atol 1e-4 GiB*s when
 summed in f32, rtol 1e-9 with atol 1e-9 GiB*s when summed in f64, because
 the sums over a series run in another order.  flash in float32 atol 3e-5 /
 rtol 1e-4 (the reference's own kernel tolerance); in bf16 on N(0, 1)
@@ -26,7 +27,7 @@ import torch
 from repro_torch.core.allocation import attempt_outcomes_batch
 from repro_torch.core.segmentation import segment_peaks_dynamic
 from repro_torch import kernels
-from repro_torch.kernels import compaction, fitstats, flash, ops, rangemax, segmax, wastage
+from repro_torch.kernels import compaction, fitstats, flash, ops, rangemax, scan, segmax, wastage
 
 WASTE_TOL = dict(rtol=1e-5, atol=1e-4)
 WASTE_TOL_F64 = dict(rtol=1e-9, atol=1e-9)
@@ -631,3 +632,92 @@ def test_adaptive_k_on_card_matches_cpu_run(cuda):
         for e in trace.executions[:32]:
             cpu.observe(e.input_size, e.series)
         assert card.history_k == cpu.history_k and card.history_k
+
+
+# the scan phase's lengths; 60,000 is past the opt-in shared memory in both
+# types (the global scratch path)
+SCAN_LENGTHS = (1, 15, 16, 17, 255, 256, 257, 1536, 4096, 20000, 60000)
+
+
+def _scan_input(shape, dtype, seed: int, dev):
+    """N(0, 1e3) values with exact zeros of both signs, a -0.0 first."""
+    rng = np.random.default_rng(seed)
+    a = rng.standard_normal(shape) * 1e3
+    a[rng.random(shape) < 0.05] = 0.0
+    a[rng.random(shape) < 0.05] = -0.0
+    a[(slice(None),) * (len(shape) - 1) + (0,)] = -0.0
+    return torch.from_numpy(a).to(dev, dtype)
+
+
+def _same_bits(a, b):
+    bits = torch.int64 if a.dtype == torch.float64 else torch.int32
+    return a.shape == b.shape and torch.equal(a.contiguous().view(bits), b.contiguous().view(bits))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("order", ["sequential", "xla"])
+@pytest.mark.parametrize("n", SCAN_LENGTHS)
+def test_scan_kernel_matches_plain_on_card(cuda, n, order, dtype):
+    rows = 3 if n > 4096 else 16
+    a = _scan_input((rows, n), dtype, n, cuda)
+    block = n if order == "sequential" else scan.XLA_SCAN_BLOCK
+    before = scan.launches
+    got = ops.prefix_sum(a, -1, block)
+    assert scan.launches == before + 1
+    assert _same_bits(got, scan.cumsum(a, block))
+    assert not torch.signbit(got[:, 0]).any()  # the leading -0.0 became +0.0
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("order", ["sequential", "xla"])
+@pytest.mark.parametrize("shape,dim", [((4, 1536, 25), 1), ((2, 257, 7), 1), ((3, 5, 40), 0), ((2, 3, 300), 2)])
+def test_scan_kernel_along_any_axis_on_card(cuda, shape, dim, order, dtype):
+    """The scan along a middle or the first axis (the predict phase's fold
+    and PPM's columns) without a copy before it."""
+    a = _scan_input(shape, dtype, sum(shape), cuda)
+    block = shape[dim] if order == "sequential" else scan.XLA_SCAN_BLOCK
+    assert _same_bits(scan.scan_cuda(a, dim, block), scan.prefix_sum_plain(a, dim, block))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_scan_kernel_on_non_contiguous_inputs_on_card(cuda, dtype):
+    a = _scan_input((40, 3, 600), dtype, 7, cuda)
+    for view, dim in ((a.transpose(0, 2), 0), (a[:, 1, ::2], 1), (a.permute(2, 0, 1)[:, :, 1], 0),
+                      (a[0, :, :1].expand(3, 1000), 1)):
+        assert not view.is_contiguous()
+        for block in (view.shape[dim], scan.XLA_SCAN_BLOCK):
+            assert _same_bits(scan.scan_cuda(view, dim, block), scan.prefix_sum_plain(view, dim, block))
+
+
+def test_scan_kernel_refuses_what_it_cannot_take(cuda):
+    a = torch.ones(4, 40, device=cuda)
+    with pytest.raises(ValueError, match="block 8"):
+        scan.scan_cuda(a, -1, 8)
+    with pytest.raises(ValueError, match="float32 or float64"):
+        scan.scan_cuda(a.half(), -1, 16)
+    with pytest.raises(ValueError, match="CUDA tensors"):
+        scan.scan_cuda(a.cpu(), -1, 16)
+
+
+@pytest.mark.parametrize("mode,window", [("progressive", 0), ("insample", 8)])
+def test_sizey_and_ksplus_on_card_match_cpu_run(cuda, mode, window):
+    """``simulate_task_methods`` with Sizey and KS+ on the card, through
+    the scan kernel, against ``device="cpu"``: retries exact."""
+    from repro_torch.sim import torch_sim
+    from repro_torch.sim.traces import generate_eager
+
+    methods = ("sizey", "ksplus", "ksegments-selective", "witt-lr")
+    tasks = generate_eager(seed=5, scale=0.2).eligible_tasks(10)
+    assert tasks
+    retried = 0
+    for t in tasks:
+        x, y, lengths = t.padded()
+        kw = dict(methods=methods, error_mode=mode, insample_window=window)
+        ops.reset_launch_counts()
+        w_card, r_card = torch_sim.simulate_task_methods(x, y, lengths, t.default_mib, **kw)
+        assert ops.launch_counts()["scan"] >= 3  # the fold, the prefix bank, Sizey's scores
+        w_cpu, r_cpu = torch_sim.simulate_task_methods(x, y, lengths, t.default_mib, device="cpu", **kw)
+        assert torch.equal(r_card.cpu(), r_cpu), t.name
+        torch.testing.assert_close(w_card.cpu(), w_cpu, **WASTE_TOL)
+        retried += int(r_cpu.sum())
+    assert retried > 0

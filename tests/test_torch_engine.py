@@ -1,7 +1,8 @@
 """The port's engine pieces against the reference engine (``repro.sim.jax_sim``)
-on the same seeded inputs: regression banks, the prefix programs, the
-insample window offsets, the carry round trip, and ``simulate_task_methods``
-for every ported method in both error modes.
+on the same seeded inputs: regression banks, the running sums, the prefix
+programs (Witt, PPM, Sizey), KS+'s relative prediction, the insample window
+offsets (absolute and relative), the carry round trip, and
+``simulate_task_methods`` for all nine methods in both error modes.
 
 Tolerances: retry counts exact; predicted bounds and values rtol 1e-6,
 because XLA fuses f32 multiply-adds (one rounding) where PyTorch rounds
@@ -19,6 +20,7 @@ from repro.core.ksegments import KSegmentsModel
 from repro.sim import jax_sim
 from repro_torch.core import regression
 from repro_torch.core.ksegments import carry_from_numpy, carry_to_numpy
+from repro_torch.kernels import ops
 from repro_torch.sim import torch_sim, traces
 
 PRED_TOL = dict(rtol=1e-6, atol=1e-6)
@@ -53,6 +55,13 @@ def test_regression_matches_reference():
     )
 
 
+def test_merge_stats_matches_reference():
+    a, b = _observed_stats(3, 16, 5), _observed_stats(4, 16, 9)
+    got = regression.merge_stats(_t(a), _t(b))
+    np.testing.assert_array_equal(got.numpy(), np.asarray(ref_reg.merge_stats(jnp.asarray(a), jnp.asarray(b))))
+    np.testing.assert_array_equal(regression.merge_stats(_t(a), regression.empty_stats(16)).numpy(), a)
+
+
 def test_regression_degenerate_fits():
     """Empty banks, one observation and all-equal inputs fall back to the mean model."""
     np.testing.assert_array_equal(regression.empty_stats(3).numpy(), np.asarray(ref_reg.empty_stats(3)))
@@ -68,8 +77,8 @@ def test_regression_degenerate_fits():
 
 @pytest.mark.parametrize("n", [7, 16, 33, 300])
 def test_cumsum_adds_in_the_reference_order(n):
-    """``_cumsum(., 16)`` equals jnp.cumsum bit for bit; a block as long as
-    the axis is the scan's sequential fold."""
+    """``ops.prefix_sum(., 16)`` equals jnp.cumsum bit for bit; a block as
+    long as the axis is the scan's sequential fold."""
     a = (np.random.default_rng(n).standard_normal((3, n)) * 1e3).astype(np.float32)
     np.testing.assert_array_equal(torch_sim._xla_cumsum(_t(a)).numpy(), np.asarray(jnp.cumsum(jnp.asarray(a), axis=1)))
     seq = np.zeros_like(a)
@@ -77,7 +86,9 @@ def test_cumsum_adds_in_the_reference_order(n):
     for i in range(n):
         acc = acc + a[:, i]
         seq[:, i] = acc
-    np.testing.assert_array_equal(torch_sim._cumsum(_t(a), block=n).numpy(), seq)
+    np.testing.assert_array_equal(ops.prefix_sum(_t(a), -1, block=n).numpy(), seq)
+    # along a middle axis, as the predict phase folds (lanes, executions, stats)
+    np.testing.assert_array_equal(ops.prefix_sum(_t(a).T[None], 1, block=n)[0].T.numpy(), seq)
 
 
 def _prefix_inputs(seed: int, B: int):
@@ -109,6 +120,50 @@ def test_ppm_prefix_values_match_reference_with_tied_peaks(B):
         np.testing.assert_allclose(g[0].numpy(), np.asarray(w), **PRED_TOL)
 
 
+def _sizey_inputs(seed: int, B: int, tied: bool):
+    u, gpeak = _prefix_inputs(seed, B)
+    if tied:  # ties in the peaks: the stable sort and the first hit decide
+        rng = np.random.default_rng(seed + 1)
+        gpeak = rng.choice(np.float32([120.0, 800.0, 2500.0, 640.5]), size=B).astype(np.float32)
+        gpeak[B // 2 :] = np.float32(800.0)
+    return u, gpeak
+
+
+@pytest.mark.parametrize("tied", [False, True])
+@pytest.mark.parametrize("B", [1, 2, 3, 7, 40, 130])
+def test_sizey_prefix_values_match_reference(B, tied):
+    u, gpeak = _sizey_inputs(B, B, tied)
+    want = jax_sim._sizey_prefix_values(jnp.asarray(u), jnp.asarray(gpeak), 100.0)
+    got = torch_sim._sizey_prefix_values(_t(u)[None], _t(gpeak)[None], 100.0)
+    np.testing.assert_allclose(got[0].numpy(), np.asarray(want), **PRED_TOL)
+    # batched over lanes, sharing Witt's prefix bank, each lane as alone
+    u2, g2 = _sizey_inputs(B + 100, B, not tied)
+    U, G = _t(np.stack([u, u2])), _t(np.stack([gpeak, g2]))
+    both = torch_sim._sizey_prefix_values(U, G, 100.0, torch_sim._prefix_bank(U, G))
+    np.testing.assert_array_equal(both[0].numpy(), got[0].numpy())
+    np.testing.assert_array_equal(both[1].numpy(), torch_sim._sizey_prefix_values(_t(u2)[None], _t(g2)[None], 100.0)[0])
+
+
+@pytest.mark.parametrize("seed", [0, 1, 2])
+def test_predict_rel_matches_reference(seed):
+    k = 4
+    rng = np.random.default_rng(seed)
+    rt_stats = _observed_stats(10 + seed, 1, 6)[0]
+    seg_stats = _observed_stats(20 + seed, k, 6)
+    rt_rel = np.float32(rng.standard_normal() * 0.3)
+    seg_rel = (rng.standard_normal(k) * 0.3).astype(np.float32)
+    for u in (rng.standard_normal(5) * 3e9).astype(np.float32):
+        for k_eff in (1, 3, 4):
+            want = jax_sim._predict_rel(
+                jnp.asarray(rt_stats), jnp.asarray(rt_rel), jnp.asarray(seg_stats), jnp.asarray(seg_rel),
+                jnp.asarray(u), k, jnp.asarray(k_eff), 2.0, 100.0,
+            )
+            got = torch_sim._predict_rel(_t(rt_stats), _t(rt_rel), _t(seg_stats), _t(seg_rel), torch.tensor(u), k,
+                                         k_eff, 2.0, 100.0)
+            for g, w in zip(got, want):
+                np.testing.assert_allclose(g.numpy(), np.asarray(w), **PRED_TOL)
+
+
 @pytest.mark.parametrize("n_obs", [0, 3, 8, 20])
 def test_window_offsets_match_reference(n_obs):
     W, k = 8, 4
@@ -120,14 +175,37 @@ def test_window_offsets_match_reference(n_obs):
         (rng.random(W) * 600.0).astype(np.float32),
         (rng.random((W, k)) * 4000.0).astype(np.float32),
     )
-    ev = (np.float32(-np.inf if n_obs <= W else 37.5), np.full(k, -np.inf if n_obs <= W else 12.0, np.float32))
+    evicted = n_obs > W
+    ev = (np.float32(37.5 if evicted else -np.inf), np.full(k, 12.0 if evicted else -np.inf, np.float32),
+          np.float32(0.02 if evicted else -np.inf), np.full(k, 0.015 if evicted else -np.inf, np.float32))
     want = jax_sim._window_offsets(
         jnp.asarray(rt_stats), jnp.asarray(seg_stats), tuple(map(jnp.asarray, hist)), n_obs,
-        (jnp.asarray(ev[0]), jnp.asarray(ev[1]), jnp.asarray(ev[0]), jnp.asarray(ev[1])), 2.0, 100.0,
+        tuple(map(jnp.asarray, ev)), 2.0, 100.0,
     )
-    got = torch_sim._window_offsets(_t(rt_stats), _t(seg_stats), tuple(map(_t, hist)), n_obs, (_t(ev[0]), _t(ev[1])))
-    for g, w in zip(got, want[:2]):
+    got = torch_sim._window_offsets(_t(rt_stats), _t(seg_stats), tuple(map(_t, hist)), n_obs, tuple(map(_t, ev)),
+                                    2.0, 100.0)
+    assert len(got) == len(want) == 4  # absolute, then relative (KS+)
+    for g, w in zip(got, want):
         np.testing.assert_allclose(g.numpy(), np.asarray(w), **PRED_TOL)
+
+
+@pytest.mark.parametrize("seed", [0, 1])
+def test_relative_window_residuals_match_reference(seed):
+    """KS+'s residuals: each divided by its floored prediction, batched
+    over (lanes, steps) windows as ``_ksegments_offsets`` calls it."""
+    W, k = 6, 4
+    rng = np.random.default_rng(seed)
+    rt_stats = np.stack([_observed_stats(30 + seed + i, 1, 5 + i)[0] for i in range(3)])
+    seg_stats = np.stack([_observed_stats(40 + seed + i, k, 5 + i) for i in range(3)])
+    hu = (rng.standard_normal((3, W)) * 1e9).astype(np.float32)
+    hrt = (rng.random((3, W)) * 600.0).astype(np.float32)
+    hpk = (rng.random((3, W, k)) * 4000.0).astype(np.float32)
+    got = torch_sim._window_residuals(_t(rt_stats), _t(seg_stats), _t(hu), _t(hrt), _t(hpk), 2.0, 100.0)
+    for i in range(3):
+        want = jax_sim._window_residuals(jnp.asarray(rt_stats[i]), jnp.asarray(seg_stats[i]), jnp.asarray(hu[i]),
+                                         jnp.asarray(hrt[i]), jnp.asarray(hpk[i]), 2.0, 100.0)
+        for g, w in zip(got, want):
+            np.testing.assert_allclose(g[i].numpy(), np.asarray(w), **PRED_TOL)
 
 
 def test_carry_round_trip_and_prediction_from_reference_state():
@@ -159,7 +237,7 @@ def test_carry_round_trip_and_prediction_from_reference_state():
             np.testing.assert_allclose(g.numpy(), np.asarray(w), **PRED_TOL)
 
 
-# -- simulate_task_methods: 7 methods x 2 error modes --------------------------
+# -- simulate_task_methods: 9 methods x 2 error modes --------------------------
 
 MODES = {"progressive": 0, "insample": 4}
 
@@ -215,10 +293,12 @@ def test_simulate_task_methods_matches_reference(corpus, outcomes, mode, method)
 
 
 def test_unported_methods_raise():
+    """Every method of the reference engine runs; a name it does not know raises."""
+    assert torch_sim.ENGINE_METHODS == jax_sim.ENGINE_METHODS
     trace = traces.generate_eager(seed=5, scale=0.12).tasks[0]
     x, y, lengths = trace.padded()
-    for m in ("sizey", "ksplus"):
-        with pytest.raises(ValueError, match="ROADMAP.md"):
-            torch_sim.simulate_task_methods(x, y, lengths, trace.default_mib, methods=(m,), device="cpu")
+    with pytest.raises(ValueError, match="does not implement 'ks-plus'"):
+        torch_sim.simulate_task_methods(x, y, lengths, trace.default_mib, methods=("default", "ks-plus"),
+                                        device="cpu")
     with pytest.raises(ValueError, match="insample_window"):
         torch_sim.simulate_task_methods(x, y, lengths, trace.default_mib, error_mode="insample", device="cpu")

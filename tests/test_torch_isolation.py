@@ -187,4 +187,8 @@ def test_every_kernel_source_is_built():
     for name in build.SOURCES:
         src = (build.CSRC / f"{name}.cu").read_text()
         assert f'extern "C" int {name}_launch(' in src
-        assert f"repro/kernels/{name}.py" in src  # names the TPU kernel it replaces
+        # names the TPU kernel it replaces; scan, which has none, the
+        # reference engine's running sums
+        assert f"repro/kernels/{name}.py" in src or (
+            name == "scan" and "No TPU kernel" in src and "repro/sim/jax_sim.py" in src
+        )

@@ -20,7 +20,7 @@ from repro_torch.sim import torch_sim
 from repro_torch.sim.batch_engine import compute_cluster_ladders
 from repro_torch.sim.traces import generate_workflow
 
-METHODS = ("default", "witt-lr", "ppm", "ppm-improved", "ksegments-selective", "ksegments-partial")
+METHODS = ("default", "witt-lr", "ppm", "ppm-improved", "ksegments-selective", "ksegments-partial", "sizey", "ksplus")
 CAP_MIB = 64 * 1024.0
 TOL = dict(rtol=1e-5, atol=1e-9)
 
@@ -69,7 +69,9 @@ def test_unconverged_ladder_raises():
 
 
 def test_sizey_and_ksplus_name_the_roadmap_item():
+    """Sizey and KS+ have ladders (``test_ladders_match_reference``); a
+    method the engine does not know raises."""
+    assert {"sizey", "ksplus"} <= set(torch_sim.ENGINE_METHODS)
     tasks = generate_workflow("eager", seed=3, scale=0.12).eligible_tasks(8)
-    for m in torch_sim.NOT_PORTED:
-        with pytest.raises(ValueError, match="Queue 1, item 1"):
-            compute_cluster_ladders(tasks, ("default", m), CAP_MIB, device="cpu")
+    with pytest.raises(ValueError, match="does not implement 'sizey-q'"):
+        compute_cluster_ladders(tasks, ("default", "sizey-q"), CAP_MIB, device="cpu")

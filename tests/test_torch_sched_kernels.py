@@ -18,7 +18,7 @@ from repro.kernels import ops as ref_ops
 from repro.kernels.compaction import compact_events_jnp
 from repro.kernels.rangemax import num_levels as ref_num_levels
 from repro.kernels.rangemax import table_levels_jnp
-from repro_torch.kernels import compaction, ops, rangemax
+from repro_torch.kernels import compaction, ops, rangemax, scan
 
 LENGTHS = [1, 5, 77, 128, 300]
 
@@ -103,7 +103,9 @@ def test_cpu_tensors_take_the_plain_versions_and_no_kernel():
     t, d, keep = (torch.from_numpy(a) for a in _event_rows(2, 4, 40, "half", np.float64))
     for got, want in zip(ops.compact_events(t, d, keep), compaction.compact_events_plain(t, d, keep)):
         assert torch.equal(got, want)
-    assert ops.launch_counts() == {"segmax": 0, "wastage": 0, "rangemax": 0, "compaction": 0, "fitstats": 0, "flash": 0}
+    assert torch.equal(ops.prefix_sum(x, -1, 16), scan.cumsum(x, 16))
+    assert ops.launch_counts() == {"segmax": 0, "wastage": 0, "rangemax": 0, "compaction": 0, "fitstats": 0, "flash": 0,
+                                   "scan": 0}
 
 
 def test_dispatch_has_no_fallback_for_other_devices():
