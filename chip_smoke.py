@@ -5,9 +5,9 @@
 
 Phases, each of which fails the run on a wrong result:
 
-1. build the segmax, wastage, rangemax, compaction, fitstats, scan and
-   flash kernels from ``src/repro_torch/kernels/csrc`` (one ``nvcc`` per
-   source, in parallel);
+1. build the segmax, wastage, rangemax, compaction, fitstats, scan,
+   admission and flash kernels from ``src/repro_torch/kernels/csrc`` (one
+   ``nvcc`` per source, in parallel);
 2. hold segmax and wastage against their plain PyTorch versions on the
    card, at the shapes of the largest bucket of the grid (peaks and fail
    indices exact, float32 wastage within rtol 1e-5 / atol 1e-4 GiB*s, the
@@ -105,7 +105,20 @@ Phases, each of which fails the run on a wrong result:
    total launches, beside the chains'); and ``simulate_grid`` on the card
    against the sequential oracle ``simulate_suite`` (scale 0.35,
    progressive offsets, all nine engine methods, fraction 0.5) under the
-   reference's gate (``tests/test_batch_engine.py:36-47``) on every cell.
+   reference's gate (``tests/test_batch_engine.py:36-47``) on every cell;
+12. serving admission: ``benchmarks/run.py:bench_serve``'s three streams
+   (400 requests, seed 0: poisson at 8/s; bursty at 40/s, burst factor 8,
+   150,000 MiB; diurnal at 12/s, amplitude 0.8, 80,000 MiB) through
+   ``run_stream`` on ``"scalar"``, ``"batched"`` (its default
+   ``device_min_batch`` of 32, and 1, so every batch of two or more goes
+   through the decision kernel) and ``"sharded-scalar"``: counts,
+   decisions/s, p50/p99, wastage, decision-kernel launches and batches by
+   path of each run; the batched runs' decisions must equal the scalar
+   oracle's, and every decision-kernel call of those runs the plain loop's
+   on the same inputs; then bench_serve's microbench (batches of 256
+   against 256 and 1,024 resident plans) and the decision kernel at its
+   shape (1,024 resident) against the plain loop (admits equal) and its
+   bound, timed.
 
 Prints the card's name and power limit, a ``{"kernels": [...]}`` line, and
 as its last line ``{"ok": true, "device": {...}}``.  Exits non-zero without
@@ -1421,8 +1434,8 @@ def _fitstats_case(name: str, x, peaks, w, reps: int) -> dict:
           f"bitwise equal; kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, bound {bound_ms:.5f} ms ({bound_by}); "
           f"profiled device time {device_ms:.4f} ms a call (pass 1 {device['partial'][0]:.4f} ms over "
           f"{device['partial'][1]} launches, pass 2 {device['final'][0]:.4f} ms over {device['final'][1]})")
-    return dict(max_abs_err=(got - want).abs().max().item(), ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
-                bound_by=bound_by)
+    return dict(max_abs_err=(got - want).abs().max().item(), rel_err=err, ms=ms, plain_ms=plain_ms,
+                bound_ms=bound_ms, bound_by=bound_by)
 
 
 def fitstats_phase(wfs, cfg, dev) -> tuple[dict, int]:
@@ -1614,6 +1627,199 @@ def online_phase(wfs, seed: int) -> None:
         _fail(f"grid vs oracle: the reference's gate failed on {bad[:5]}, or a kernel was not launched: {counts}")
 
 
+# benchmarks/run.py:bench_serve's three streams (400 requests, seed 0) and its
+# decision microbench (batches of 256 candidates against 256 and 1,024
+# resident plans, budget 1e9 MiB so every candidate fits)
+SERVE_STREAMS = {
+    "poisson": dict(rate_per_s=8.0),
+    "bursty": dict(arrival="bursty", rate_per_s=40.0, burst_factor=8.0, hbm_budget_mib=150_000.0),
+    "diurnal": dict(arrival="diurnal", rate_per_s=12.0, diurnal_amp=0.8, hbm_budget_mib=80_000.0),
+}
+SERVE_REQUESTS = 400
+ADMISSION_ENGINES = ("scalar", "batched", "batched device_min_batch=1", "sharded-scalar")
+ADMISSION_RESIDENT = (256, 1024)
+ADMISSION_BATCH = 256
+
+
+def _counted_paths(ctl, paths: collections.Counter):
+    """Count the batches a batched controller decides on each of its paths:
+    one candidate (``try_admit``), the host probe below ``device_min_batch``,
+    the decision kernel at or above it."""
+    for name, path in (("try_admit", "one"), ("_admit_host", "host"), ("_admit_device", "kernel")):
+        def counted(*a, _orig=getattr(ctl, name), _path=path, **kw):
+            paths[_path] += 1
+            return _orig(*a, **kw)
+
+        setattr(ctl, name, counted)
+    return ctl
+
+
+def _admission_bound(args, admits) -> tuple[float, str]:
+    """The decision scan's bound: each input read once and the decisions
+    written once, at the HBM rate; or, at the f64 rate, the operations this
+    batch needs on its sorted probes: three binary searches a valid
+    candidate for the ends of its windows ([start, end] and [start,
+    release)), five operations a probe of its [start, end] window (the
+    offset, the segment index merged along the sorted probes, two additions
+    and the test) and two a probe of an admitted candidate's [start,
+    release) (the switch index, merged the same way, and the addition)."""
+    import math
+
+    import torch
+
+    P, prof, starts, ends, rels, bnd, val, valext, sw, live, valid, _ = args
+    lo = torch.searchsorted(P, starts, side="left")
+    win = (torch.searchsorted(P, ends, side="right") - lo).clamp(min=0)
+    held = (torch.searchsorted(P, rels, side="left") - lo).clamp(min=0)
+    nbytes = sum(t.numel() * t.element_size() for t in args[:-1]) + admits.numel()
+    nops = (int(valid.sum()) * 3 * math.ceil(math.log2(P.numel() + 1)) + 5 * int(win[valid].sum())
+            + 2 * int(held[admits].sum()))
+    return _bound(nbytes, nops, F64_OPS_PER_S)
+
+
+def admission_phase(dev, seed: int) -> tuple[dict, int]:
+    """The serving admission path: bench_serve's streams through every engine
+    the port has, the batched engine against the scalar oracle decision for
+    decision, then the decision microbench, and the decision kernel at the
+    microbench's shape against its plain loop and its bound."""
+    import numpy as np
+    import torch
+
+    from repro_torch.kernels import admission, ops
+    from repro_torch.serve.admission import AdmissionController, BatchedAdmissionController
+    from repro_torch.serve.stream import StreamConfig, run_stream
+    from repro_torch.sim.device_timeline import admission_scan_plain
+
+    calls: list = []
+
+    def capture(orig):
+        def wrapped(*a):
+            out = orig(*a)
+            calls.append((a, out))
+            return out
+
+        return wrapped
+
+    BatchedAdmissionController(1000.0, device_min_batch=1).try_admit_many(["w0", "w1"], [100, 200], 0.0)  # load
+    print(f"admission phase: bench_serve's streams ({SERVE_REQUESTS} requests, seed {seed}) through "
+          f"{', '.join(ADMISSION_ENGINES)}")
+    t0 = time.perf_counter()
+    ops.reset_launch_counts()
+    with _patched(admission, "admission_cuda", capture):
+        for name, kw in SERVE_STREAMS.items():
+            cfg = StreamConfig(n_requests=SERVE_REQUESTS, seed=seed, **kw)
+            runs = {}
+            for engine in ADMISSION_ENGINES:
+                paths: collections.Counter = collections.Counter()
+                ctl = None
+                if engine.startswith("batched"):
+                    ctl = _counted_paths(BatchedAdmissionController(
+                        cfg.hbm_budget_mib, k=cfg.k, interval_s=cfg.interval_s,
+                        device_min_batch=1 if engine.endswith("=1") else 32), paths)
+                before = admission.launches
+                res = run_stream(cfg, engine.split()[0], controller=ctl)
+                torch.cuda.synchronize()
+                launched = admission.launches - before
+                runs[engine] = res
+                print(f"    {name}/{engine}: admitted {res.admitted} rejected {res.rejected} evicted {res.evicted} "
+                      f"finished {res.finished}; {res.decisions_per_s:.0f} decisions/s, p50 "
+                      f"{res.p50_latency_s * 1e6:.1f} us, p99 {res.p99_latency_s * 1e6:.1f} us; wastage "
+                      f"{res.wastage['segmentwise_gib_s']:.3f} GiB*s (peak reservation "
+                      f"{res.wastage['peak_reservation_gib_s']:.3f}); admission launches {launched}"
+                      + (f"; batches by path {dict(paths)}" if ctl is not None else ""))
+                if engine.endswith("=1") and launched == 0:
+                    _fail(f"admission {name}: the batched engine at device_min_batch=1 launched no decision kernel")
+                if ctl is not None and launched != paths["kernel"]:
+                    _fail(f"admission {name}/{engine}: {launched} launches for {paths['kernel']} kernel batches")
+            want = runs["scalar"]
+            for engine in ADMISSION_ENGINES[1:3]:
+                got = runs[engine]
+                if got.decisions != want.decisions or (got.evicted, got.finished) != (want.evicted, want.finished):
+                    _fail(f"admission {name}: {engine} decisions differ from the scalar oracle's")
+    counts = ops.launch_counts()
+    print(f"  streams: {time.perf_counter() - t0:.2f} s; launches of these runs {counts}; batched decisions equal "
+          f"to the scalar oracle's on every stream")
+    if counts["admission"] != len(calls):
+        _fail(f"admission: {counts['admission']} launches but {len(calls)} calls of the wrapper")
+    bad = sum(not torch.equal(out, admission_scan_plain(*a)) for a, out in calls)
+    if bad:
+        _fail(f"admission: {bad} of the streams' {len(calls)} decision-kernel calls differ from the plain loop")
+    print(f"  the streams' {len(calls)} decision-kernel calls equal to the plain loop on the same inputs "
+          f"(largest C {max(a[5].shape[0] for a, _ in calls)}, Pp {max(a[0].shape[0] for a, _ in calls)})")
+
+    # bench_serve's microbench
+    rng = np.random.default_rng(seed)
+    ids = [f"c{i}" for i in range(ADMISSION_BATCH)]
+    plens = [int(rng.integers(100, 2000)) for _ in ids]
+
+    def make(cls, n_active):
+        ctl = cls(hbm_budget_mib=1e9, k=4, interval_s=1.0)
+        r = np.random.default_rng(seed + 1)
+        for _ in range(40):
+            plen = int(r.integers(100, 2000))
+            ctl.observe(plen, (plen * 0.02 + 0.6 * np.arange(int(60 + plen * 0.05))).astype(np.float32))
+        for i in range(n_active):
+            if ctl.try_admit(f"res{i}", int(r.integers(100, 2000)), i * 0.05) is None:
+                _fail("admission microbench: a resident plan was refused")
+        return ctl, n_active * 0.05 + 0.5
+
+    def one_round(ctl, batched, t):
+        got = ctl.try_admit_many(ids, plens, t) if batched else [ctl.try_admit(i, p, t) for i, p in zip(ids, plens)]
+        if not all(g is not None for g in got):
+            _fail("admission microbench: a candidate was refused under a budget that fits all")
+        for i in ids:
+            ctl.release(i)
+
+    shape_args = None
+    for n_active in ADMISSION_RESIDENT:
+        engines = {"batched": (BatchedAdmissionController, True)}
+        if n_active == ADMISSION_RESIDENT[0]:
+            engines = {"scalar": (AdmissionController, False), **engines}
+        line = []
+        for engine, (cls, batched) in engines.items():
+            ctl, t_probe = make(cls, n_active)
+            calls.clear()
+            with _patched(admission, "admission_cuda", capture):
+                one_round(ctl, batched, t_probe)  # warm
+            if batched:
+                shape_args = calls[-1][0]
+            n, t1 = 0, time.perf_counter()
+            while time.perf_counter() - t1 < 1.0:
+                one_round(ctl, batched, t_probe)
+                n += 1
+            line.append(f"{engine} {(time.perf_counter() - t1) * 1e6 / (n * ADMISSION_BATCH):.2f} us a decision "
+                        f"({n} rounds)")
+        print(f"  microbench, {n_active} resident, batches of {ADMISSION_BATCH}: {'; '.join(line)}")
+
+    # the decision kernel at the microbench's shape (1,024 resident); its
+    # decisions are checked twice: under the microbench's budget, where all
+    # are admitted, and under one that binds partway through the batch (the
+    # profile's peak plus 64 of the largest plan)
+    a = shape_args
+    got, want = ops.admission_scan(*a), admission_scan_plain(*a)
+    tight = (*a[:-1], float(a[1].max()) + 64 * float(a[6][:, -1].max()))
+    got_tight, want_tight = ops.admission_scan(*tight), admission_scan_plain(*tight)
+    torch.cuda.synchronize()
+    if not torch.equal(got, want):
+        _fail("admission: the kernel's decisions differ from the plain loop's at the microbench's shape")
+    if not torch.equal(got_tight, want_tight):
+        _fail("admission: under a binding budget the kernel's decisions differ from the plain loop's")
+    if not 0 < int(want_tight.sum()) < want_tight.numel():
+        _fail(f"admission: the binding budget admitted {int(want_tight.sum())} of {want_tight.numel()}")
+    Pp, (C, k) = a[0].shape[0], a[5].shape
+    plan = admission.plan(Pp, C, k)
+    ms = _cuda_ms(lambda: ops.admission_scan(*a), 50)
+    device_ms = _device_ms(lambda: ops.admission_scan(*a), "decide_kernel", 40)
+    plain_ms = _cuda_ms(lambda: admission_scan_plain(*a), 3)
+    bound_ms, bound_by = _admission_bound(a, got)
+    byte_ms = _bound(sum(t.numel() * t.element_size() for t in a[:-1]) + C, 0)[0]
+    print(f"  decision kernel at the microbench's shape (C {C}, Pp {Pp}, k {k}; {int(got.sum())} admitted; plan "
+          f"{plan}): equal to the plain loop, and under a binding budget ({int(got_tight.sum())} admitted); kernel {ms:.4f} ms back to back, profiled {device_ms:.4f} ms; plain "
+          f"loop {plain_ms:.3f} ms; bound {bound_ms:.6f} ms ({bound_by}; bytes alone {byte_ms:.6f} ms)")
+    return dict(max_abs_err=float((got.int() - want.int()).abs().max().item()), ms=ms, plain_ms=plain_ms,
+                bound_ms=bound_ms, bound_by=bound_by, device_ms=device_ms), counts["admission"]
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0, help="seed of the synthetic corpus")
@@ -1670,6 +1876,9 @@ def main() -> int:
     api_phase(dev)
     online_phase(wfs, args.seed)
     print(f"phases 9-11: {time.perf_counter() - t0:.2f} s")
+    t0 = time.perf_counter()
+    per_kernel["admission"], counts["admission"] = admission_phase(dev, args.seed)
+    print(f"admission phase: {time.perf_counter() - t0:.2f} s")
 
     sources = {
         "segmax": ("src/repro_torch/kernels/csrc/segmax.cu", "src/repro/kernels/segmax.py:55"),
@@ -1682,6 +1891,9 @@ def main() -> int:
         "scan": ("src/repro_torch/kernels/csrc/scan.cu",
                  "src/repro/sim/jax_sim.py:621 (lax.scan carry); jnp.cumsum at src/repro/sim/jax_sim.py:241, 277, "
                  "278, 295, 319, 347"),
+        # no TPU kernel: the reference's batched admission scan
+        "admission": ("src/repro_torch/kernels/csrc/admission.cu",
+                      "src/repro/sim/device_timeline.py:374 (admission_program's lax.scan)"),
     }
     line = {"kernels": [
         {"name": name, "route": "cuda", "source": src, "replaces": rep, "launches": counts[name],

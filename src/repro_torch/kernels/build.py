@@ -50,6 +50,7 @@ SOURCES = {
     "compaction": _EXACT,
     "fitstats": _EXACT,
     "scan": _EXACT,
+    "admission": _EXACT,
     "flash": (),
 }
 

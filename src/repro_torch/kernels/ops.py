@@ -7,7 +7,7 @@ running sums before it) and compaction (with the sweep's fold around it)
 the cluster's placement programs, fitstats the kernels API's regression
 bank (``kernels.api``), flash the language model's attention, scan the
 engine's predict phase (every running sum of it, in the reference's
-order).  Rows of segmax and wastage index series: row r reads
+order), admission the batched admission controller's decision scan.  Rows of segmax and wastage index series: row r reads
 ``y[series[r]]``, so rows that share a series (the methods of one
 execution, the k values of a sweep) never copy it on the card.
 """
@@ -18,7 +18,7 @@ import torch
 
 from repro_torch.core.allocation import attempt_outcomes_batch
 from repro_torch.core.segmentation import segment_peaks_dynamic
-from repro_torch.kernels import compaction, fitstats, flash, rangemax, scan, segmax, wastage
+from repro_torch.kernels import admission, compaction, fitstats, flash, rangemax, scan, segmax, wastage
 
 
 def _route(y: torch.Tensor) -> bool:
@@ -135,6 +135,19 @@ def flash_attention(
     return flash.flash_attention_plain(q, k, v, q_pos, k_pos, causal=causal, window=window, softcap=softcap)
 
 
+def admission_scan(P, prof, starts, ends, rels, bnd, val, valext, sw, live, valid, budget: float) -> torch.Tensor:
+    """Decide C admission candidates in order against the profile read
+    ``prof`` at the probes ``P`` and the budget -> admits (C,) bool
+    (arguments as ``sim.device_timeline.admission_scan_plain``): one launch
+    on the card."""
+    if _route(P):
+        return admission.admission_cuda(P, prof, starts, ends, rels, bnd, val, valext, sw, live, valid, budget)
+    # imported here: device_timeline imports this module
+    from repro_torch.sim.device_timeline import admission_scan_plain
+
+    return admission_scan_plain(P, prof, starts, ends, rels, bnd, val, valext, sw, live, valid, budget)
+
+
 _KERNELS = {
     "segmax": segmax,
     "wastage": wastage,
@@ -143,6 +156,7 @@ _KERNELS = {
     "fitstats": fitstats,
     "flash": flash,
     "scan": scan,
+    "admission": admission,
 }
 
 

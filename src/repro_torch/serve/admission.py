@@ -11,24 +11,47 @@ boundary, instead of reserving every request's worst-case peak at admission
 (the static baseline).  Wastage here = reserved-but-unused HBM x seconds,
 the paper's metric applied to serving.
 
-Port of the scalar oracle of ``repro.serve.admission``
-(``AdmissionController``: one ``demand_exceeds`` probe per candidate against
-a profile rebuilt from the active set whenever it changes), on the port's
-host model (``core.ksegments.KSegmentsModel``) and timeline
-(``core.timeline``), float64 numpy throughout: its decisions are the
-reference's, exactly.  The batched and sharded controllers wait for a later
-slice (ROADMAP Queue 1 item 6).
+Port of ``repro.serve.admission``, on the port's host model
+(``core.ksegments.KSegmentsModel``) and timeline (``core.timeline``); every
+controller decides exactly as its reference twin:
+
+* ``AdmissionController``, the sequential oracle: one ``demand_exceeds``
+  probe per candidate against a profile rebuilt from the active set
+  whenever it changes (float64 numpy).
+* ``BatchedAdmissionController``: the active plans live in an incremental
+  event ``Timeline``, and a batch of at least ``device_min_batch``
+  candidates is decided in one call of ``kernels.ops.admission_scan``
+  (one launch of the admission kernel on the card) against the profile
+  read at a shared deduped probe set; smaller batches take the oracle's
+  probe against the same timeline.  Within a batch an admitted candidate's
+  demand is visible to every later one, in the scalar controller's order.
+  The shared probe set also holds the other candidates' switch instants,
+  which can see a step-up the scalar probe misses (ROADMAP Queue 3), so
+  on rare streams the two depart, exactly as the reference's do.
+* ``ShardedScalarController``: ``n_shards`` scalar controllers, each with
+  ``budget / n_shards``, requests placed by ``shard_of`` (crc32 of the id),
+  one model shared by all.  The carried-timeline
+  ``ShardedAdmissionController`` it is the oracle of is ROADMAP Queue 1
+  item 6(c).
 """
 
 from __future__ import annotations
 
 import dataclasses
+import zlib
 
 import numpy as np
+import torch
 
 from repro_torch.core.allocation import StepAllocation, pack_step_allocations
 from repro_torch.core.ksegments import KSegmentsConfig, KSegmentsModel
-from repro_torch.core.timeline import demand_exceeds, step_demand_profile
+from repro_torch.core.timeline import Timeline, demand_exceeds, shared_probe_set, step_demand_profile
+from repro_torch.device import resolve_device
+from repro_torch.kernels import ops
+
+# The reference's second name for the timeline, kept for callers of the
+# controllers' internals.
+IncrementalDemandProfile = Timeline
 
 
 @dataclasses.dataclass
@@ -50,7 +73,7 @@ def cache_bytes_per_token(cfg) -> int:
 
 
 class _AdmissionBase:
-    """State and accounting of the admission controllers."""
+    """State and accounting shared by the admission controllers."""
 
     def __init__(self, hbm_budget_mib: float, k: int = 4, interval_s: float = 0.5):
         self.budget = float(hbm_budget_mib)
@@ -155,3 +178,201 @@ class AdmissionController(_AdmissionBase):
         if plan is not None:
             self._static_reserved -= float(plan.alloc.values[-1])
             self._prof = None
+
+
+# ---------------------------------------------------------------------------
+# Batched admission engine
+# ---------------------------------------------------------------------------
+
+
+class BatchedAdmissionController(_AdmissionBase):
+    """Batched twin of ``AdmissionController``: the same decisions, with the
+    active plans in an incremental ``Timeline`` and a whole batch of
+    candidates decided in one device call (``try_admit_many``), sequential
+    inside the batch.  ``try_admit`` is the batch of one, so the two
+    controllers are interchangeable.  ``device=None`` is the CUDA card."""
+
+    def __init__(
+        self,
+        hbm_budget_mib: float,
+        k: int = 4,
+        interval_s: float = 0.5,
+        device_min_batch: int = 32,
+        device=None,
+    ):
+        super().__init__(hbm_budget_mib, k, interval_s)
+        self.device = resolve_device(device)
+        self._prof = IncrementalDemandProfile()
+        # Below this batch size the device call costs more than the probes it
+        # batches; the host path runs the oracle's ``demand_exceeds`` against
+        # the same timeline, with the same decisions.
+        self.device_min_batch = int(device_min_batch)
+
+    # -- admission ----------------------------------------------------------
+
+    def try_admit(self, request_id: str, prompt_len: int, now: float) -> RequestPlan | None:
+        """One candidate: the oracle's probe against the incremental
+        timeline, with no rebuild and no device call."""
+        if self.model.n_observations == 0:
+            alloc = self._default_alloc()
+        else:
+            alloc = self.model.predict(float(prompt_len))
+        self._prof.expire(float(now))
+        times, cum = self._prof.arrays()
+        end = now + float(alloc.boundaries[-1])
+        if demand_exceeds(times, cum, alloc, now, end, self.budget, inclusive_end=True):
+            return None
+        return self._commit(request_id, alloc, float(now), float(np.nextafter(end, np.inf)))
+
+    def try_admit_many(self, request_ids: list[str], prompt_lens, now) -> list[RequestPlan | None]:
+        """Decide a batch of candidates in arrival order.
+
+        ``now`` is a scalar (all candidates share the clock) or a
+        non-decreasing (C,) array of arrival times.  Candidate i is probed
+        against the active profile plus every candidate j < i admitted in
+        this call."""
+        C = len(request_ids)
+        if C == 0:
+            return []
+        if C == 1:
+            t = now if np.ndim(now) == 0 else float(np.asarray(now)[0])
+            return [self.try_admit(request_ids[0], prompt_lens[0], t)]
+        if self.model.n_observations == 0:
+            d = self._default_alloc()
+            bnd = np.tile(d.boundaries, (C, 1))
+            val = np.tile(d.values, (C, 1))
+        else:
+            bnd, val = self.model.predict_batch(np.asarray(prompt_lens, dtype=np.float64))
+        starts = np.broadcast_to(np.asarray(now, dtype=np.float64), (C,)).astype(np.float64)
+        ends = starts + bnd[:, -1]
+        rels = np.nextafter(ends, np.inf)  # a plan holds through r_e inclusive
+        self._prof.expire(float(starts[0]))
+        if C < self.device_min_batch:
+            return self._admit_host(request_ids, bnd, val, starts, ends, rels)
+        return self._admit_device(request_ids, bnd, val, starts, ends, rels)
+
+    def _admit_host(self, request_ids, bnd, val, starts, ends, rels):
+        """Small batches: the oracle's probe against the timeline, committing
+        each admitted plan before the next candidate is probed."""
+        plans: list[RequestPlan | None] = []
+        for i, rid in enumerate(request_ids):
+            alloc = StepAllocation(bnd[i], val[i])
+            times, cum = self._prof.arrays()
+            if demand_exceeds(
+                times, cum, alloc, float(starts[i]), float(ends[i]), self.budget, inclusive_end=True
+            ):
+                plans.append(None)
+                continue
+            plans.append(self._commit(rid, alloc, float(starts[i]), float(rels[i])))
+        return plans
+
+    def _commit(self, rid: str, alloc: StepAllocation, start: float, release: float) -> RequestPlan:
+        # the timeline first: add() checks the owner before it changes
+        # anything, so re-admitting a live id raises with the state clean
+        self._prof.add(rid, alloc.boundaries, alloc.values, start, release)
+        plan = RequestPlan(rid, start, alloc)
+        self.active[rid] = plan
+        self._static_reserved += float(alloc.values[-1])
+        return plan
+
+    def _admit_device(self, request_ids, bnd, val, starts, ends, rels):
+        """One device call for the batch.  The host builds the shared probe
+        set (the profile's events and every candidate's start and switch
+        instants, deduped) and reads the profile at it; the arrays go up in
+        two copies (float64, bool), the decision scan runs once, and the
+        admits come back.  The kernel takes any probe and candidate count,
+        so nothing is padded (the reference pads to bound its compiled
+        shapes)."""
+        C = len(request_ids)
+        sw = np.nextafter(starts[:, None] + bnd, np.inf)  # switch instants (right-open steps)
+        live = np.isfinite(bnd) & (starts[:, None] + bnd < rels[:, None])
+        valext = np.concatenate([val, val[:, -1:]], axis=1)  # hold-last (C, k + 1)
+        times, _ = self._prof.arrays()
+        P = shared_probe_set(times, starts, sw.ravel())
+        Pp, k = len(P), bnd.shape[1]
+        pieces = (
+            (P, (Pp,)),
+            (self._prof.demand_at(P), (Pp,)),
+            (starts, (C,)),
+            (ends, (C,)),
+            (rels, (C,)),
+            (bnd, (C, k)),
+            (val, (C, k)),
+            (valext, (C, k + 1)),
+            (sw, (C, k)),
+        )
+        f64 = torch.from_numpy(np.concatenate([np.ravel(a) for a, _ in pieces])).to(self.device)
+        f64 = [t.view(shape) for t, (_, shape) in zip(torch.split(f64, [a.size for a, _ in pieces]), pieces)]
+        flags = np.concatenate([live.ravel(), np.ones(C, dtype=bool)])
+        live_t, valid_t = torch.split(torch.from_numpy(flags).to(self.device), [C * k, C])
+        admits = ops.admission_scan(*f64, live_t.view(C, k), valid_t, self.budget)
+        admits = admits.cpu().numpy()
+
+        adm = np.flatnonzero(admits)
+        if len(adm):
+            # the timeline first: add_many checks owners before it changes
+            # anything, so a duplicate id aborts with the state clean
+            self._prof.add_many([request_ids[i] for i in adm], bnd[adm], val[adm], starts[adm], rels[adm])
+        plans: list[RequestPlan | None] = []
+        for i, rid in enumerate(request_ids):
+            if admits[i]:
+                plan = RequestPlan(rid, float(starts[i]), StepAllocation(bnd[i], val[i]))
+                self.active[rid] = plan
+                self._static_reserved += float(val[i, -1])
+                plans.append(plan)
+            else:
+                plans.append(None)
+        return plans
+
+    def release(self, request_id: str) -> None:
+        plan = self.active.pop(request_id, None)
+        if plan is not None:
+            self._static_reserved -= float(plan.alloc.values[-1])
+            self._prof.remove(request_id)
+
+
+# ---------------------------------------------------------------------------
+# Sharded admission: the per-shard oracle
+# ---------------------------------------------------------------------------
+
+
+def shard_of(request_id: str, n_shards: int) -> int:
+    """Deterministic request -> shard placement: crc32 of the id (Python's
+    ``hash`` is salted per process), so every per-shard decision sequence
+    is a function of the request ids."""
+    return zlib.crc32(str(request_id).encode()) % int(n_shards)
+
+
+class ShardedScalarController(_AdmissionBase):
+    """``n_shards`` independent scalar controllers, each owning ``budget /
+    n_shards``; requests route by ``shard_of`` and all shards share ONE
+    k-Segments model (predictions are global, only admission state is
+    sharded)."""
+
+    def __init__(self, hbm_budget_mib: float, k: int = 4, interval_s: float = 0.5, n_shards: int = 4):
+        super().__init__(hbm_budget_mib, k, interval_s)
+        self.n_shards = int(n_shards)
+        self.shard_budget = self.budget / self.n_shards
+        self._shards = [AdmissionController(self.shard_budget, k, interval_s) for _ in range(self.n_shards)]
+        for c in self._shards:
+            c.model = self.model  # one shared predictor across shards
+
+    def shard_of(self, request_id: str) -> int:
+        return shard_of(request_id, self.n_shards)
+
+    def try_admit(self, request_id: str, prompt_len: int, now: float) -> RequestPlan | None:
+        plan = self._shards[self.shard_of(request_id)].try_admit(request_id, prompt_len, now)
+        if plan is not None:
+            self.active[request_id] = plan
+            self._static_reserved += float(plan.alloc.values[-1])
+        return plan
+
+    def try_admit_many(self, request_ids, prompt_lens, now) -> list[RequestPlan | None]:
+        ts = np.broadcast_to(np.asarray(now, dtype=np.float64), (len(request_ids),))
+        return [self.try_admit(r, p, float(t)) for r, p, t in zip(request_ids, prompt_lens, ts)]
+
+    def release(self, request_id: str) -> None:
+        plan = self.active.pop(request_id, None)
+        if plan is not None:
+            self._static_reserved -= float(plan.alloc.values[-1])
+            self._shards[self.shard_of(request_id)].release(request_id)

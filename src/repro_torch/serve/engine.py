@@ -8,9 +8,11 @@ the head to the last position only, since it returns only ``logits[:, -1]``
 updates the cache in place and returns it.  ``cache_shape`` (a
 ``jax.eval_shape``) is not ported.
 
-Also the admission-engine registry (``make_admission_controller``): the
-port has the ``"scalar"`` oracle; the other engines are ROADMAP Queue 1
-item 6.
+Also the admission-engine registry (``make_admission_controller``), the
+one place that maps an engine name to a controller, shared by
+``serve.stream``: the port builds ``"scalar"``, ``"batched"`` and
+``"sharded-scalar"``; ``"sharded"`` (the carried-timeline controller) is
+ROADMAP Queue 1 item 6(c).
 """
 
 from __future__ import annotations
@@ -20,9 +22,11 @@ import torch
 from repro_torch.configs.base import ModelConfig
 from repro_torch.device import resolve_device
 from repro_torch.models.model import Transformer, decode_step, forward
-from repro_torch.serve.admission import AdmissionController
+from repro_torch.serve.admission import AdmissionController, BatchedAdmissionController, ShardedScalarController
 
-# engine name -> controller class in the reference; the port has "scalar"
+# engine name -> controller class; "scalar" is the policy oracle, "batched"
+# the single-card engine, "sharded" the carried-timeline control plane (not
+# ported yet), "sharded-scalar" its per-shard scalar oracle
 ADMISSION_ENGINES = ("scalar", "batched", "sharded", "sharded-scalar")
 
 
@@ -32,12 +36,23 @@ def make_admission_controller(
     hbm_budget_mib: float,
     k: int = 4,
     interval_s: float = 0.5,
-) -> AdmissionController:
-    """Build an admission controller by engine name."""
+    n_shards: int = 4,
+    device=None,
+):
+    """Build an admission controller by engine name.
+
+    The single-host engines ignore ``n_shards``; ``"sharded-scalar"`` splits
+    the budget ``n_shards`` ways with crc32 request placement
+    (``serve.admission.shard_of``).  ``device`` is the batched engine's
+    (``None``: the CUDA card); the host engines ignore it."""
     if engine == "scalar":
         return AdmissionController(hbm_budget_mib, k=k, interval_s=interval_s)
-    if engine in ADMISSION_ENGINES:
-        raise ValueError(f"admission engine {engine!r} is not ported yet (ROADMAP Queue 1 item 6)")
+    if engine == "batched":
+        return BatchedAdmissionController(hbm_budget_mib, k=k, interval_s=interval_s, device=device)
+    if engine == "sharded-scalar":
+        return ShardedScalarController(hbm_budget_mib, k=k, interval_s=interval_s, n_shards=n_shards)
+    if engine == "sharded":
+        raise ValueError("admission engine 'sharded' is not ported yet (ROADMAP Queue 1 item 6(c))")
     raise ValueError(f"unknown admission engine {engine!r} (one of {ADMISSION_ENGINES})")
 
 

@@ -1,7 +1,13 @@
-"""The cluster scheduler's placement programs over the event timeline.
+"""The packing programs over the event timeline: the batched admission
+controller's decision scan and the cluster scheduler's placement programs.
 
-Port of ``repro.sim.device_timeline`` (the placement half; the serving
-admission programs are not ported).  The per-node demand timelines (sorted
+Port of ``repro.sim.device_timeline`` (the sharded controller's carried
+programs, ``admission_epoch`` and ``_admission_shard``, are ROADMAP Queue 1
+item 6(c)).  ``admission_scan_plain`` decides a batch of admission
+candidates in order, each against the profile plus the demand of the
+candidates admitted before it (the reference's ``admission_program``); on
+the card that scan is one launch of the **admission** kernel
+(``kernels.ops.admission_scan``).  The per-node demand timelines (sorted
 event instants and deltas, ``core.timeline``) live on the device in
 float64, as in the reference (``nextafter`` switch instants sit below
 float32 resolution at cluster timestamps).  Three programs place rows:
@@ -54,6 +60,15 @@ def _t64(a, dev) -> torch.Tensor:
     return torch.as_tensor(np.asarray(a, dtype=np.float64)).to(dev)
 
 
+def pad_rows(a: np.ndarray, n: int, fill: float) -> np.ndarray:
+    """Pad axis 0 of ``a`` to ``n`` rows with ``fill`` (returns ``a``
+    unchanged when already that size)."""
+    if a.shape[0] == n:
+        return a
+    pad = np.full((n - a.shape[0], *a.shape[1:]), fill, dtype=a.dtype)
+    return np.concatenate([a, pad], axis=0)
+
+
 def _first_true(mask: torch.Tensor, dim: int = -1) -> torch.Tensor:
     """Index of the first True along ``dim`` (0 when there is none), as the
     reference's ``argmax`` of a boolean mask picks the lowest index."""
@@ -84,6 +99,28 @@ def candidate_probe_parts(P, starts, ends, rels, bnd, val, valext, sw, live, *, 
     inwin = (P[None, :] >= starts[:, None]) & (P[None, :] < rels[:, None])
     D = torch.where(inwin, torch.gather(valext, 1, nst), 0.0)
     return A, M, D
+
+
+def admission_scan_plain(P, prof, starts, ends, rels, bnd, val, valext, sw, live, valid, budget: float):
+    """Decide C admission candidates in order (plain version of the
+    admission kernel; the reference's ``admission_program``).
+
+    P (Pp,) probe instants, +inf padded; prof (Pp,) the profile read at
+    them; starts/ends/rels/valid (C,); bnd/val/sw/live (C, k); valext (C,
+    k + 1); all float64 but the bool ``live`` and ``valid``.  Candidate i
+    is admitted when it is valid and ``prof + extra + A_i`` stays at or
+    below ``budget`` at every probe of its window [start, end], where
+    ``extra`` is the demand of the candidates admitted before it; an
+    admitted candidate adds its own demand D_i to ``extra``.  Returns
+    admits (C,) bool."""
+    A, M, D = candidate_probe_parts(P, starts, ends, rels, bnd, val, valext, sw, live, inclusive_end=True)
+    extra = torch.zeros_like(P)
+    admits = torch.empty(valid.shape, dtype=torch.bool, device=P.device)
+    for i in range(valid.shape[0]):
+        admit = valid[i] & ~(M[i] & (prof + extra + A[i] > budget)).any()
+        extra = extra + torch.where(admit, D[i], 0.0)
+        admits[i] = admit
+    return admits
 
 
 # ---------------------------------------------------------------------------

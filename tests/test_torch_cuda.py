@@ -721,3 +721,168 @@ def test_sizey_and_ksplus_on_card_match_cpu_run(cuda, mode, window):
         torch.testing.assert_close(w_card.cpu(), w_cpu, **WASTE_TOL)
         retried += int(r_cpu.sum())
     assert retried > 0
+
+
+# ---------------------------------------------------------------------------
+# the admission controller's decision scan
+# ---------------------------------------------------------------------------
+
+# (Pp, C, k): each storage path of `extra` (registers, 1 to 8 probes a
+# thread; the global scratch), 1 to 256 candidates, k 1 to 15
+ADMISSION_CASES = [
+    (0, 1, 4), (1, 3, 1), (100, 17, 4), (1024, 64, 4), (1025, 8, 2), (2048, 256, 4), (4096, 256, 4),
+    (8192, 256, 4), (8192, 1, 15), (8193, 32, 4), (20000, 200, 4), (27000, 64, 15), (40000, 256, 4), (40000, 1, 1),
+]
+
+
+def _admission_inputs(seed: int, Pp: int, C: int, k: int, dev, n_real: int | None = None):
+    """Decision-scan arguments: ``n_real`` sorted probes in [0, 100) s
+    (+inf padded to Pp, with repeats of candidates' own instants), a rough
+    profile, C candidates starting in [0, 50) s with k-step plans, a few
+    invalid; the budget the profile's peak plus three median plans, so the
+    budget binds partway through the batch."""
+    rng = np.random.default_rng(seed)
+    n_real = Pp if n_real is None else n_real
+    starts = np.sort(rng.uniform(0.0, 50.0, C))
+    bnd = np.sort(rng.uniform(0.5, 50.0, (C, k)), axis=1)
+    bnd[rng.random((C, k)) < 0.05] = np.inf
+    bnd = np.sort(bnd, axis=1)
+    bnd[:, -1] = np.where(np.isfinite(bnd[:, -1]), bnd[:, -1], 60.0)
+    val = np.maximum.accumulate(rng.uniform(10.0, 300.0, (C, k)), axis=1)
+    ends = starts + bnd[:, -1]
+    rels = np.nextafter(ends, np.inf)
+    sw = np.nextafter(starts[:, None] + bnd, np.inf)
+    live = np.isfinite(bnd) & (starts[:, None] + bnd < rels[:, None])
+    valext = np.concatenate([val, val[:, -1:]], axis=1)
+    own = np.concatenate([starts, sw[np.isfinite(sw)]])
+    P = np.sort(np.concatenate([rng.choice(own, min(len(own), n_real // 2)) if n_real else own[:0],
+                                rng.uniform(0.0, 100.0, n_real - min(len(own), n_real // 2))]))
+    prof = np.cumsum(rng.normal(0.0, 20.0, n_real)) + 2000.0
+    budget = float(prof.max(initial=0.0)) + 3.0 * float(np.median(val[:, -1]))
+    valid = rng.random(C) > 0.1
+    f64 = lambda a: torch.from_numpy(np.ascontiguousarray(a, dtype=np.float64)).to(dev)  # noqa: E731
+    args = [f64(np.concatenate([P, np.full(Pp - n_real, np.inf)])), f64(np.concatenate([prof, np.zeros(Pp - n_real)])),
+            f64(starts), f64(ends), f64(rels), f64(bnd), f64(val), f64(valext), f64(sw),
+            torch.from_numpy(live).to(dev), torch.from_numpy(valid).to(dev)]
+    return args, budget
+
+
+def _decide_both(args, budget):
+    from repro_torch.kernels import admission
+    from repro_torch.sim.device_timeline import admission_scan_plain
+
+    before = admission.launches
+    got = ops.admission_scan(*args, budget)
+    assert admission.launches == before + 1
+    want = admission_scan_plain(*args, budget)
+    torch.cuda.synchronize()
+    return got, want
+
+
+@pytest.mark.parametrize("Pp,C,k", ADMISSION_CASES, ids=lambda v: str(v))
+def test_admission_kernel_matches_plain_on_card(cuda, Pp, C, k):
+    args, budget = _admission_inputs(Pp + C + k, Pp, C, k, cuda, n_real=Pp - Pp // 7)
+    got, want = _decide_both(args, budget)
+    assert got.dtype == torch.bool and got.shape == (C,)
+    assert torch.equal(got, want)
+    if Pp >= 1024 and C >= 64:
+        assert 0 < int(want.sum()) < int(args[-1].sum())  # the budget binds
+
+
+def test_admission_kernel_reaches_every_storage_path(cuda):
+    from repro_torch.kernels import admission
+
+    paths = set()
+    for Pp, C, k in ADMISSION_CASES:
+        pl = admission.plan(Pp, C, k)
+        paths.add(f"regs{pl['regs']}" if pl["regs"] else "global")
+        assert pl["scratch"] == (0 if pl["regs"] else 8 * Pp)
+    assert paths == {"regs1", "regs2", "regs4", "regs8", "global"}
+
+
+@pytest.mark.parametrize("Pp", [300, 9000, 40000])
+def test_admission_kernel_edge_cases_on_card(cuda, Pp):
+    C, k = 24, 4
+    # nothing valid: no candidate is admitted
+    args, budget = _admission_inputs(1, Pp, C, k, cuda)
+    args[-1] = torch.zeros(C, dtype=torch.bool, device=cuda)
+    got, want = _decide_both(args, budget)
+    assert torch.equal(got, want) and not got.any()
+    # everything admitted under an unbounded budget
+    args, _ = _admission_inputs(2, Pp, C, k, cuda)
+    args[-1] = torch.ones(C, dtype=torch.bool, device=cuda)
+    got, want = _decide_both(args, float("inf"))
+    assert torch.equal(got, want) and got.all()
+    # a sum exactly at the budget fits (the test is strict)
+    args, _ = _admission_inputs(3, Pp, C, k, cuda)
+    args[1] = torch.full_like(args[1], 1000.0)
+    args[6] = torch.full_like(args[6], 100.0)
+    args[7] = torch.full_like(args[7], 100.0)
+    args[-1] = torch.ones(C, dtype=torch.bool, device=cuda)
+    args[-2] = torch.zeros_like(args[-2])  # no switch fires: D is the first value on [start, release)
+    got, want = _decide_both(args, 1100.0)
+    assert torch.equal(got, want) and got[0]
+    got, want = _decide_both(args, float(np.nextafter(1100.0, 0.0)))
+    assert torch.equal(got, want) and not got.any()
+    # empty windows (end before start, release at start): always admitted, no demand
+    args, budget = _admission_inputs(4, Pp, C, k, cuda)
+    args[3] = args[2] - 1.0
+    args[4] = args[2].clone()
+    args[-1] = torch.ones(C, dtype=torch.bool, device=cuda)
+    got, want = _decide_both(args, budget)
+    assert torch.equal(got, want) and got.all()
+
+
+def test_admission_kernel_refuses_what_it_cannot_take(cuda):
+    from repro_torch.kernels import admission
+
+    args, budget = _admission_inputs(5, 64, 4, 2, cuda)
+    with pytest.raises(ValueError, match="CUDA tensors"):
+        admission.admission_cuda(*(a.cpu() for a in args), budget)
+    bad = list(args)
+    bad[0] = args[0].float()
+    with pytest.raises(ValueError, match="admission P"):
+        admission.admission_cuda(*bad, budget)
+    bad = list(args)
+    bad[7] = args[6]  # valext must be (C, k + 1)
+    with pytest.raises(ValueError, match="admission valext"):
+        admission.admission_cuda(*bad, budget)
+
+
+@pytest.mark.parametrize("arrival", ["poisson", "bursty", "diurnal"])
+def test_batched_stream_on_card_matches_scalar(cuda, arrival):
+    """``run_stream`` through the batched controller on the card, every
+    batch of two or more through the decision kernel: the scalar run's
+    decisions, counts and wastage."""
+    from repro_torch.kernels import admission
+    from repro_torch.serve.admission import BatchedAdmissionController
+    from repro_torch.serve.stream import StreamConfig, run_stream
+
+    kw = dict(poisson=dict(rate_per_s=8.0), bursty=dict(rate_per_s=40.0, burst_factor=8.0, hbm_budget_mib=150_000.0),
+              diurnal=dict(rate_per_s=12.0, diurnal_amp=0.8, hbm_budget_mib=80_000.0))[arrival]
+    cfg = StreamConfig(n_requests=400, arrival=arrival, seed=0, **kw)
+    ctl = BatchedAdmissionController(cfg.hbm_budget_mib, k=cfg.k, interval_s=cfg.interval_s, device_min_batch=1)
+    assert ctl.device == torch.device("cuda")
+    before = admission.launches
+    got = run_stream(cfg, "batched", controller=ctl)
+    launched = admission.launches - before
+    want = run_stream(cfg, "scalar")
+    assert got.decisions == want.decisions
+    assert (got.admitted, got.rejected, got.evicted, got.finished) == (
+        want.admitted, want.rejected, want.evicted, want.finished)
+    np.testing.assert_allclose(got.wastage["segmentwise_gib_s"], want.wastage["segmentwise_gib_s"], rtol=1e-12)
+    assert launched > 0
+
+
+def test_batched_controller_needs_cuda_unless_asked_for_cpu():
+    """Runs without a card: ``device=None`` is the card and raises."""
+    from repro_torch.serve.admission import BatchedAdmissionController
+    from repro_torch.serve.stream import StreamConfig, run_stream
+
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA card is present: the default device is usable")
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        BatchedAdmissionController(1000.0)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        run_stream(StreamConfig(n_requests=4, n_warmup=2), "batched")
+    assert BatchedAdmissionController(1000.0, device="cpu").device == torch.device("cpu")

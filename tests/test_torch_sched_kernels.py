@@ -104,8 +104,13 @@ def test_cpu_tensors_take_the_plain_versions_and_no_kernel():
     for got, want in zip(ops.compact_events(t, d, keep), compaction.compact_events_plain(t, d, keep)):
         assert torch.equal(got, want)
     assert torch.equal(ops.prefix_sum(x, -1, 16), scan.cumsum(x, 16))
+    f64 = lambda *v: torch.tensor(v, dtype=torch.float64)  # noqa: E731
+    admits = ops.admission_scan(f64(0.0, 1.0, float("inf")), f64(0.0, 0.0, 0.0), f64(0.0), f64(1.0), f64(2.0),
+                                f64([2.0]), f64([1.0]), f64([1.0, 1.0]), f64([2.0]), torch.tensor([[False]]),
+                                torch.tensor([True]), 1.5)
+    assert admits.tolist() == [True]
     assert ops.launch_counts() == {"segmax": 0, "wastage": 0, "rangemax": 0, "compaction": 0, "fitstats": 0, "flash": 0,
-                                   "scan": 0}
+                                   "scan": 0, "admission": 0}
 
 
 def test_dispatch_has_no_fallback_for_other_devices():

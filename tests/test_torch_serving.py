@@ -29,7 +29,8 @@ from repro_torch.core.ksegments import KSegmentsConfig, KSegmentsModel
 from repro_torch.launch import serve as launch_serve
 from repro_torch.models.convert import load_params
 from repro_torch.models.model import init_cache, init_params
-from repro_torch.serve import AdmissionController, cache_bytes_per_token, make_admission_controller
+from repro_torch.serve import (AdmissionController, BatchedAdmissionController, ShardedScalarController,
+                               cache_bytes_per_token, make_admission_controller)
 from repro_torch.serve.engine import greedy_generate
 
 # ---------------------------------------------------------------------------
@@ -76,9 +77,12 @@ def test_launcher_serves_every_request_on_cpu():
 
 def test_admission_engine_registry():
     assert isinstance(make_admission_controller("scalar", hbm_budget_mib=100.0), AdmissionController)
-    for engine in ("batched", "sharded", "sharded-scalar"):
-        with pytest.raises(ValueError, match="ROADMAP Queue 1 item 6"):
-            make_admission_controller(engine, hbm_budget_mib=100.0)
+    batched = make_admission_controller("batched", hbm_budget_mib=100.0, device="cpu")
+    assert isinstance(batched, BatchedAdmissionController) and batched.device_min_batch == 32
+    sharded = make_admission_controller("sharded-scalar", hbm_budget_mib=100.0, n_shards=2)
+    assert isinstance(sharded, ShardedScalarController) and sharded.shard_budget == 50.0
+    with pytest.raises(ValueError, match=r"ROADMAP Queue 1 item 6\(c\)"):
+        make_admission_controller("sharded", hbm_budget_mib=100.0)
     with pytest.raises(ValueError, match="unknown admission engine"):
         make_admission_controller("nope", hbm_budget_mib=100.0)
 
