@@ -6,8 +6,8 @@
 Phases, each of which fails the run on a wrong result:
 
 1. build the segmax, wastage, rangemax, compaction, fitstats, scan,
-   admission and flash kernels from ``src/repro_torch/kernels/csrc`` (one
-   ``nvcc`` per source, in parallel);
+   admission, admission_epoch and flash kernels from
+   ``src/repro_torch/kernels/csrc`` (one ``nvcc`` per source, in parallel);
 2. hold segmax and wastage against their plain PyTorch versions on the
    card, at the shapes of the largest bucket of the grid (peaks and fail
    indices exact, float32 wastage within rtol 1e-5 / atol 1e-4 GiB*s, the
@@ -111,14 +111,20 @@ Phases, each of which fails the run on a wrong result:
    150,000 MiB; diurnal at 12/s, amplitude 0.8, 80,000 MiB) through
    ``run_stream`` on ``"scalar"``, ``"batched"`` (its default
    ``device_min_batch`` of 32, and 1, so every batch of two or more goes
-   through the decision kernel) and ``"sharded-scalar"``: counts,
-   decisions/s, p50/p99, wastage, decision-kernel launches and batches by
-   path of each run; the batched runs' decisions must equal the scalar
-   oracle's, and every decision-kernel call of those runs the plain loop's
-   on the same inputs; then bench_serve's microbench (batches of 256
-   against 256 and 1,024 resident plans) and the decision kernel at its
-   shape (1,024 resident) against the plain loop (admits equal) and its
-   bound, timed.
+   through the decision kernel), ``"sharded-scalar"`` and ``"sharded"``
+   (4 shards): counts, decisions/s, p50/p99, wastage, kernel launches and
+   batches by path of each run; the batched runs' decisions must equal the
+   scalar oracle's, and every decision-kernel call of those runs the plain
+   loop's on the same inputs; the sharded runs' decisions must equal the
+   per-shard oracle's, with no reseed and exactly one admission_epoch
+   launch per decision batch; then bench_serve's microbench (batches of 256
+   against 256 and 1,024 resident plans; the sharded engine at 8 shards,
+   with its carried speedup over the batched one, its reseeds and the aten
+   ops that launch in one warm batch), the decision kernel at its shape
+   (1,024 resident) against the plain loop (admits equal) and its bound,
+   timed, and the admission_epoch kernel at the sharded engine's shape
+   (1,024 resident) against its plain version (admits, overflow, live
+   counts and the whole new state bit for bit) and its bound, timed.
 
 Prints the card's name and power limit, a ``{"kernels": [...]}`` line, and
 as its last line ``{"ok": true, "device": {...}}``.  Exits non-zero without
@@ -267,7 +273,7 @@ def _device_ms(call, kernel: str, n: int) -> float:
 
 # aten ops that launch nothing on the card: allocations, views, and the
 # argument checks' reads of shapes
-NO_LAUNCH_OPS = {"empty", "empty_strided", "select", "slice", "view", "_unsafe_view", "transpose", "alias",
+NO_LAUNCH_OPS = {"empty", "empty_strided", "select", "slice", "view", "_unsafe_view", "transpose", "alias", "lift_fresh",
                  "as_strided", "expand", "unsqueeze", "detach", "t", "permute", "reshape", "_reshape_alias"}
 
 
@@ -1636,9 +1642,10 @@ SERVE_STREAMS = {
     "diurnal": dict(arrival="diurnal", rate_per_s=12.0, diurnal_amp=0.8, hbm_budget_mib=80_000.0),
 }
 SERVE_REQUESTS = 400
-ADMISSION_ENGINES = ("scalar", "batched", "batched device_min_batch=1", "sharded-scalar")
+ADMISSION_ENGINES = ("scalar", "batched", "batched device_min_batch=1", "sharded-scalar", "sharded")
 ADMISSION_RESIDENT = (256, 1024)
 ADMISSION_BATCH = 256
+ADMISSION_MB_SHARDS = 8  # bench_serve's microbench shards
 
 
 def _counted_paths(ctl, paths: collections.Counter):
@@ -1677,18 +1684,62 @@ def _admission_bound(args, admits) -> tuple[float, str]:
     return _bound(nbytes, nops, F64_OPS_PER_S)
 
 
-def admission_phase(dev, seed: int) -> tuple[dict, int]:
+def _epoch_bound(args, t0: float, res) -> tuple[tuple[float, str], float]:
+    """The carried epoch's bound, and the operations' time alone: the state
+    read once and written once, the batch read once and the result row
+    written once, at the HBM rate; or, at the f64 rate, the operations this
+    batch needs, shard by shard: two
+    additions an event folded (base0, its owner's sum) and one a live
+    event of the decision prefix (its running sum); three binary searches a
+    valid candidate for the ends of its windows; five operations a probe in
+    a valid candidate's windows (the carried events in (start, end], the
+    batch's starts and live switch instants in [start, end]) and two a
+    probe at or after an admitted candidate's start (its event count, the
+    addition); and a binary search a live event of the spliced row."""
+    import math
+
+    import torch
+
+    base0, tl_t, tl_d, tl_c, slot_fold, rel, starts, ends, rels, bnd, val, codes, valid = (a.cpu() for a in args)
+    res = res.cpu()
+    S, Cb = starts.shape
+    admits = res[:, :Cb].bool()
+    nbytes = 2 * sum(t.numel() * t.element_size() for t in (base0, tl_t, tl_d, tl_c, slot_fold)) + sum(
+        t.numel() * t.element_size() for t in (rel, starts, ends, rels, bnd, val, codes, valid)) + res.numel() * 4
+    nops = 0
+    sw = torch.nextafter(starts[..., None] + bnd, torch.full_like(bnd, math.inf))
+    live = torch.isfinite(bnd) & (starts[..., None] + bnd < rels[..., None])
+    for s in range(S):
+        gone = torch.isin(tl_c[s], rel[s][rel[s] >= 0])
+        row = tl_t[s][~gone & torch.isfinite(tl_t[s])]
+        folded = int((row <= t0).sum())
+        old = row[row > t0]
+        q = torch.cat([starts[s][valid[s]], sw[s][valid[s][:, None] & live[s]]])
+        searches = 3 * int(valid[s].sum()) + int(res[s, Cb + 1])
+        nops += 2 * folded + old.numel() + searches * math.ceil(math.log2(old.numel() + q.numel() + 2))
+        for c in torch.nonzero(valid[s]).flatten().tolist():
+            st, en = float(starts[s, c]), float(ends[s, c])
+            nops += 5 * (int(((old > st) & (old <= en)).sum()) + int(((q >= st) & (q <= en)).sum()))
+            if admits[s, c]:
+                nops += 2 * (int((old >= st).sum()) + int((q >= st).sum()))
+    return _bound(nbytes, nops, F64_OPS_PER_S), nops / F64_OPS_PER_S * 1e3
+
+
+def admission_phase(dev, seed: int) -> tuple[dict[str, dict], dict[str, int]]:
     """The serving admission path: bench_serve's streams through every engine
-    the port has, the batched engine against the scalar oracle decision for
-    decision, then the decision microbench, and the decision kernel at the
-    microbench's shape against its plain loop and its bound."""
+    the port has, the batched engine against the scalar oracle and the
+    sharded engine against the per-shard oracle decision for decision, then
+    the decision microbench, the decision kernel at the microbench's shape
+    against its plain loop and its bound, and the admission_epoch kernel at
+    the sharded engine's microbench shape against its plain version and
+    its bound."""
     import numpy as np
     import torch
 
-    from repro_torch.kernels import admission, ops
-    from repro_torch.serve.admission import AdmissionController, BatchedAdmissionController
-    from repro_torch.serve.stream import StreamConfig, run_stream
-    from repro_torch.sim.device_timeline import admission_scan_plain
+    from repro_torch.kernels import admission, admission_epoch, ops
+    from repro_torch.serve.admission import AdmissionController, BatchedAdmissionController, ShardedAdmissionController
+    from repro_torch.serve.stream import StreamConfig, make_controller, run_stream
+    from repro_torch.sim.device_timeline import admission_epoch_plain, admission_scan_plain
 
     calls: list = []
 
@@ -1701,6 +1752,7 @@ def admission_phase(dev, seed: int) -> tuple[dict, int]:
         return wrapped
 
     BatchedAdmissionController(1000.0, device_min_batch=1).try_admit_many(["w0", "w1"], [100, 200], 0.0)  # load
+    ShardedAdmissionController(1000.0).try_admit_many(["w0", "w1"], [100, 200], 0.0)
     print(f"admission phase: bench_serve's streams ({SERVE_REQUESTS} requests, seed {seed}) through "
           f"{', '.join(ADMISSION_ENGINES)}")
     t0 = time.perf_counter()
@@ -1716,29 +1768,47 @@ def admission_phase(dev, seed: int) -> tuple[dict, int]:
                     ctl = _counted_paths(BatchedAdmissionController(
                         cfg.hbm_budget_mib, k=cfg.k, interval_s=cfg.interval_s,
                         device_min_batch=1 if engine.endswith("=1") else 32), paths)
-                before = admission.launches
+                elif engine == "sharded":  # count the non-empty decision batches
+                    ctl = make_controller(cfg, engine)
+
+                    def many(ids, *a, _orig=ctl.try_admit_many, _paths=paths):
+                        _paths["kernel"] += len(ids) > 0
+                        return _orig(ids, *a)
+
+                    ctl.try_admit_many = many
+                before, before_epoch = admission.launches, admission_epoch.launches
                 res = run_stream(cfg, engine.split()[0], controller=ctl)
                 torch.cuda.synchronize()
                 launched = admission.launches - before
+                launched_epoch = admission_epoch.launches - before_epoch
                 runs[engine] = res
                 print(f"    {name}/{engine}: admitted {res.admitted} rejected {res.rejected} evicted {res.evicted} "
                       f"finished {res.finished}; {res.decisions_per_s:.0f} decisions/s, p50 "
                       f"{res.p50_latency_s * 1e6:.1f} us, p99 {res.p99_latency_s * 1e6:.1f} us; wastage "
                       f"{res.wastage['segmentwise_gib_s']:.3f} GiB*s (peak reservation "
-                      f"{res.wastage['peak_reservation_gib_s']:.3f}); admission launches {launched}"
-                      + (f"; batches by path {dict(paths)}" if ctl is not None else ""))
+                      f"{res.wastage['peak_reservation_gib_s']:.3f}); admission launches {launched}, "
+                      f"admission_epoch launches {launched_epoch}"
+                      + (f"; batches by path {dict(paths)}" if engine.startswith("batched") else "")
+                      + (f"; decision batches {paths['kernel']}, reseeds {ctl.reseeds}, axis L {ctl._L}, "
+                         f"codes {ctl._Smax}" if engine == "sharded" else ""))
                 if engine.endswith("=1") and launched == 0:
                     _fail(f"admission {name}: the batched engine at device_min_batch=1 launched no decision kernel")
-                if ctl is not None and launched != paths["kernel"]:
+                if engine.startswith("batched") and launched != paths["kernel"]:
                     _fail(f"admission {name}/{engine}: {launched} launches for {paths['kernel']} kernel batches")
+                if engine == "sharded" and (launched_epoch != paths["kernel"] or ctl.reseeds or not launched_epoch):
+                    _fail(f"admission {name}/sharded: {launched_epoch} admission_epoch launches for "
+                          f"{paths['kernel']} decision batches, {ctl.reseeds} reseeds")
             want = runs["scalar"]
             for engine in ADMISSION_ENGINES[1:3]:
                 got = runs[engine]
                 if got.decisions != want.decisions or (got.evicted, got.finished) != (want.evicted, want.finished):
                     _fail(f"admission {name}: {engine} decisions differ from the scalar oracle's")
+            got, want = runs["sharded"], runs["sharded-scalar"]
+            if got.decisions != want.decisions or (got.evicted, got.finished) != (want.evicted, want.finished):
+                _fail(f"admission {name}: sharded decisions differ from the per-shard oracle's")
     counts = ops.launch_counts()
     print(f"  streams: {time.perf_counter() - t0:.2f} s; launches of these runs {counts}; batched decisions equal "
-          f"to the scalar oracle's on every stream")
+          f"to the scalar oracle's and sharded decisions to the per-shard oracle's on every stream")
     if counts["admission"] != len(calls):
         _fail(f"admission: {counts['admission']} launches but {len(calls)} calls of the wrapper")
     bad = sum(not torch.equal(out, admission_scan_plain(*a)) for a, out in calls)
@@ -1753,7 +1823,8 @@ def admission_phase(dev, seed: int) -> tuple[dict, int]:
     plens = [int(rng.integers(100, 2000)) for _ in ids]
 
     def make(cls, n_active):
-        ctl = cls(hbm_budget_mib=1e9, k=4, interval_s=1.0)
+        kw = dict(n_shards=ADMISSION_MB_SHARDS) if cls is ShardedAdmissionController else {}
+        ctl = cls(hbm_budget_mib=1e9, k=4, interval_s=1.0, **kw)
         r = np.random.default_rng(seed + 1)
         for _ in range(40):
             plen = int(r.integers(100, 2000))
@@ -1770,25 +1841,49 @@ def admission_phase(dev, seed: int) -> tuple[dict, int]:
         for i in ids:
             ctl.release(i)
 
+    epoch_calls: list = []
+
+    def capture_epoch(orig):
+        def wrapped(*a, **kw):
+            epoch_calls.append((a, {k: v for k, v in kw.items() if k != "out"}))
+            return orig(*a, **kw)
+
+        return wrapped
+
     shape_args = None
     for n_active in ADMISSION_RESIDENT:
-        engines = {"batched": (BatchedAdmissionController, True)}
+        engines = {"batched": (BatchedAdmissionController, True), "sharded": (ShardedAdmissionController, True)}
         if n_active == ADMISSION_RESIDENT[0]:
             engines = {"scalar": (AdmissionController, False), **engines}
-        line = []
+        line, us = [], {}
         for engine, (cls, batched) in engines.items():
             ctl, t_probe = make(cls, n_active)
             calls.clear()
-            with _patched(admission, "admission_cuda", capture):
+            epoch_calls.clear()
+            with _patched(admission, "admission_cuda", capture), _patched(admission_epoch, "admission_epoch_cuda",
+                                                                        capture_epoch):
                 one_round(ctl, batched, t_probe)  # warm
-            if batched:
+                if engine == "sharded":
+                    one_round(ctl, batched, t_probe)  # the carried axes settle
+            if engine == "batched":
                 shape_args = calls[-1][0]
+            if engine == "sharded":
+                # the epoch's inputs, copied before the next rounds reuse the buffers
+                epoch_args = ([x.clone() for x in epoch_calls[-1][0][:13]], *epoch_calls[-1][0][13:16])
+                aten = _launching_ops(lambda: one_round(ctl, batched, t_probe))
             n, t1 = 0, time.perf_counter()
             while time.perf_counter() - t1 < 1.0:
                 one_round(ctl, batched, t_probe)
                 n += 1
-            line.append(f"{engine} {(time.perf_counter() - t1) * 1e6 / (n * ADMISSION_BATCH):.2f} us a decision "
-                        f"({n} rounds)")
+            us[engine] = (time.perf_counter() - t1) * 1e6 / (n * ADMISSION_BATCH)
+            line.append(f"{engine} {us[engine]:.2f} us a decision ({n} rounds)")
+            if engine == "sharded":
+                line.append(f"sharded at {ADMISSION_MB_SHARDS} shards: reseeds {ctl.reseeds}, axis L {ctl._L}, "
+                            f"live events a shard {ctl._n_live.tolist()}, {aten} aten ops that launch in one warm "
+                            f"batch")
+                if ctl.reseeds:
+                    _fail(f"admission microbench: the sharded engine reseeded {ctl.reseeds} times")
+        line.append(f"carried_speedup {us['batched'] / us['sharded']:.2f} (batched / sharded)")
         print(f"  microbench, {n_active} resident, batches of {ADMISSION_BATCH}: {'; '.join(line)}")
 
     # the decision kernel at the microbench's shape (1,024 resident); its
@@ -1816,8 +1911,41 @@ def admission_phase(dev, seed: int) -> tuple[dict, int]:
     print(f"  decision kernel at the microbench's shape (C {C}, Pp {Pp}, k {k}; {int(got.sum())} admitted; plan "
           f"{plan}): equal to the plain loop, and under a binding budget ({int(got_tight.sum())} admitted); kernel {ms:.4f} ms back to back, profiled {device_ms:.4f} ms; plain "
           f"loop {plain_ms:.3f} ms; bound {bound_ms:.6f} ms ({bound_by}; bytes alone {byte_ms:.6f} ms)")
-    return dict(max_abs_err=float((got.int() - want.int()).abs().max().item()), ms=ms, plain_ms=plain_ms,
-                bound_ms=bound_ms, bound_by=bound_by, device_ms=device_ms), counts["admission"]
+    decide = dict(max_abs_err=float((got.int() - want.int()).abs().max().item()), ms=ms, plain_ms=plain_ms,
+                  bound_ms=bound_ms, bound_by=bound_by, device_ms=device_ms)
+
+    # the admission_epoch kernel at the sharded engine's shape (1,024
+    # resident, 8 shards): every output bit for bit against the plain version
+    state_batch, t_e, budget_e, Lp = epoch_args
+    spare = tuple(torch.empty_like(x) for x in state_batch[:5])
+    res, *state = ops.admission_epoch(*state_batch, t_e, budget_e, Lp, out=spare)
+    plain = admission_epoch_plain(*state_batch, t_e, budget_e, Lp)
+    torch.cuda.synchronize()
+    S, Cb = state_batch[6].shape
+    pieces = [(res[:, :Cb].bool(), plain[0]), (res[:, Cb].bool(), plain[1]), (res[:, Cb + 1], plain[2].int()),
+              *zip(state, plain[3:])]
+    same = [_same_bits(g, w) for g, w in pieces]
+    if not all(same):
+        _fail(f"admission_epoch: the kernel differs from its plain version at the microbench's shape ({same})")
+    if bool(plain[1].any()) or not bool(plain[0].any()):
+        _fail("admission_epoch: the microbench's epoch overflowed or admitted nothing")
+    err = max(float((g.double() - w.double()).abs().max()) if g.is_floating_point() else
+              float((g.long() - w.long()).abs().max()) for g, w in pieces)
+    L, Smax, k = state_batch[1].shape[1], state_batch[4].shape[1], state_batch[9].shape[2]
+    eplan = admission_epoch.plan(L, Lp if Lp is not None else L, Smax, Cb, k)
+    e_ms = _cuda_ms(lambda: ops.admission_epoch(*state_batch, t_e, budget_e, Lp, out=spare), 50)
+    e_device_ms = _device_ms(lambda: ops.admission_epoch(*state_batch, t_e, budget_e, Lp, out=spare), "epoch_kernel",
+                             40)
+    e_plain_ms = _cuda_ms(lambda: admission_epoch_plain(*state_batch, t_e, budget_e, Lp), 2)
+    (e_bound_ms, e_bound_by), e_ops_ms = _epoch_bound(state_batch, t_e, res)
+    print(f"  admission_epoch kernel at the sharded microbench's shape (S {S}, L {L}, Lp {Lp}, Smax {Smax}, Cb {Cb}, "
+          f"k {k}, Rb {state_batch[5].shape[1]}; live events a shard {res[:, Cb + 1].tolist()}, "
+          f"{int(res[:, :Cb].sum())} admitted; plan {eplan}): every output bit for bit equal to the plain version; "
+          f"kernel {e_ms:.4f} ms back to back, profiled {e_device_ms:.4f} ms; plain {e_plain_ms:.3f} ms; bound "
+          f"{e_bound_ms:.6f} ms ({e_bound_by}; operations alone {e_ops_ms:.6f} ms)")
+    epoch = dict(max_abs_err=err, ms=e_ms, plain_ms=e_plain_ms, bound_ms=e_bound_ms, bound_by=e_bound_by,
+                 device_ms=e_device_ms)
+    return {"admission": decide, "admission_epoch": epoch}, {k: counts[k] for k in ("admission", "admission_epoch")}
 
 
 def main() -> int:
@@ -1877,7 +2005,9 @@ def main() -> int:
     online_phase(wfs, args.seed)
     print(f"phases 9-11: {time.perf_counter() - t0:.2f} s")
     t0 = time.perf_counter()
-    per_kernel["admission"], counts["admission"] = admission_phase(dev, args.seed)
+    adm_kernels, adm_counts = admission_phase(dev, args.seed)
+    per_kernel.update(adm_kernels)
+    counts.update(adm_counts)
     print(f"admission phase: {time.perf_counter() - t0:.2f} s")
 
     sources = {
@@ -1894,6 +2024,9 @@ def main() -> int:
         # no TPU kernel: the reference's batched admission scan
         "admission": ("src/repro_torch/kernels/csrc/admission.cu",
                       "src/repro/sim/device_timeline.py:374 (admission_program's lax.scan)"),
+        # no TPU kernel: the reference's carried admission program, vmapped over shards
+        "admission_epoch": ("src/repro_torch/kernels/csrc/admission_epoch.cu",
+                            "src/repro/sim/device_timeline.py:1292 (admission_epoch), :1080 (_admission_shard)"),
     }
     line = {"kernels": [
         {"name": name, "route": "cuda", "source": src, "replaces": rep, "launches": counts[name],

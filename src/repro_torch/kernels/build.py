@@ -51,6 +51,7 @@ SOURCES = {
     "fitstats": _EXACT,
     "scan": _EXACT,
     "admission": _EXACT,
+    "admission_epoch": _EXACT,
     "flash": (),
 }
 

@@ -7,9 +7,11 @@ running sums before it) and compaction (with the sweep's fold around it)
 the cluster's placement programs, fitstats the kernels API's regression
 bank (``kernels.api``), flash the language model's attention, scan the
 engine's predict phase (every running sum of it, in the reference's
-order), admission the batched admission controller's decision scan.  Rows of segmax and wastage index series: row r reads
-``y[series[r]]``, so rows that share a series (the methods of one
-execution, the k values of a sweep) never copy it on the card.
+order), admission the batched admission controller's decision scan,
+admission_epoch the sharded controller's whole carried epoch.  Rows of
+segmax and wastage index series: row r reads ``y[series[r]]``, so rows
+that share a series (the methods of one execution, the k values of a
+sweep) never copy it on the card.
 """
 
 from __future__ import annotations
@@ -19,6 +21,7 @@ import torch
 from repro_torch.core.allocation import attempt_outcomes_batch
 from repro_torch.core.segmentation import segment_peaks_dynamic
 from repro_torch.kernels import admission, compaction, fitstats, flash, rangemax, scan, segmax, wastage
+from repro_torch.kernels import admission_epoch as epoch
 
 
 def _route(y: torch.Tensor) -> bool:
@@ -148,6 +151,25 @@ def admission_scan(P, prof, starts, ends, rels, bnd, val, valext, sw, live, vali
     return admission_scan_plain(P, prof, starts, ends, rels, bnd, val, valext, sw, live, valid, budget)
 
 
+def admission_epoch(base0, tl_t, tl_d, tl_c, slot_fold, rel_codes, starts, ends, rels, bnd, val, codes, valid,
+                    t0: float, budget: float, Lp: int | None = None, out=None):
+    """One batch of the sharded controller's carried epoch for every shard
+    (releases, clock fold, decisions, splice; arguments as
+    ``sim.device_timeline.admission_epoch_plain``) -> ``(res, base0, tl_t,
+    tl_d, tl_c, slot_fold)``, res (S, Cb + 2) int32 each shard's admits,
+    overflow flag and live count: one launch on the card, into the state
+    buffers ``out`` (the CPU route returns new tensors)."""
+    if _route(tl_t):
+        return epoch.admission_epoch_cuda(base0, tl_t, tl_d, tl_c, slot_fold, rel_codes, starts, ends, rels, bnd,
+                                          val, codes, valid, t0, budget, Lp, out)
+    from repro_torch.sim.device_timeline import admission_epoch_plain
+
+    admits, overflow, n_live, *state = admission_epoch_plain(base0, tl_t, tl_d, tl_c, slot_fold, rel_codes, starts,
+                                                             ends, rels, bnd, val, codes, valid, t0, budget, Lp)
+    res = torch.cat([admits.to(torch.int32), overflow[:, None].to(torch.int32), n_live[:, None].to(torch.int32)], 1)
+    return (res, *state)
+
+
 _KERNELS = {
     "segmax": segmax,
     "wastage": wastage,
@@ -157,6 +179,7 @@ _KERNELS = {
     "flash": flash,
     "scan": scan,
     "admission": admission,
+    "admission_epoch": epoch,
 }
 
 

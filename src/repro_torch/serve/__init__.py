@@ -3,14 +3,16 @@
 # admission control: the scalar oracle (AdmissionController), the batched
 # engine (BatchedAdmissionController.try_admit_many, one decision-scan
 # launch a batch on the card), the per-shard oracle
-# (ShardedScalarController), and the arrival-stream serving simulator
+# (ShardedScalarController), the carried-timeline sharded engine
+# (ShardedAdmissionController, one admission_epoch launch a batch for every
+# shard), and the arrival-stream serving simulator
 # (repro_torch.serve.stream) that replays Poisson/bursty/diurnal workloads
-# through any of them.  The carried-timeline ShardedAdmissionController is
-# ROADMAP Queue 1 item 6(c).
+# through any of them.
 from repro_torch.serve.admission import (
     AdmissionController,
     BatchedAdmissionController,
     RequestPlan,
+    ShardedAdmissionController,
     ShardedScalarController,
     cache_bytes_per_token,
     shard_of,
@@ -21,6 +23,7 @@ __all__ = [
     "AdmissionController",
     "BatchedAdmissionController",
     "RequestPlan",
+    "ShardedAdmissionController",
     "ShardedScalarController",
     "cache_bytes_per_token",
     "greedy_generate",

@@ -10,9 +10,8 @@ updates the cache in place and returns it.  ``cache_shape`` (a
 
 Also the admission-engine registry (``make_admission_controller``), the
 one place that maps an engine name to a controller, shared by
-``serve.stream``: the port builds ``"scalar"``, ``"batched"`` and
-``"sharded-scalar"``; ``"sharded"`` (the carried-timeline controller) is
-ROADMAP Queue 1 item 6(c).
+``serve.stream``: ``"scalar"``, ``"batched"``, ``"sharded"`` and
+``"sharded-scalar"``.
 """
 
 from __future__ import annotations
@@ -22,11 +21,16 @@ import torch
 from repro_torch.configs.base import ModelConfig
 from repro_torch.device import resolve_device
 from repro_torch.models.model import Transformer, decode_step, forward
-from repro_torch.serve.admission import AdmissionController, BatchedAdmissionController, ShardedScalarController
+from repro_torch.serve.admission import (
+    AdmissionController,
+    BatchedAdmissionController,
+    ShardedAdmissionController,
+    ShardedScalarController,
+)
 
 # engine name -> controller class; "scalar" is the policy oracle, "batched"
-# the single-card engine, "sharded" the carried-timeline control plane (not
-# ported yet), "sharded-scalar" its per-shard scalar oracle
+# the single-card engine, "sharded" the carried-timeline control plane,
+# "sharded-scalar" its per-shard scalar oracle
 ADMISSION_ENGINES = ("scalar", "batched", "sharded", "sharded-scalar")
 
 
@@ -41,10 +45,11 @@ def make_admission_controller(
 ):
     """Build an admission controller by engine name.
 
-    The single-host engines ignore ``n_shards``; ``"sharded-scalar"`` splits
-    the budget ``n_shards`` ways with crc32 request placement
-    (``serve.admission.shard_of``).  ``device`` is the batched engine's
-    (``None``: the CUDA card); the host engines ignore it."""
+    The single-host engines ignore ``n_shards``; ``"sharded"`` and
+    ``"sharded-scalar"`` split the budget ``n_shards`` ways with crc32
+    request placement (``serve.admission.shard_of``).  ``device`` is the
+    device engines' (``"batched"``, ``"sharded"``; ``None``: the CUDA card);
+    the host engines ignore it."""
     if engine == "scalar":
         return AdmissionController(hbm_budget_mib, k=k, interval_s=interval_s)
     if engine == "batched":
@@ -52,7 +57,8 @@ def make_admission_controller(
     if engine == "sharded-scalar":
         return ShardedScalarController(hbm_budget_mib, k=k, interval_s=interval_s, n_shards=n_shards)
     if engine == "sharded":
-        raise ValueError("admission engine 'sharded' is not ported yet (ROADMAP Queue 1 item 6(c))")
+        return ShardedAdmissionController(hbm_budget_mib, k=k, interval_s=interval_s, n_shards=n_shards,
+                                          device=device)
     raise ValueError(f"unknown admission engine {engine!r} (one of {ADMISSION_ENGINES})")
 
 

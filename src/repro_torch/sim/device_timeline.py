@@ -1,13 +1,15 @@
 """The packing programs over the event timeline: the batched admission
 controller's decision scan and the cluster scheduler's placement programs.
 
-Port of ``repro.sim.device_timeline`` (the sharded controller's carried
-programs, ``admission_epoch`` and ``_admission_shard``, are ROADMAP Queue 1
-item 6(c)).  ``admission_scan_plain`` decides a batch of admission
-candidates in order, each against the profile plus the demand of the
-candidates admitted before it (the reference's ``admission_program``); on
-the card that scan is one launch of the **admission** kernel
-(``kernels.ops.admission_scan``).  The per-node demand timelines (sorted
+Port of ``repro.sim.device_timeline``.  ``admission_scan_plain`` decides
+a batch of admission candidates in order, each against the profile plus the
+demand of the candidates admitted before it (the reference's
+``admission_program``); on the card that scan is one launch of the
+**admission** kernel (``kernels.ops.admission_scan``).
+``admission_epoch_plain`` is the sharded controller's carried epoch (the
+reference's ``admission_epoch`` over ``_admission_shard``): releases, clock
+fold, decisions and splice of one batch for every shard, on the card one
+launch of the **admission_epoch** kernel (``kernels.ops.admission_epoch``).  The per-node demand timelines (sorted
 event instants and deltas, ``core.timeline``) live on the device in
 float64, as in the reference (``nextafter`` switch instants sit below
 float32 resolution at cluster timestamps).  Three programs place rows:
@@ -50,6 +52,7 @@ from repro_torch.core.timeline import shared_probe_set
 from repro_torch.device import resolve_device
 from repro_torch.kernels import ops
 from repro_torch.kernels.rangemax import masked_demand
+from repro_torch.kernels.scan import xla_cumsum
 from repro_torch.sim.traces import bucket_size, fine_bucket
 
 F64 = torch.float64
@@ -121,6 +124,194 @@ def admission_scan_plain(P, prof, starts, ends, rels, bnd, val, valext, sw, live
         extra = extra + torch.where(admit, D[i], 0.0)
         admits[i] = admit
     return admits
+
+
+# ---------------------------------------------------------------------------
+# The carried-admission program: each shard's demand timeline lives in the
+# sharded controller's state across batches; one call applies the queued
+# releases, folds the clock forward, decides the batch and splices the
+# admitted plans in.
+# ---------------------------------------------------------------------------
+
+
+def _scatter_add_in_order(dst: torch.Tensor, idx: torch.Tensor, vals: torch.Tensor) -> torch.Tensor:
+    """``dst[idx[i]] += vals[i]`` for i in order, duplicates included (the
+    reference's scatter-add applies its updates one after another), with
+    ``idx == len(dst)`` dropped.  Each round adds at most one update per
+    slot, so the order holds on any device."""
+    held = idx < dst.shape[0]
+    idx, vals, out = idx[held], vals[held], dst.clone()
+    order = torch.sort(idx, stable=True).indices
+    si = idx[order]
+    rank = torch.empty_like(idx)
+    rank[order] = torch.arange(idx.shape[0], device=idx.device) - torch.searchsorted(si, si, side="left")
+    for r in range(int(rank.max()) + 1 if idx.numel() else 0):
+        m = rank == r
+        out.index_put_((idx[m],), vals[m], accumulate=True)
+    return out
+
+
+def _fold_sum(x: torch.Tensor) -> torch.Tensor:
+    """Sum of x from 0.0, one element after another."""
+    acc = torch.zeros((), dtype=x.dtype, device=x.device)
+    for v in x:
+        acc = acc + v
+    return acc
+
+
+def _row_sum(x: torch.Tensor) -> torch.Tensor:
+    """The sum of a (n,) float64 row, n a power of two, in the order of the
+    reference's compiled ``jnp.sum`` on XLA's CPU backend: from 0.0 in index
+    order up to 16 elements; at 32, the loop vectorised four doubles wide
+    with four accumulators (element i in lane i % 4 of vector (i // 4) % 4;
+    the vectors summed ((V1 + V0) + V2) + V3, then the lanes (R0 + R2) +
+    (R1 + R3)); past 32, each window of 32 summed in order and the window
+    totals in order (XLA's reduce-window rewrite)."""
+    n = x.shape[0]
+    if n > 32:
+        return _fold_sum(torch.stack([_fold_sum(w) for w in x.split(32)]))
+    if n == 32:
+        v = (torch.zeros((), dtype=x.dtype, device=x.device) + x[:16]) + x[16:]
+        v = v.view(4, 4)
+        r = ((v[1] + v[0]) + v[2]) + v[3]
+        return (r[0] + r[2]) + (r[1] + r[3])
+    return _fold_sum(x)
+
+
+def _admission_shard(base0, tl_t, tl_d, tl_c, slot_fold, rel_codes, starts, ends, rels, bnd, val, codes, valid,
+                     t0: float, budget: float, Lp: int | None = None):
+    """One shard's decision batch against its carried timeline (the plain
+    version of one block of the admission_epoch kernel; the reference's
+    ``_admission_shard``, step for step and sum for sum).
+
+    Carried state: base0 () the demand folded in at or before the clock;
+    tl_t/tl_d (L,) the sorted future event times (+inf padded) and deltas;
+    tl_c (L,) int32 owner codes (-1: empty); slot_fold (Smax,) each owner's
+    deltas already folded into base0.  Batch: rel_codes (Rb,) int32 codes
+    released since the last call (-1 padded); starts/ends/rels (Cb,),
+    bnd/val (Cb, k), codes (Cb,) int32 and valid (Cb,) bool, the candidates
+    in arrival order; ``t0`` the batch clock; ``Lp`` the decision prefix
+    (None: the whole axis).
+
+    Steps: (1) the released owners' events leave the row (the survivors
+    compacted left, stably) and their folded sums leave base0; (2) the
+    events at or before t0 fold into base0 (the running sum's last element
+    in XLA's order over L) and into their owners' slot_fold (in update
+    order), and the row shifts left; (3) the candidates' slots are zeroed;
+    (4) the candidates are decided in order at two probe families: the
+    carried events in (start, end] read at tie-group-final positions, and
+    every candidate's start and live switch instants in [start, end], each
+    against the carried demand, the admitted candidates' event sums and the
+    candidate's own allocation; (5) the admitted candidates' events are
+    merged into the row by a stable sort (old events first on ties, then
+    candidates in order).
+
+    Returns ``(admits (Cb,), overflow (), n_live (), base0, tl_t, tl_d,
+    tl_c, slot_fold)``; ``overflow`` flags a merge past L or a live event
+    past Lp."""
+    dev = tl_t.device
+    L, k, Smax = tl_t.shape[0], bnd.shape[1], slot_fold.shape[0]
+    Lp = L if Lp is None else min(Lp, L)
+    ar = torch.arange(L, device=dev)
+
+    # 1. releases
+    rv = rel_codes >= 0
+    rel_mask = torch.zeros(Smax + 1, dtype=torch.bool, device=dev)
+    rel_mask[torch.where(rv, rel_codes, Smax).long()] = True
+    gone = rel_mask[torch.where(tl_c >= 0, tl_c, Smax).long()]
+    base0 = base0 - _row_sum(torch.where(rv, slot_fold[torch.clamp(rel_codes, min=0).long()], 0.0))
+    slot_fold = torch.cat([slot_fold, slot_fold.new_zeros(1)])
+    slot_fold[torch.where(rv, rel_codes, Smax).long()] = 0.0
+    slot_fold = slot_fold[:Smax]
+    keep = ~gone
+    dst = torch.where(keep, torch.cumsum(keep, 0) - 1, L)
+
+    def compact(x, fill):
+        out = torch.full((L + 1,), fill, dtype=x.dtype, device=dev)
+        out[dst] = x
+        return out[:L]
+
+    tl_t, tl_d, tl_c = compact(tl_t, _INF), compact(tl_d, 0.0), compact(tl_c, -1)
+
+    # 2. fold the events at or before the clock
+    fold = tl_t <= t0
+    cnt = int(fold.sum())
+    dfold = torch.where(fold, tl_d, 0.0)
+    base0 = base0 + xla_cumsum(dfold)[-1]
+    slot_fold = _scatter_add_in_order(slot_fold, torch.where(fold & (tl_c >= 0), tl_c, Smax).long(), dfold)
+    idxc = torch.clamp(ar + cnt, max=L - 1)
+    kept = ar + cnt < L
+    tl_t = torch.where(kept, tl_t[idxc], _INF)
+    tl_d = torch.where(kept, tl_d[idxc], 0.0)
+    tl_c = torch.where(kept, tl_c[idxc], -1)
+
+    # 3. the candidates' fresh slots
+    slot_fold = torch.cat([slot_fold, slot_fold.new_zeros(1)])
+    slot_fold[torch.where(valid, codes, Smax).long()] = 0.0
+    slot_fold = slot_fold[:Smax]
+
+    # 4. the two probe families and the decisions
+    pt, pd = tl_t[:Lp], tl_d[:Lp]
+    prefix_over = bool(torch.isfinite(tl_t[Lp])) if Lp < L else False
+    cs = base0 + xla_cumsum(pd)
+    cs0 = torch.cat([base0[None], cs])
+    tie = torch.cat([pt[:-1] != pt[1:], torch.isfinite(pt[-1:])])
+    t_new, d_new, live = _plan_events(starts, bnd, val, rels)
+    sw = torch.nextafter(starts[:, None] + bnd, torch.full_like(bnd, _INF))
+    Q = torch.cat([starts[:, None], torch.where(live, sw, _INF)], dim=1).reshape(-1)
+    qprof = cs0[(pt[None, :] <= Q[:, None]).sum(dim=1)]
+    evwin = tie[None, :] & (pt[None, :] > starts[:, None]) & (pt[None, :] <= ends[:, None])
+    qwin = (Q[None, :] >= starts[:, None]) & (Q[None, :] <= ends[:, None])
+
+    def own(p):  # the probing candidate's allocation at p: val[min(#(b < p - start), k - 1)]
+        idx = (bnd[:, :, None] < (p[None, :] - starts[:, None])[:, None, :]).sum(dim=1)
+        return torch.gather(val, 1, torch.clamp(idx, max=k - 1))
+
+    def contrib(p):  # an admitted candidate's event deltas at or before p, summed from 0 in order
+        acc = torch.zeros((t_new.shape[0], p.shape[0]), dtype=F64, device=dev)
+        for j in range(t_new.shape[1]):
+            acc = acc + d_new[:, j, None] * (t_new[:, j, None] <= p[None, :])
+        return acc
+
+    evself, qself, evcontrib, qcontrib = own(pt), own(Q), contrib(pt), contrib(Q)
+    extra_ev, extra_q = torch.zeros_like(pd), torch.zeros_like(Q)
+    admits = torch.empty(valid.shape, dtype=torch.bool, device=dev)
+    for i in range(valid.shape[0]):
+        over = (evwin[i] & (cs + extra_ev + evself[i] > budget)).any() | (
+            qwin[i] & (qprof + extra_q + qself[i] > budget)).any()
+        admit = valid[i] & ~over
+        extra_ev = extra_ev + torch.where(admit, evcontrib[i], 0.0)
+        extra_q = extra_q + torch.where(admit, qcontrib[i], 0.0)
+        admits[i] = admit
+
+    # 5. the splice: one stable sort of the live prefix and the admitted events
+    new_t = torch.where(admits[:, None], t_new, _INF).reshape(-1)
+    new_d = torch.where(admits[:, None], d_new, 0.0).reshape(-1)
+    new_c = torch.where(admits, codes, -1)[:, None].expand(t_new.shape).reshape(-1).to(tl_c.dtype)
+    head_t = torch.cat([pt, new_t])
+    order = torch.sort(head_t, stable=True).indices
+    comb_t = torch.cat([head_t[order], tl_t[Lp:]])
+    comb_d = torch.cat([torch.cat([pd, new_d])[order], tl_d[Lp:]])
+    comb_c = torch.cat([torch.cat([tl_c[:Lp], new_c])[order], tl_c[Lp:]])
+    overflow = torch.tensor(bool(torch.isfinite(comb_t[L])) | prefix_over, device=dev)
+    tl_t, tl_d, tl_c = comb_t[:L], comb_d[:L], comb_c[:L]
+    n_live = torch.isfinite(tl_t).sum().to(torch.int32)
+    return admits, overflow, n_live, base0, tl_t, tl_d, tl_c, slot_fold
+
+
+def admission_epoch_plain(base0, tl_t, tl_d, tl_c, slot_fold, rel_codes, starts, ends, rels, bnd, val, codes, valid,
+                          t0: float, budget: float, Lp: int | None = None):
+    """Plain version of the admission_epoch kernel (the reference's
+    ``admission_epoch``): ``_admission_shard`` over the leading shard axis S
+    of every state and batch tensor, ``t0`` and ``budget`` shared.  Returns
+    ``(admits (S, Cb), overflow (S,), n_live (S,), base0, tl_t, tl_d, tl_c,
+    slot_fold)``."""
+    outs = [
+        _admission_shard(*(x[s] for x in (base0, tl_t, tl_d, tl_c, slot_fold, rel_codes, starts, ends, rels, bnd,
+                                          val, codes, valid)), t0, budget, Lp)
+        for s in range(tl_t.shape[0])
+    ]
+    return tuple(torch.stack(parts) for parts in zip(*outs))
 
 
 # ---------------------------------------------------------------------------

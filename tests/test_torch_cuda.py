@@ -6,8 +6,9 @@ nothing of JAX, so they run where only PyTorch is installed:
 
 Tolerances: segment peaks, fail indices, range-max and fit tables (bit for
 bit), ladder values, retries and attempt counts, compacted rows, the
-sweep's fold (bit for bit), the scan's running sums (bit for bit) and
-cluster placements exact; wastage rtol 1e-5 with atol 1e-4 GiB*s when
+sweep's fold (bit for bit), the scan's running sums (bit for bit), the
+sharded controller's carried epoch (every output and the new state bit for
+bit) and cluster placements exact; wastage rtol 1e-5 with atol 1e-4 GiB*s when
 summed in f32, rtol 1e-9 with atol 1e-9 GiB*s when summed in f64, because
 the sums over a series run in another order.  flash in float32 atol 3e-5 /
 rtol 1e-4 (the reference's own kernel tolerance); in bf16 on N(0, 1)
@@ -886,3 +887,294 @@ def test_batched_controller_needs_cuda_unless_asked_for_cpu():
     with pytest.raises(RuntimeError, match="no CUDA device"):
         run_stream(StreamConfig(n_requests=4, n_warmup=2), "batched")
     assert BatchedAdmissionController(1000.0, device="cpu").device == torch.device("cpu")
+
+
+# ---------------------------------------------------------------------------
+# the sharded controller's carried epoch (admission_epoch)
+# ---------------------------------------------------------------------------
+
+def _plan_rows(rng, start, k, dead):
+    """One plan's events as the carried program splices them: +v0 at the
+    start, each step at ``nextafter`` past a live boundary (+inf and 0 when
+    dead), -v_end at the release; stably time-sorted."""
+    b = np.sort(rng.uniform(0.5, 30.0, k))
+    v = np.maximum.accumulate(rng.uniform(10.0, 500.0, k))
+    if dead and k > 1:
+        b[0] = b[-1] + 5.0  # past the release: this switch never fires
+    rel = np.nextafter(start + b[-1], np.inf)
+    live = np.isfinite(b) & (start + b < rel)
+    sw = np.nextafter(start + b, np.inf)
+    steps = np.append(np.diff(v), 0.0)
+    v_end = np.append(v, v[-1])[live.sum()]
+    t = np.concatenate([[start], np.where(live, sw, np.inf), [rel]])
+    d = np.concatenate([[v[0]], np.where(live, steps, 0.0), [-v_end]])
+    o = np.argsort(t, kind="stable")
+    return t[o], d[o]
+
+
+def random_epoch(seed, S, L, k, Cb, Rb, n_plans, Lp_mode="bucket", admit_frac=0.5, t0=100.0):
+    """Carried states and a batch for ``S`` shards, made with numpy: each
+    shard holds ``n_plans`` plans (some with a dead switch, some events at
+    or before the clock ``t0``, ties at t0 and at candidate starts), folded
+    sums of plans whose events have all been folded, releases of folded and
+    unfolded plans, and Cb padded candidate rows (fresh codes, starts from
+    t0 with ties, one dead switch).  The plans sit around 100 s: a clock
+    ``t0`` past 150 s folds every event.  Returns (args, t0, budget, Lp)."""
+    rng = np.random.default_rng(seed)
+    Smax = 2 * n_plans + Cb + 8
+    t_plans = 100.0
+    base0 = rng.uniform(0.0, 2_000.0, S)
+    tl_t = np.full((S, L), np.inf)
+    tl_d = np.zeros((S, L))
+    tl_c = np.full((S, L), -1, np.int32)
+    slot_fold = np.zeros((S, Smax))
+    rel_codes = np.full((S, Rb), -1, np.int32)
+    live_max = 0
+    for s in range(S):
+        rows = []
+        for c in range(n_plans):
+            start = t_plans if c % 7 == 0 else float(rng.uniform(t_plans - 20.0, t_plans + 15.0))
+            t, d = _plan_rows(rng, start, k, dead=c % 5 == 1)
+            rows.append((t, d, np.full(len(t), c, np.int32)))
+        t = np.concatenate([r[0] for r in rows])
+        d = np.concatenate([r[1] for r in rows])
+        c = np.concatenate([r[2] for r in rows])
+        o = np.argsort(t, kind="stable")
+        t, d, c = t[o][:L], d[o][:L], c[o][:L]
+        tl_t[s, : len(t)], tl_d[s, : len(t)], tl_c[s, : len(t)] = t, d, c
+        # earlier folds: every plan has a folded sum, and codes past n_plans
+        # are plans folded away entirely
+        folded = rng.uniform(-50.0, 400.0, n_plans + 4)
+        slot_fold[s, : n_plans + 4] = folded
+        n_rel = min(Rb, n_plans + 4, 1 + int(rng.integers(0, max(Rb - 1, 1))))
+        rel = rng.choice(n_plans + 4, size=n_rel, replace=False).astype(np.int32)
+        rel_codes[s, : len(rel)] = rel
+        live_max = max(live_max, int(np.isfinite(t).sum()))
+    C = rng.integers(1, Cb + 1, S)
+    starts = np.full((S, Cb), np.inf)
+    ends = np.full((S, Cb), -np.inf)
+    rels = np.full((S, Cb), -np.inf)
+    bnd = np.full((S, Cb, k), np.inf)
+    val = np.zeros((S, Cb, k))
+    codes = np.full((S, Cb), -1, np.int32)
+    valid = np.zeros((S, Cb), bool)
+    for s in range(S):
+        n = int(C[s])
+        st_ = np.sort(rng.uniform(t0, t0 + 3.0, n))
+        st_[0] = t0
+        if n > 2:
+            st_[2] = st_[1]  # two candidates arrive together
+            carried = tl_t[s][np.isfinite(tl_t[s]) & (tl_t[s] > t0)]
+            if len(carried):
+                st_[-1] = max(st_[-2], float(carried[0]))  # a start on a carried event
+        b = np.sort(rng.uniform(0.5, 30.0, (n, k)), axis=1)
+        v = np.maximum.accumulate(rng.uniform(10.0, 500.0, (n, k)), axis=1)
+        if n > 1 and k > 1:
+            b[1, 0] = b[1, -1] + 5.0  # a dead switch
+        starts[s, :n] = st_
+        ends[s, :n] = st_ + b[:, -1]
+        rels[s, :n] = np.nextafter(ends[s, :n], np.inf)
+        bnd[s, :n], val[s, :n] = b, v
+        codes[s, :n] = np.arange(Smax - n, Smax, dtype=np.int32)
+        valid[s, :n] = True
+        if n > 3:
+            valid[s, n // 2] = False  # an invalid row inside the batch
+    Lp = {"bucket": max(live_max, 1), "none": None, "short": max(live_max // 2, 1)}[Lp_mode]
+    if Lp is not None and Lp_mode == "bucket":
+        Lp = min(L, -(-Lp // 8) * 8)
+    args = (base0, tl_t, tl_d, tl_c, slot_fold, rel_codes, starts, ends, rels, bnd, val, codes, valid)
+    return args, t0, _budget_admitting(args, t0, Lp, admit_frac), Lp
+
+
+def _budget_admitting(args, t0, Lp, frac):
+    """A budget under which about ``frac`` of the valid candidates are
+    admitted (bisected with the plain epoch; above 1: every one fits)."""
+    from repro_torch.sim.device_timeline import admission_epoch_plain
+
+    lo, hi = 0.0, 1e7
+    if frac > 1.0:
+        return hi
+    ta = [torch.from_numpy(np.ascontiguousarray(a)) for a in args]
+    want = frac * float(np.asarray(args[12]).sum())
+    for _ in range(20):
+        mid = 0.5 * (lo + hi)
+        lo, hi = (mid, hi) if float(admission_epoch_plain(*ta, t0, mid, Lp)[0].sum()) < want else (lo, mid)
+    return hi
+
+
+
+EPOCH_CASES = [
+    # seed, S, L, k, Cb, Rb, plans, Lp mode, share of the candidates admitted
+    (0, 1, 64, 4, 8, 8, 6, "bucket", 0.6),
+    (1, 2, 128, 4, 8, 8, 12, "none", 0.6),
+    (2, 4, 256, 4, 16, 16, 25, "bucket", 0.5),
+    (3, 4, 384, 3, 24, 8, 40, "bucket", 0.8),
+    (4, 2, 512, 4, 8, 32, 60, "none", 0.5),  # Rb 32: the vectorised sum
+    (5, 1, 96, 1, 8, 8, 10, "bucket", 0.7),
+    (6, 4, 320, 4, 40, 16, 40, "short", 0.6),  # a live event past Lp: overflow
+    (7, 2, 48, 4, 16, 8, 6, "bucket", 5.0),  # the merge runs past L: overflow
+    (8, 2, 1024, 4, 32, 16, 150, "bucket", 0.7),
+    (9, 2, 512, 4, 16, 64, 70, "bucket", 0.5),  # Rb 64: windows of 32
+    (10, 4, 128, 2, 8, 8, 10, "none", 2.0),  # every candidate fits
+]
+
+# more shards, the microbench's shape, and a row past the shared memory
+CARD_EPOCH_CASES = EPOCH_CASES + [
+    (20, 8, 256, 4, 16, 16, 30, "bucket", 0.5),
+    (21, 8, 1024, 4, 48, 8, 150, "bucket", 0.5),
+    (22, 2, 8192, 4, 16, 16, 1300, "bucket", 0.5),
+]
+
+
+def _epoch_both(args, t0, budget, Lp, dev):
+    """The kernel and the plain version (on the card and on the CPU) on one
+    epoch; returns (kernel (res, *state), plain (admits, overflow, n_live,
+    *state) on the card)."""
+    from repro_torch.kernels import admission_epoch
+    from repro_torch.sim.device_timeline import admission_epoch_plain
+
+    cpu = [torch.from_numpy(np.ascontiguousarray(a)) for a in args]
+    card = [a.to(dev) for a in cpu]
+    before = admission_epoch.launches
+    got = ops.admission_epoch(*card, t0, budget, Lp)
+    assert admission_epoch.launches == before + 1
+    want = admission_epoch_plain(*card, t0, budget, Lp)
+    torch.cuda.synchronize()
+    on_cpu = admission_epoch_plain(*cpu, t0, budget, Lp)
+    for w, c in zip(want, on_cpu):  # the plain version gives the same bits on either device
+        assert torch.equal(w.cpu(), c) if not c.is_floating_point() else _same_bits(w.cpu(), c)
+    Cb = args[6].shape[1]
+    res = got[0].cpu()
+    assert torch.equal(res[:, :Cb].bool(), want[0].cpu())
+    assert torch.equal(res[:, Cb].bool(), want[1].cpu())
+    assert torch.equal(res[:, Cb + 1], want[2].cpu().to(torch.int32))
+    for g, w in zip(got[1:], want[3:]):
+        assert g.dtype == w.dtype and _same_bits(g.cpu(), w.cpu())
+    return got, want
+
+
+@pytest.mark.parametrize("case", CARD_EPOCH_CASES, ids=[f"seed{c[0]}-S{c[1]}-L{c[2]}-{c[7]}" for c in CARD_EPOCH_CASES])
+def test_epoch_kernel_matches_plain_on_card(cuda, case):
+    seed, S, L, k, Cb, Rb, n_plans, mode, frac = case
+    args, t0, budget, Lp = random_epoch(seed, S, L, k, Cb, Rb, n_plans, mode, frac)
+    _, want = _epoch_both(args, t0, budget, Lp, cuda)
+    assert bool(want[1].any()) == (mode == "short" or seed == 7)
+
+
+def test_epoch_kernel_folds_the_whole_row_on_card(cuda):
+    """A clock past every event folds the whole row into base0 and the
+    owners' slots, and the batch decides against an empty timeline."""
+    args, t0, budget, Lp = random_epoch(30, 4, 320, 4, 16, 8, 40, "none", 0.5, t0=400.0)
+    _, want = _epoch_both(args, t0, budget, None, cuda)
+    admits, n_live = want[0].cpu(), want[2].cpu()
+    assert int(n_live.max()) <= 6 * int(admits.sum(dim=1).max())  # only the admitted plans' events are left
+
+
+def test_epoch_kernel_reaches_both_storage_plans(cuda):
+    from repro_torch.kernels import admission_epoch
+
+    plans = {}
+    for seed, S, L, k, Cb, Rb, n_plans, mode, frac in CARD_EPOCH_CASES:
+        pl = admission_epoch.plan(L, L, 2 * n_plans + Cb + 8, Cb, k)
+        plans["global" if pl["scratch"] else "shared"] = pl
+    assert set(plans) == {"shared", "global"}
+    assert plans["global"]["smem"] < plans["shared"]["smem"]
+
+
+def test_epoch_kernel_refuses_what_it_cannot_take(cuda):
+    from repro_torch.kernels import admission_epoch
+
+    args, t0, budget, Lp = random_epoch(31, 2, 64, 4, 8, 8, 6)
+    card = [torch.from_numpy(np.ascontiguousarray(a)).to(cuda) for a in args]
+    with pytest.raises(ValueError, match="CUDA tensors"):
+        admission_epoch.admission_epoch_cuda(*(a.cpu() for a in card), t0, budget, Lp)
+    bad = list(card)
+    bad[3] = card[3].long()
+    with pytest.raises(ValueError, match="admission_epoch tl_c"):
+        admission_epoch.admission_epoch_cuda(*bad, t0, budget, Lp)
+    with pytest.raises(ValueError, match="second"):
+        admission_epoch.admission_epoch_cuda(*card, t0, budget, Lp, out=tuple(card[:5]))
+
+
+def _sharded_pair(budget: float, n_shards: int, seed: int):
+    from repro_torch.serve.admission import ShardedAdmissionController
+
+    rng = np.random.default_rng(seed)
+    pair = (ShardedAdmissionController(budget, k=4, interval_s=1.0, n_shards=n_shards),
+            ShardedAdmissionController(budget, k=4, interval_s=1.0, n_shards=n_shards, device="cpu"))
+    for _ in range(40):
+        plen = int(rng.integers(100, 2000))
+        s = (plen * 0.08 + 8.0 * np.arange(int(60 + plen * 0.05))).astype(np.float32)
+        for c in pair:
+            c.observe(plen, s)
+    return pair, rng
+
+
+def _same_controller_state(card, cpu):
+    for g, w in zip(card._state, cpu._state):
+        assert _same_bits(g.cpu(), w)
+    assert (card._L, card._Smax, card.reseeds) == (cpu._L, cpu._Smax, cpu.reseeds)
+    assert np.array_equal(card._n_live, cpu._n_live) and card._free == cpu._free
+
+
+@pytest.mark.parametrize("arrival", ["poisson", "bursty", "diurnal"])
+def test_sharded_stream_on_card_matches_cpu_run(cuda, arrival):
+    """bench_serve's streams through the carried controller on the card: the
+    CPU run's decisions, counts, wastage and final state, one
+    admission_epoch launch per decision batch, nothing reseeded."""
+    from repro_torch.kernels import admission_epoch
+    from repro_torch.serve.stream import StreamConfig, make_controller, run_stream
+
+    kw = dict(poisson=dict(rate_per_s=8.0), bursty=dict(rate_per_s=40.0, burst_factor=8.0, hbm_budget_mib=150_000.0),
+              diurnal=dict(rate_per_s=12.0, diurnal_amp=0.8, hbm_budget_mib=80_000.0))[arrival]
+    cfg = StreamConfig(n_requests=400, arrival=arrival, seed=0, **kw)
+    card, cpu = make_controller(cfg, "sharded"), make_controller(cfg, "sharded", device="cpu")
+    assert card.device == torch.device("cuda") and cpu.device == torch.device("cpu")
+    batches = []
+    real = card.try_admit_many
+    card.try_admit_many = lambda ids, *a: batches.append(len(ids)) or real(ids, *a)
+    before = admission_epoch.launches
+    got = run_stream(cfg, "sharded", controller=card)
+    launched = admission_epoch.launches - before
+    want = run_stream(cfg, "sharded", controller=cpu)
+    assert got.decisions == want.decisions == run_stream(cfg, "sharded-scalar").decisions
+    assert (got.admitted, got.rejected, got.evicted, got.finished) == (
+        want.admitted, want.rejected, want.evicted, want.finished)
+    np.testing.assert_allclose(got.wastage["segmentwise_gib_s"], want.wastage["segmentwise_gib_s"], rtol=1e-12)
+    assert launched == sum(n > 0 for n in batches) > 0 and card.reseeds == 0
+    _same_controller_state(card, cpu)
+
+
+def test_sharded_controller_on_card_through_growth_and_reseed(cuda):
+    """L and Smax grow past their seeds, then an understated live count
+    forces the overflow guard's reseed and replay: the card's decisions and
+    state stay the CPU run's."""
+    (card, cpu), rng = _sharded_pair(10_000_000.0, 2, 5)
+    for step in range(14):
+        if step == 11:
+            for c in (card, cpu):
+                c._n_live[:] = 0
+        ids = [f"g{step}c{j}" for j in range(12)]
+        plens = [int(rng.integers(100, 2000)) for _ in range(12)]
+        got = card.try_admit_many(ids, plens, 0.5 * step)
+        want = cpu.try_admit_many(ids, plens, 0.5 * step)
+        assert [p is not None for p in got] == [p is not None for p in want]
+        _same_controller_state(card, cpu)
+        for rid in sorted(card.active)[:2]:
+            card.release(rid)
+            cpu.release(rid)
+    assert card._L > 64 and card._Smax > 64 and card.reseeds == 1
+
+
+def test_sharded_controller_needs_cuda_unless_asked_for_cpu():
+    """Runs without a card: ``device=None`` is the card and raises."""
+    from repro_torch.serve.admission import ShardedAdmissionController
+    from repro_torch.serve.stream import StreamConfig, run_stream
+
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA card is present: the default device is usable")
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        ShardedAdmissionController(1000.0)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        run_stream(StreamConfig(n_requests=4, n_warmup=2), "sharded")
+    assert ShardedAdmissionController(1000.0, device="cpu").device == torch.device("cpu")

@@ -15,7 +15,7 @@ import pytest
 from repro.serve.stream import StreamConfig as RefStreamConfig
 from repro.serve.stream import generate_arrivals as ref_generate_arrivals
 from repro.serve.stream import run_stream as ref_run_stream
-from repro_torch.serve.admission import shard_of
+from repro_torch.serve.admission import ShardedAdmissionController, shard_of
 from repro_torch.serve.stream import StreamConfig, _actual_usage, generate_arrivals, make_controller, run_stream
 
 # bench_serve's three streams (benchmarks/run.py: 400 requests, seed 0)
@@ -127,10 +127,15 @@ def test_sharded_scalar_reports_shard_rows():
 
 
 def test_sharded_engine_raises_naming_the_roadmap_item():
-    with pytest.raises(ValueError, match=r"ROADMAP Queue 1 item 6\(c\)"):
-        make_controller(StreamConfig(), "sharded")
-    with pytest.raises(ValueError, match=r"item 6\(c\)"):
-        run_stream(StreamConfig(n_requests=4, n_warmup=2), "sharded")
+    """``"sharded"`` builds the port's carried controller, and
+    ``run_stream`` runs it as it runs the per-shard oracle."""
+    ctl = make_controller(StreamConfig(), "sharded", device="cpu")
+    assert isinstance(ctl, ShardedAdmissionController) and ctl.n_shards == StreamConfig().n_shards
+    cfg = StreamConfig(n_requests=24, n_warmup=8)
+    got = run_stream(cfg, "sharded", device="cpu")
+    want = run_stream(cfg, "sharded-scalar")
+    assert got.decisions == want.decisions and len(got.decisions) == 24
+    assert len(got.shards) == cfg.n_shards
 
 
 # ---------------------------------------------------------------------------

@@ -29,8 +29,8 @@ from repro_torch.core.ksegments import KSegmentsConfig, KSegmentsModel
 from repro_torch.launch import serve as launch_serve
 from repro_torch.models.convert import load_params
 from repro_torch.models.model import init_cache, init_params
-from repro_torch.serve import (AdmissionController, BatchedAdmissionController, ShardedScalarController,
-                               cache_bytes_per_token, make_admission_controller)
+from repro_torch.serve import (AdmissionController, BatchedAdmissionController, ShardedAdmissionController,
+                               ShardedScalarController, cache_bytes_per_token, make_admission_controller)
 from repro_torch.serve.engine import greedy_generate
 
 # ---------------------------------------------------------------------------
@@ -81,8 +81,9 @@ def test_admission_engine_registry():
     assert isinstance(batched, BatchedAdmissionController) and batched.device_min_batch == 32
     sharded = make_admission_controller("sharded-scalar", hbm_budget_mib=100.0, n_shards=2)
     assert isinstance(sharded, ShardedScalarController) and sharded.shard_budget == 50.0
-    with pytest.raises(ValueError, match=r"ROADMAP Queue 1 item 6\(c\)"):
-        make_admission_controller("sharded", hbm_budget_mib=100.0)
+    carried = make_admission_controller("sharded", hbm_budget_mib=100.0, n_shards=2, device="cpu")
+    assert isinstance(carried, ShardedAdmissionController) and carried.shard_budget == 50.0
+    assert carried.try_admit("r0", 100, 0.0) is not None and "r0" in carried.active  # the 5% placeholder fits
     with pytest.raises(ValueError, match="unknown admission engine"):
         make_admission_controller("nope", hbm_budget_mib=100.0)
 
