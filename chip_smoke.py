@@ -124,7 +124,11 @@ Phases, each of which fails the run on a wrong result:
    (1,024 resident) against the plain loop (admits equal) and its bound,
    timed, and the admission_epoch kernel at the sharded engine's shape
    (1,024 resident) against its plain version (admits, overflow, live
-   counts and the whole new state bit for bit) and its bound, timed.
+   counts and the whole new state bit for bit) and its bound, timed; beside
+   each, the probes a candidate's window and commit range hold (mean and
+   maximum) and the build's registers and spills; then both kernels again,
+   checked and timed, at the largest poisson batch the stream sweep
+   captured.
 
 Prints the card's name and power limit, a ``{"kernels": [...]}`` line, and
 as its last line ``{"ok": true, "device": {...}}``.  Exits non-zero without
@@ -1725,6 +1729,68 @@ def _epoch_bound(args, t0: float, res) -> tuple[tuple[float, str], float]:
     return _bound(nbytes, nops, F64_OPS_PER_S), nops / F64_OPS_PER_S * 1e3
 
 
+def _spread(counts) -> str:
+    import torch
+
+    counts = torch.as_tensor(counts, dtype=torch.float64)
+    return f"mean {float(counts.mean()):.1f}, max {int(counts.max())}" if counts.numel() else "none"
+
+
+def _admission_windows(args, admits) -> str:
+    """Probes a candidate's window ([start, end], every valid candidate) and
+    commit range ([start, release), every admitted one) hold: the counts
+    ``_admission_bound`` forms, on the sorted probes."""
+    import torch
+
+    P, _, starts, ends, rels, *_, valid, _ = args
+    lo = torch.searchsorted(P, starts, side="left")
+    win = (torch.searchsorted(P, ends, side="right") - lo).clamp(min=0)
+    held = (torch.searchsorted(P, rels, side="left") - lo).clamp(min=0)
+    return (f"probes a window {_spread(win[valid].cpu())} (of {P.numel()}); a commit range "
+            f"{_spread(held[admits.bool()].cpu())}")
+
+
+def _epoch_windows(args, t0: float, res) -> str:
+    """Probes a candidate's windows hold (the carried events in (start, end]
+    and the batch's starts and live switch instants in [start, end], every
+    valid candidate) and its commit range (both at or after its start, every
+    admitted one): the counts ``_epoch_bound`` forms, shard by shard."""
+    import math
+
+    import torch
+
+    base0, tl_t, tl_d, tl_c, slot_fold, rel, starts, ends, rels, bnd, val, codes, valid = (a.cpu() for a in args)
+    res = res.cpu()
+    S, Cb = starts.shape
+    sw = torch.nextafter(starts[..., None] + bnd, torch.full_like(bnd, math.inf))
+    live = torch.isfinite(bnd) & (starts[..., None] + bnd < rels[..., None])
+    win, held = [], []
+    for s in range(S):
+        gone = torch.isin(tl_c[s], rel[s][rel[s] >= 0])
+        row = tl_t[s][~gone & torch.isfinite(tl_t[s])]
+        old = row[row > t0]
+        q = torch.cat([starts[s][valid[s]], sw[s][valid[s][:, None] & live[s]]])
+        for c in torch.nonzero(valid[s]).flatten().tolist():
+            st, en = float(starts[s, c]), float(ends[s, c])
+            win.append(int(((old > st) & (old <= en)).sum()) + int(((q >= st) & (q <= en)).sum()))
+            if res[s, c]:
+                held.append(int((old >= st).sum()) + int((q >= st).sum()))
+    return f"probes a candidate's windows {_spread(win)}; a commit range {_spread(held)}"
+
+
+def _ptxas_line(name: str) -> str:
+    """Registers and spills of a kernel's build, one range over its entry points."""
+    from repro_torch.kernels import build
+
+    rows = _ptxas_summary(build.build_log(name))
+    if not rows:
+        return "no build log"
+    regs = sorted(int(r) for _, r, _ in rows)
+    spilled = [f"{k}: {sp}" for k, _, sp in rows if not sp.startswith("0 bytes spill stores")]
+    return (f"{len(rows)} entry points, {regs[0]}-{regs[-1]} registers, "
+            + ("; ".join(spilled) if spilled else "no spills"))
+
+
 def admission_phase(dev, seed: int) -> tuple[dict[str, dict], dict[str, int]]:
     """The serving admission path: bench_serve's streams through every engine
     the port has, the batched engine against the scalar oracle and the
@@ -1755,10 +1821,22 @@ def admission_phase(dev, seed: int) -> tuple[dict[str, dict], dict[str, int]]:
     ShardedAdmissionController(1000.0).try_admit_many(["w0", "w1"], [100, 200], 0.0)
     print(f"admission phase: bench_serve's streams ({SERVE_REQUESTS} requests, seed {seed}) through "
           f"{', '.join(ADMISSION_ENGINES)}")
+    stream_epochs: list = []  # (stream, epoch args cloned) of every sharded decision batch
+
+    def capture_stream_epoch(orig):
+        def wrapped(*a, **kw):
+            stream_epochs.append((stream, [x.clone() for x in a[:13]], *a[13:16]))
+            return orig(*a, **kw)
+
+        return wrapped
+
+    stream_calls: dict[str, range] = {}  # each stream's decision-kernel calls
     t0 = time.perf_counter()
     ops.reset_launch_counts()
-    with _patched(admission, "admission_cuda", capture):
+    with _patched(admission, "admission_cuda", capture), _patched(admission_epoch, "admission_epoch_cuda",
+                                                                capture_stream_epoch):
         for name, kw in SERVE_STREAMS.items():
+            stream, first_call = name, len(calls)
             cfg = StreamConfig(n_requests=SERVE_REQUESTS, seed=seed, **kw)
             runs = {}
             for engine in ADMISSION_ENGINES:
@@ -1806,6 +1884,7 @@ def admission_phase(dev, seed: int) -> tuple[dict[str, dict], dict[str, int]]:
             got, want = runs["sharded"], runs["sharded-scalar"]
             if got.decisions != want.decisions or (got.evicted, got.finished) != (want.evicted, want.finished):
                 _fail(f"admission {name}: sharded decisions differ from the per-shard oracle's")
+            stream_calls[name] = range(first_call, len(calls))
     counts = ops.launch_counts()
     print(f"  streams: {time.perf_counter() - t0:.2f} s; launches of these runs {counts}; batched decisions equal "
           f"to the scalar oracle's and sharded decisions to the per-shard oracle's on every stream")
@@ -1814,6 +1893,7 @@ def admission_phase(dev, seed: int) -> tuple[dict[str, dict], dict[str, int]]:
     bad = sum(not torch.equal(out, admission_scan_plain(*a)) for a, out in calls)
     if bad:
         _fail(f"admission: {bad} of the streams' {len(calls)} decision-kernel calls differ from the plain loop")
+    poisson_calls = [calls[i][0] for i in stream_calls["poisson"]]  # the microbench reuses `calls`
     print(f"  the streams' {len(calls)} decision-kernel calls equal to the plain loop on the same inputs "
           f"(largest C {max(a[5].shape[0] for a, _ in calls)}, Pp {max(a[0].shape[0] for a, _ in calls)})")
 
@@ -1945,6 +2025,36 @@ def admission_phase(dev, seed: int) -> tuple[dict[str, dict], dict[str, int]]:
           f"{e_bound_ms:.6f} ms ({e_bound_by}; operations alone {e_ops_ms:.6f} ms)")
     epoch = dict(max_abs_err=err, ms=e_ms, plain_ms=e_plain_ms, bound_ms=e_bound_ms, bound_by=e_bound_by,
                  device_ms=e_device_ms)
+    print(f"    decision kernel: {_admission_windows(a, got)}; build {_ptxas_line('admission')}")
+    print(f"    admission_epoch kernel: {_epoch_windows(state_batch, t_e, res)}; build "
+          f"{_ptxas_line('admission_epoch')}")
+
+    # both kernels once more at the largest poisson batch the stream sweep
+    # captured (the streams' batches are smaller than the microbench's)
+    sa = max(poisson_calls, key=lambda x: x[5].shape[0])
+    s_got = ops.admission_scan(*sa)
+    if not torch.equal(s_got, admission_scan_plain(*sa)):
+        _fail("admission: the kernel differs from the plain loop at the largest poisson batch")
+    decide["stream_ms"] = _cuda_ms(lambda: ops.admission_scan(*sa), 50)
+    decide["stream_device_ms"] = _device_ms(lambda: ops.admission_scan(*sa), "decide_kernel", 40)
+    print(f"  decision kernel at the largest poisson batch (C {sa[5].shape[0]}, Pp {sa[0].shape[0]}; "
+          f"{_admission_windows(sa, s_got)}): equal to the plain loop; kernel {decide['stream_ms']:.4f} ms back to "
+          f"back, profiled {decide['stream_device_ms']:.4f} ms")
+    _, eb, et0, ebudget, eLp = max((x for x in stream_epochs if x[0] == "poisson"), key=lambda x: int(x[1][12].sum()))
+    espare = tuple(torch.empty_like(x) for x in eb[:5])
+    eres, *estate = ops.admission_epoch(*eb, et0, ebudget, eLp, out=espare)
+    eplain = admission_epoch_plain(*eb, et0, ebudget, eLp)
+    eCb = eb[6].shape[1]
+    if not all(_same_bits(g, w) for g, w in [(eres[:, :eCb].bool(), eplain[0]), (eres[:, eCb].bool(), eplain[1]),
+                                              (eres[:, eCb + 1], eplain[2].int()), *zip(estate, eplain[3:])]):
+        _fail("admission_epoch: the kernel differs from its plain version at the largest poisson batch")
+    epoch["stream_ms"] = _cuda_ms(lambda: ops.admission_epoch(*eb, et0, ebudget, eLp, out=espare), 50)
+    epoch["stream_device_ms"] = _device_ms(lambda: ops.admission_epoch(*eb, et0, ebudget, eLp, out=espare),
+                                           "epoch_kernel", 40)
+    print(f"  admission_epoch kernel at the largest poisson batch (S {eb[6].shape[0]}, L {eb[1].shape[1]}, Lp {eLp}, "
+          f"Cb {eCb}, {int(eb[12].sum())} candidates; {_epoch_windows(eb, et0, eres)}): every output bit for bit "
+          f"equal to the plain version; kernel {epoch['stream_ms']:.4f} ms back to back, profiled "
+          f"{epoch['stream_device_ms']:.4f} ms")
     return {"admission": decide, "admission_epoch": epoch}, {k: counts[k] for k in ("admission", "admission_epoch")}
 
 

@@ -6,6 +6,11 @@ reference's ``admission_program`` (``repro/sim/device_timeline.py:374``).
 Its plain version is ``sim.device_timeline.admission_scan_plain``;
 ``kernels.ops.admission_scan`` picks between the two by the tensors'
 device.  The kernel's decisions are the plain version's, bit for bit.
+
+Precondition: the probes ``P`` are sorted ascending (no NaN), as
+``core.timeline.shared_probe_set`` returns them.  The kernel finds each
+candidate's windows and splits on them by binary search and does not check
+the order: on unsorted probes its decisions are undefined.
 """
 
 from __future__ import annotations
@@ -18,7 +23,8 @@ from repro_torch.kernels import build
 
 launches = 0  # kernel launches since the last ops.reset_launch_counts()
 
-PLAN_KEYS = ("regs", "threads", "chunk", "smem", "scratch")
+PLAN_KEYS = ("tier", "threads", "chunk", "smem", "scratch")
+TIERS = ("global", "registers")  # plan()["tier"] indexes this
 _fns: dict = {}  # launcher name -> its ctypes function
 
 
@@ -38,9 +44,12 @@ def _launcher(name: str):
 
 def plan(Pp: int, C: int, k: int) -> dict[str, int]:
     """How a launch over Pp probes and C candidates of k segments runs:
-    ``regs`` probes a thread keeps in registers (0: ``extra`` in a global
-    scratch of ``scratch`` bytes), ``threads``, ``chunk`` candidates staged
-    in shared memory at a time and ``smem`` bytes of dynamic shared memory."""
+    ``tier`` where each thread's consecutive probes keep their profile reads
+    and ``extra`` (``TIERS[tier]``: registers, up to 8 probes a thread and
+    8,192 probes; past that global memory, with ``extra`` in a scratch of
+    ``scratch`` bytes), ``threads``, ``chunk`` candidates staged at a time
+    and ``smem`` bytes of dynamic shared memory (the stage, and the probes
+    for the first chunk's searches)."""
     out = (ctypes.c_longlong * len(PLAN_KEYS))()
     err = _launcher("admission_plan")(Pp, C, k, ctypes.cast(out, ctypes.c_void_p))
     if err != 0:
@@ -51,7 +60,7 @@ def plan(Pp: int, C: int, k: int) -> dict[str, int]:
 def admission_cuda(P, prof, starts, ends, rels, bnd, val, valext, sw, live, valid, budget: float) -> torch.Tensor:
     """``admission_scan_plain`` on the card in one launch: the same
     arguments (float64, ``live`` and ``valid`` bool, all contiguous on one
-    card) and the same admits (C,) bool."""
+    card; ``P`` sorted ascending) and the same admits (C,) bool."""
     global launches
     build.check_cuda("admission", P)
     dev = P.device

@@ -11,34 +11,58 @@
 // batch for every shard, a block per shard (the reference's vmap axis is
 // the grid), float64 throughout, every step in the reference's order:
 //
+// Precondition: each carried row tl_t is sorted ascending with a +inf tail
+// (the state's invariant, which every splice keeps).
+//
 //   1. releases: the released codes go into a bit table; base0 loses the sum
 //      of their slot_fold entries (in the order of XLA's compiled jnp.sum,
-//      row_sum below), their slots are zeroed, and the row's surviving
-//      events are compacted left, stably (ranks by ballots);
-//   2. the clock fold: base0 gains the last element of the running sum (in
-//      XLA's cumsum order over the whole axis L, xla_scan.cuh) of the deltas
-//      at or before t0; one warp adds those deltas to their owners' slots in
-//      update order (a ballot a 32 events, its lane 0 walking the set bits);
-//      the row is then read shifted left by the folded count;
+//      released_sum below, a warp a window of 32 through shuffles), their
+//      slots are zeroed, and the row's surviving events are compacted left,
+//      stably (ranks by ballots);
+//   2. the clock fold: the events at or before t0 are the row's first
+//      `folded`; base0 gains the last element of their running sum (in
+//      XLA's cumsum order over the axis L, xla_scan.cuh; +0.0 when nothing
+//      folds), and one warp adds them to their owners' slots in update
+//      order (a ballot a 32 events, its lane 0 walking the set bits); the
+//      row is then read shifted left by the folded count;
 //   3. the candidates' fresh slots are zeroed;
 //   4. the decisions: cs = base0 + the running sum of the decision prefix
-//      (its first Lp events; XLA's order over Lp).  Two probe families, as
-//      in the reference: the carried events in (start, end] at
-//      tie-group-final positions, read at cs; and every candidate's start
-//      and live switch instants (Q) in [start, end], read at cs0[#(pt <= Q)].
-//      Threads own the probes of both families; each probe carries `extra`,
-//      the admitted candidates' event sums there.  A valid candidate is
-//      admitted unless one probe of its windows has (read + extra) + own >
-//      budget; one __syncthreads_or decides it.  An admitted candidate adds
-//      to every probe the sum (from 0.0, in its sorted event order) of its
-//      event deltas at or before the probe, release delta included: a
-//      prefix sum of its k + 2 events, built once per candidate;
-//   5. the splice, a merge by rank: an old event of the prefix goes to its
-//      index plus the count of new events strictly before it; a new event
-//      (a non-admitted candidate's are +inf) to the count of old events at
-//      or before it plus its stable rank among the new ones (time, then
-//      index); the events past the prefix follow.  Positions past L are
-//      dropped; overflow flags a finite event at L or a live one past Lp.
+//      (its first Lp events; XLA's order over Lp).  The reference probes two
+//      families: the carried events in (start, end] at tie-group-final
+//      positions, read at cs, and every candidate's start and live switch
+//      instants (Q) in [start, end], read at cs0[#(pt <= Q)].  Here both are
+//      one ascending probe list: the tie-group-final carried events
+//      (compacted by ballots) merged with Q (each candidate's row sorted,
+//      the rows merged in rounds).  A probe's read and `extra` (the
+//      admitted candidates' event sums there) depend only on its instant
+//      and family, and a carried event that is not tie-group-final is never
+//      probed, so it is left out.  Every per-probe predicate is monotone
+//      along the list (x >= start, x > start, x <= end, b < x - start,
+//      tn <= x), so a pre-pass of binary searches gives each candidate its
+//      window ends, k segment splits and k + 2 event splits as ints, and a
+//      descriptor of every candidate as each warp's probes see it (none in
+//      range, all alike, or mixed with the splits inside them).  Thread t
+//      owns the list's B consecutive probes [tB, tB + B) for the batch
+//      (probe j at j T + t), so `extra` is only ever touched by its owner.
+//      A valid candidate is admitted unless one probe of its window has
+//      (read + extra) + own > budget, summed in that order: a warp whose
+//      probes are all alike tests each thread's largest windowed (read +
+//      extra) once (fact 1: fl(x + v) never decreases as x grows); in a
+//      mixed warp a thread with at most one cut does the same for each of
+//      its one or two runs, any other probe by probe; one __syncthreads_or
+//      decides, and only then is each probe's `extra` plus the candidate's
+//      event sum cpre[#(tn <= x)] stored.  The commit covers the probes at
+//      or after the
+//      candidate's first event (before it the sum is +0.0, a no-op on
+//      `extra`, which never becomes -0.0) and, when its deltas sum to +0.0,
+//      before its last;
+//   5. the splice, a merge by rank: the new events (a non-admitted
+//      candidate's are +inf) come in ascending rows of k + 2, merged in
+//      rounds in (time, index) order; an old event of the prefix goes to its
+//      index plus the count of new events strictly before it, a new event
+//      to the count of old events at or before it plus its rank; the events
+//      past the prefix follow.  Positions past L are dropped; overflow flags
+//      a finite event at L or a live one past Lp.
 //
 // The state is written into a second set of buffers (the caller swaps the
 // two), and admits, overflow and the live count into one small int32 row a
@@ -57,6 +81,7 @@
 // as many SMs and is sequential in the candidates, a barrier each.
 
 #include <cuda_runtime.h>
+#include <limits.h>
 #include <math.h>
 
 #include "xla_scan.cuh"
@@ -69,6 +94,7 @@ using xla_scan::ScanShape;
 using xla_scan::scan_shape;
 
 constexpr int kThreads = 512;
+constexpr int kSpec = 4;  // probes a thread owns at most for the unrolled paths; past it, probe by probe
 constexpr unsigned kFull = 0xffffffffu;
 constexpr size_t kHeader = 256;  // counters, warp sums and the base: always in shared memory
 
@@ -80,12 +106,18 @@ __host__ __device__ inline size_t take(size_t& o, size_t n) {
   return at;
 }
 
+// Split indices a candidate keeps on the probe list: its window's ends
+// (x >= start, x > start, x <= end), k segment splits and k + 2 event
+// splits.
+constexpr int kWin = 3;
+__host__ __device__ inline int n_splits(int k) { return kWin + k + (k + 2); }
+
 // Byte offsets of one shard's working region.
 struct Layout {
-  size_t bits, wt, wd, wc, scan, tot, cs, ex1, q, qprof, ex2, st, en, rl, bnd, val, tn, dn, cpre, code, ok, adm, rank,
-      snew, bytes;
+  size_t bits, wt, wd, wc, scan, tot, cs, at, ar, q, pt2, rdl, exl, typl, st, en, rl, bnd, val, tn, dn, cpre, code, ok,
+      adm, split, desc, mkey, mid, mid2, rank, snew, bytes;
   __host__ __device__ Layout(int L, int Lp, int Smax, int Cb, int k) {
-    const size_t NQ = (size_t)Cb * (k + 1), NE = (size_t)Cb * (k + 2), D = sizeof(double);
+    const size_t NQ = (size_t)Cb * (k + 1), NE = (size_t)Cb * (k + 2), NP = (size_t)Lp + NQ, D = sizeof(double);
     size_t o = 0;
     bits = take(o, ((size_t)Smax + 1 + 31) / 32 * 4);
     wt = take(o, (size_t)L * D);
@@ -94,10 +126,14 @@ struct Layout {
     scan = take(o, ((size_t)padded(L) + 1) * D);
     tot = take(o, (size_t)scan_shape(L).slots * D + D);
     cs = take(o, (size_t)Lp * D);
-    ex1 = take(o, (size_t)Lp * D);
+    at = take(o, (size_t)Lp * D);
+    ar = take(o, (size_t)Lp * D);
     q = take(o, NQ * D);
-    qprof = take(o, NQ * D);
-    ex2 = take(o, NQ * D);
+    pt2 = take(o, NP * D);
+    const size_t slots = NP + kThreads > (size_t)kSpec * kThreads ? NP + kThreads : (size_t)kSpec * kThreads;
+    rdl = take(o, slots * D);
+    exl = take(o, slots * D);
+    typl = take(o, slots);
     st = take(o, (size_t)Cb * D);
     en = take(o, (size_t)Cb * D);
     rl = take(o, (size_t)Cb * D);
@@ -109,6 +145,11 @@ struct Layout {
     code = take(o, (size_t)Cb * 4);
     ok = take(o, (size_t)Cb);
     adm = take(o, (size_t)Cb);
+    split = take(o, (size_t)Cb * n_splits(k) * 4);
+    desc = take(o, (size_t)Cb * (kThreads / 32) * 3 * 4);
+    mkey = take(o, NE * D);
+    mid = take(o, NE * 4);
+    mid2 = take(o, NE * 4);
     rank = take(o, NE * 4);
     snew = take(o, NE * D);
     bytes = o;
@@ -149,30 +190,51 @@ __device__ __forceinline__ double pos_inf() { return __longlong_as_double(0x7ff0
 // lanes (term i in lane i % 4 of vector (i / 4) % 4, lane 0 of vector 0
 // starting from 0.0), the vectors summed ((V1 + V0) + V2) + V3 and the lanes
 // (R0 + R2) + (R1 + R3); past 32, windows of 32 each summed in order, then
-// the window totals in order.
-__device__ double released_sum(const int* rel, const double* sf, int n) {
-  auto x = [&](int j) { return rel[j] >= 0 ? sf[rel[j]] : 0.0; };
-  if (n == 32) {
-    double v[16];
-#pragma unroll
-    for (int i = 0; i < 16; ++i) v[i] = (i == 0 ? 0.0 + x(0) : x(i)) + x(16 + i);
-    double r[4];
-#pragma unroll
-    for (int l = 0; l < 4; ++l) r[l] = ((v[4 + l] + v[l]) + v[8 + l]) + v[12 + l];
-    return (r[0] + r[2]) + (r[1] + r[3]);
+// the window totals in order.  Block-collective: a warp a window, its terms
+// loaded at once and folded through shuffles; `wins` holds a double a
+// window (cap of them; past that warp 0 folds the windows one after
+// another); the result is thread 0's.  Barriers inside.
+__device__ double released_sum(const int* rel, const double* sf, int n, double* wins, int cap) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5, nw = blockDim.x >> 5;
+  auto x = [&](int j) { return j < n && rel[j] >= 0 ? sf[rel[j]] : 0.0; };
+  double total = 0.0;
+  if (n > 32 && (n + 31) / 32 > cap) {
+    if (warp == 0)
+      for (int w = 0; w * 32 < n; ++w) {
+        const double xj = x(w * 32 + lane);
+        double win = 0.0;
+        for (int j = 0; j < min(32, n - w * 32); ++j) win = win + __shfl_sync(kFull, xj, j);
+        total = total + win;
+      }
+    return total;
   }
   if (n > 32) {
-    double acc = 0.0;
-    for (int w = 0; w < n; w += 32) {
+    for (int w = warp; w * 32 < n; w += nw) {
+      const double xj = x(w * 32 + lane);
       double win = 0.0;
-      for (int j = w; j < min(n, w + 32); ++j) win = win + x(j);
-      acc = acc + win;
+      for (int j = 0; j < min(32, n - w * 32); ++j) win = win + __shfl_sync(kFull, xj, j);
+      if (lane == 0) wins[w] = win;
     }
-    return acc;
+    __syncthreads();
+    if (threadIdx.x == 0)
+      for (int w = 0; w * 32 < n; ++w) total = total + wins[w];
+    return total;
   }
-  double acc = 0.0;
-  for (int j = 0; j < n; ++j) acc = acc + x(j);
-  return acc;
+  if (warp == 0) {
+    const double xi = x(lane);
+    if (n == 32) {
+      const double v = (lane == 0 ? 0.0 + xi : xi) + __shfl_down_sync(kFull, xi, 16);  // V[i / 4][i % 4], i < 16
+      const double v4 = __shfl_down_sync(kFull, v, 4), v8 = __shfl_down_sync(kFull, v, 8),
+                   v12 = __shfl_down_sync(kFull, v, 12);
+      const double r = ((v4 + v) + v8) + v12;  // R[l], l < 4
+      const double r1 = __shfl_down_sync(kFull, r, 1), r2 = __shfl_down_sync(kFull, r, 2),
+                   r3 = __shfl_down_sync(kFull, r, 3);
+      total = (r + r2) + (r1 + r3);
+    } else {
+      for (int j = 0; j < n; ++j) total = total + __shfl_sync(kFull, xi, j);
+    }
+  }
+  return total;
 }
 
 // Block-collective exclusive ranks of the true flags of [0, n): calls
@@ -214,31 +276,115 @@ __device__ __forceinline__ int count_sorted(const double* x, int n, double v) {
   return lo;
 }
 
-// The candidate's own allocation at p: val[min(#(b < p - start), k - 1)].
-__device__ __forceinline__ double own(double p, double st, const double* b, const double* v, int k) {
-  const double offs = p - st;
-  int idx = 0;
-  for (int j = 0; j < k; ++j) idx += b[j] < offs;
-  return v[idx < k - 1 ? idx : k - 1];
+// The length of the leading run of [0, n) on which pred(x(i)) holds; pred
+// holds on a prefix of the ascending sequence x.
+template <typename X, typename Pred>
+__device__ __forceinline__ int lead(int n, X x, Pred pred) {
+  int lo = 0, hi = n;
+  while (lo < hi) {
+    const int mid = (lo + hi) >> 1;
+    if (pred(x(mid)))
+      lo = mid + 1;
+    else
+      hi = mid;
+  }
+  return lo;
 }
 
-// An admitted candidate's event sum at p: the prefix of its sorted events
-// at or before p.
-__device__ __forceinline__ double contrib(double p, const double* tn, const double* cpre, int ne) {
-  int m = 0;
-  for (int j = 0; j < ne; ++j) m += tn[j] <= p;
-  return cpre[m];
+// Block-collective stable merge sort of key[0..n) made of ascending runs of
+// `run` (the last may be shorter), carrying ids when given: rounds of
+// pairwise merges, each element placed by one binary search in its partner
+// run (ties: the left run first, so (key, index) order).  (ka, ia) hold the
+// input, (kb, ib) are the spare buffers; returns 1 when the sorted result
+// ends in (kb, ib), 0 when in (ka, ia).  Expects a barrier before; ends
+// with one.
+__device__ int merge_runs(double* ka, int* ia, double* kb, int* ib, int n, int run) {
+  int parity = 0;
+  for (int w = run; w < n; w *= 2) {
+    const double* src = parity ? kb : ka;
+    double* dst = parity ? ka : kb;
+    const int* isrc = parity ? ib : ia;
+    int* idst = parity ? ia : ib;
+    for (int p = threadIdx.x; p < n; p += blockDim.x) {
+      const int base = p / (2 * w) * (2 * w), mid = min(base + w, n), end = min(base + 2 * w, n);
+      const double x = src[p];
+      const int pos = p < mid ? p + count_sorted<true>(src + mid, end - mid, x)
+                              : base + (p - mid) + count_sorted<false>(src + base, mid - base, x);
+      dst[pos] = x;
+      if (ia) idst[pos] = isrc[p];
+    }
+    __syncthreads();
+    parity ^= 1;
+  }
+  return parity;
 }
 
-__global__ void __launch_bounds__(kThreads) epoch_kernel(Args a) {
-  extern __shared__ __align__(16) unsigned char smem_raw[];
+// A thread's view of one sorted list of splits x[0..n): `at` splits at or
+// before its first probe b0, and, one byte a probe for its B <= 8 probes
+// b0 + j, the count of splits in (b0, b0 + j] (summed up the bytes by a
+// multiply).  One pass, every load issued at once.
+struct Lanes {
+  int at;
+  unsigned long long w;
+  __device__ __forceinline__ int operator()(int j) const { return (int)((w >> (8 * j)) & 0xff); }
+};
+
+__device__ __forceinline__ void add_lane(int d, int B, int& at, unsigned long long& w) {
+  at += d <= 0;
+  w += (unsigned)(d - 1) < (unsigned)(B - 1) ? 1ull << (8 * (d & 7)) : 0ull;
+}
+
+// A thread's Lanes over every split of x[0..n).
+__device__ __forceinline__ Lanes lanes(const int* x, int n, int b0, int B) {
+  int at = 0;
+  unsigned long long w = 0;
+#pragma unroll 4
+  for (int q = 0; q < n; ++q) add_lane(x[q] - b0, B, at, w);
+  return Lanes{at, w * 0x0101010101010101ull};
+}
+
+// A warp's view of a sorted list of splits x[0..n) over its probes [w0,
+// w1): the count at or before w0, and the splits inside (w0, w1), packed as
+// up to two 15-bit offsets from w0 and their count in bits 30-31 (3: more
+// than two).
+__device__ __forceinline__ unsigned warp_list(const int* x, int n, int w0, int w1, int* at) {
+  int c = 0, m = 0;
+  unsigned list = 0;
+  for (int q = 0; q < n; ++q) {
+    const int xq = x[q];
+    c += xq <= w0;
+    if (xq > w0 && xq < w1) {
+      if (m < 2) list |= (unsigned)(xq - w0) << (15 * m);
+      ++m;
+    }
+  }
+  *at = c;
+  return list | (unsigned)(m < 3 ? m : 3) << 30;
+}
+
+// A thread's Lanes from its warp's count and list (every split when the
+// list overflowed).
+__device__ __forceinline__ Lanes lanes(unsigned list, int at_w, int w0, const int* x, int n, int b0, int B) {
+  if ((list >> 30) == 3) return lanes(x, n, b0, B);
+  int at = at_w;
+  unsigned long long w = 0;
+#pragma unroll
+  for (int e = 0; e < 2; ++e)
+    if (e < (int)(list >> 30)) add_lane(w0 + (int)((list >> (15 * e)) & 0x7fffu) - b0, B, at, w);
+  return Lanes{at, w * 0x0101010101010101ull};
+}
+
+// One shard's epoch.  `region` is the working region: shared memory past
+// the header, or the shard's slice of the global scratch; each kernel below
+// inlines this with its own, so shared accesses compile to shared-memory
+// instructions.
+__device__ __forceinline__ void epoch_block(const Args& a, unsigned char* smem_raw, unsigned char* region) {
   const int s = blockIdx.x, tid = threadIdx.x, T = blockDim.x, lane = tid & 31, warp = tid >> 5;
   const int L = a.L, Lp = a.Lp, Smax = a.Smax, Cb = a.Cb, k = a.k;
   const int NQ = Cb * (k + 1), NE = Cb * (k + 2), K2 = k + 2;
   int* cnt = reinterpret_cast<int*>(smem_raw);  // [0] folded, [1] nfin_head, [2] n_live
   int* wsum = cnt + 16;
   double* hbase = reinterpret_cast<double*>(smem_raw + 192);
-  unsigned char* region = a.scratch ? a.scratch + (size_t)s * a.scratch_row : smem_raw + kHeader;
   const Layout lay(L, Lp, Smax, Cb, k);
   unsigned* bits = reinterpret_cast<unsigned*>(region + lay.bits);
   double* wt = reinterpret_cast<double*>(region + lay.wt);
@@ -247,10 +393,13 @@ __global__ void __launch_bounds__(kThreads) epoch_kernel(Args a) {
   double* scan = reinterpret_cast<double*>(region + lay.scan);
   double* tot = reinterpret_cast<double*>(region + lay.tot);
   double* cs = reinterpret_cast<double*>(region + lay.cs);
-  double* ex1 = reinterpret_cast<double*>(region + lay.ex1);
+  double* at = reinterpret_cast<double*>(region + lay.at);
+  double* ar = reinterpret_cast<double*>(region + lay.ar);
   double* Q = reinterpret_cast<double*>(region + lay.q);
-  double* qprof = reinterpret_cast<double*>(region + lay.qprof);
-  double* ex2 = reinterpret_cast<double*>(region + lay.ex2);
+  double* pt2 = reinterpret_cast<double*>(region + lay.pt2);
+  double* rdl = reinterpret_cast<double*>(region + lay.rdl);
+  double* exl = reinterpret_cast<double*>(region + lay.exl);
+  unsigned char* typl = region + lay.typl;
   double* cst = reinterpret_cast<double*>(region + lay.st);
   double* cen = reinterpret_cast<double*>(region + lay.en);
   double* crl = reinterpret_cast<double*>(region + lay.rl);
@@ -262,6 +411,11 @@ __global__ void __launch_bounds__(kThreads) epoch_kernel(Args a) {
   int* ccode = reinterpret_cast<int*>(region + lay.code);
   unsigned char* cok = region + lay.ok;
   unsigned char* adm = region + lay.adm;
+  int* split = reinterpret_cast<int*>(region + lay.split);
+  int* cdesc = reinterpret_cast<int*>(region + lay.desc);
+  double* mkey = reinterpret_cast<double*>(region + lay.mkey);
+  int* mid = reinterpret_cast<int*>(region + lay.mid);
+  int* mid2 = reinterpret_cast<int*>(region + lay.mid2);
   int* rank = reinterpret_cast<int*>(region + lay.rank);
   double* snew = reinterpret_cast<double*>(region + lay.snew);
 
@@ -287,7 +441,8 @@ __global__ void __launch_bounds__(kThreads) epoch_kernel(Args a) {
     const int c = rel[j] >= 0 ? rel[j] : Smax;
     if (c <= Smax) atomicOr(&bits[c >> 5], 1u << (c & 31));
   }
-  if (tid == 0) hbase[0] = a.base0[s] - released_sum(rel, sfin, a.Rb);
+  const double rsum = released_sum(rel, sfin, a.Rb, scan, padded(L) + 1);  // the scan buffer is free until step 2
+  if (tid == 0) hbase[0] = a.base0[s] - rsum;
   __syncthreads();
   auto released = [&](int c) { return (bits[c >> 5] >> (c & 31)) & 1u; };
   for (int c = tid; c < Smax; c += T) sfo[c] = released(c) ? 0.0 : sfin[c];
@@ -314,13 +469,19 @@ __global__ void __launch_bounds__(kThreads) epoch_kernel(Args a) {
     if (i < L) scan[padded(i)] = f ? wd[i] : 0.0;
   }
   __syncthreads();
-  const ScanShape shL = scan_shape(L);
-  xla_scan::fold_levels(scan, tot, shL);
-  if (tid == 0) hbase[0] = hbase[0] + prefix(L - 1, scan, tot + shL.off[1], shL.depth > 1);
+  // the row is sorted, so the folded events are its first `folded`; with
+  // none, the running sum of +0.0 deltas is +0.0 in any order
+  if (folded > 0) {
+    const ScanShape shL = scan_shape(L);
+    xla_scan::fold_levels(scan, tot, shL);
+    if (tid == 0) hbase[0] = hbase[0] + prefix(L - 1, scan, tot + shL.off[1], shL.depth > 1);
+  } else if (tid == 0) {
+    hbase[0] = hbase[0] + 0.0;
+  }
   if (warp == 0) {  // the owners' folded sums, in update order
-    for (int c = 0; c < L; c += 32) {
+    for (int c = 0; c < folded; c += 32) {
       const int i = c + lane;
-      const bool f = i < L && wt[i] <= a.t0 && wc[i] >= 0;
+      const bool f = i < folded && wc[i] >= 0;
       unsigned m = __ballot_sync(kFull, f);
       if (lane == 0)
         while (m) {
@@ -349,10 +510,7 @@ __global__ void __launch_bounds__(kThreads) epoch_kernel(Args a) {
   const ScanShape shP = scan_shape(Lp);
   xla_scan::fold_levels(scan, tot, shP);
   const double* pt = wt + folded;  // the prefix's times, i < Lp (sh_t where i + folded >= L)
-  for (int i = tid; i < Lp; i += T) {
-    cs[i] = base + prefix(i, scan, tot + shP.off[1], shP.depth > 1);
-    ex1[i] = 0.0;
-  }
+  for (int i = tid; i < Lp; i += T) cs[i] = base + prefix(i, scan, tot + shP.off[1], shP.depth > 1);
   for (int c = tid; c < Cb; c += T) {
     const size_t g = (size_t)s * Cb + c;
     const double st = a.starts[g], rl = a.rels[g];
@@ -395,6 +553,15 @@ __global__ void __launch_bounds__(kThreads) epoch_kernel(Args a) {
       t[j + 1] = ti;
       d[j + 1] = di;
     }
+    for (int i = 1; i <= k; ++i) {  // the candidate's probe instants, ascending: a run of the merge below
+      const double qi = q[i];
+      int j = i - 1;
+      while (j >= 0 && q[j] > qi) {
+        q[j + 1] = q[j];
+        --j;
+      }
+      q[j + 1] = qi;
+    }
     double* cp = cpre + (size_t)c * (k + 3);
     double acc = 0.0;
     cp[0] = acc;
@@ -403,19 +570,114 @@ __global__ void __launch_bounds__(kThreads) epoch_kernel(Args a) {
       cp[j + 1] = acc;
     }
   }
-  __syncthreads();
   const int live_p = min(Lp, L - folded);  // prefix slots that hold the row's own entries
   auto ptime = [&](int i) { return i < live_p ? pt[i] : inf; };
+  __syncthreads();
+  // The probe list, one ascending sequence of two kinds: the carried events
+  // at tie-group-final positions of the prefix, read at cs (probed on
+  // (start, end]), and every candidate's start and switch instants (Q, each
+  // candidate's row already ascending, merged), read at cs0[#(pt <= Q)]
+  // (probed on [start, end]).  A probe's read and `extra` depend only on its
+  // instant and kind, so equal instants may sit in any order; a carried
+  // event that is not tie-group-final is never probed and is left out.
+  const int NA = block_ranks(
+      Lp, wsum, [&](int i) { return i + 1 < Lp ? ptime(i) != ptime(i + 1) : isfinite(ptime(i)); },
+      [&](int i, int r) {
+        at[r] = ptime(i);
+        ar[r] = cs[i];
+      });
+  const double* qs = merge_runs(Q, nullptr, snew, nullptr, NQ, k + 1) ? snew : Q;  // snew is free until the splice
+  const int NP = NA + NQ, B = (NP + T - 1) / T;  // thread t owns probes [tB, tB + B), probe j at j T + t
+  auto place = [&](int pos, double x, double rd, unsigned char kind) {
+    pt2[pos] = x;
+    const int o = pos % B * T + pos / B;
+    rdl[o] = rd;
+    exl[o] = 0.0;
+    typl[o] = kind;
+  };
+  for (int i = tid; i < NA; i += T) place(i + count_sorted<true>(qs, NQ, at[i]), at[i], ar[i], 0);
   for (int i = tid; i < NQ; i += T) {
     // #(pt <= Q): the finite part by binary search, every +inf slot when Q is +inf
-    const double qv = Q[i];
+    const double qv = qs[i];
     const int n = qv == inf ? Lp : count_sorted<false>(pt, live_p, qv);
-    qprof[i] = n == 0 ? base : cs[n - 1];
-    ex2[i] = 0.0;
+    place(i + count_sorted<false>(at, NA, qv), qv, n == 0 ? base : cs[n - 1], 1);
+  }
+  __syncthreads();
+  // the pre-pass: each valid candidate's window ends, segment splits and
+  // event splits on the probe list, each one binary search of the exact
+  // per-probe predicate (all monotone along it)
+  const int NS = n_splits(k);
+  auto px = [&](int i) { return pt2[i]; };
+  for (int it = tid; it < Cb * NS; it += T) {
+    const int c = it / NS, j = it - c * NS;
+    if (!cok[c]) continue;
+    const double st = cst[c];
+    int r;
+    if (j == 0) {  // the window of Q probes starts at x >= start
+      r = lead(NP, px, [&](double x) { return !(x >= st); });
+    } else if (j == 1) {  // that of carried events at x > start
+      r = lead(NP, px, [&](double x) { return !(x > st); });
+    } else if (j == 2) {  // both end after x <= end
+      const double en = cen[c];
+      r = lead(NP, px, [&](double x) { return x <= en; });
+    } else if (j < kWin + k) {  // segment split: b < x - start from here on
+      const double b = cb[(size_t)c * k + j - kWin];
+      r = lead(NP, px, [&](double x) { return !(b < x - st); });
+    } else {  // event split: tn <= x from here on (ascending with the events)
+      const double e = tn[(size_t)c * K2 + j - kWin - k];
+      r = lead(NP, px, [&](double x) { return !(e <= x); });
+    }
+    split[it] = r;
+  }
+  __syncthreads();
+  for (int c = tid; c < Cb; c += T) {  // each candidate's segment splits ascending
+    int* x = split + (size_t)c * NS + kWin;
+    for (int q = 1; q < k; ++q) {
+      const int y = x[q];
+      int r = q - 1;
+      while (r >= 0 && x[r] > y) {
+        x[r + 1] = x[r];
+        --r;
+      }
+      x[r + 1] = y;
+    }
+  }
+  __syncthreads();
+  // each candidate as each warp sees it, so that a warp none of whose
+  // probes holds a split, a range end or the start's instant (most of them)
+  // skips every count: d[0] 0 when no probe of the warp is in range; 1 when
+  // all of them are, with none of those past the first, and (d[0] >> 2) the
+  // window and commit bits and segment and event counts they share; 2
+  // mixed, with the counts at its first probe, and d[1], d[2] the segment
+  // and event splits inside its probes (warp_list)
+  const int nw = T >> 5;
+  for (int it = tid; it < Cb * nw; it += T) {
+    const int c = it / nw, w0 = (it - c * nw) * 32 * B, w1 = w0 + 32 * B;
+    const int* sp = split + (size_t)c * NS;
+    int* d = cdesc + (size_t)it * 3;
+    d[0] = 0;
+    if (cok[c]) {
+      const int wge = sp[0], wgt = sp[1], wh = sp[2], cl = sp[kWin + k];
+      const int ch = cpre[(size_t)c * (k + 3) + K2] != 0.0 ? NP : sp[kWin + k + K2 - 1];
+      if (w1 > min(wge, cl) && w0 < max(wh, ch)) {
+        auto in = [&](int x) { return x > w0 && x < w1; };
+        int idx, m;
+        const unsigned ls = warp_list(sp + kWin, k, w0, w1, &idx), le = warp_list(sp + kWin + k, K2, w0, w1, &m);
+        const bool ends = in(wge) || in(wgt) || in(wh) || in(cl) || in(ch) || (w0 >= wge && w0 < wgt);
+        d[0] = B <= kSpec && !ends && (ls | le) >> 30 == 0 && w0 >= min(wge, cl) && w1 <= max(wh, ch)
+                   ? 1 | (w0 >= wgt && w0 < wh) << 2 | (w0 >= cl && w0 < ch) << 3 | (idx < k - 1 ? idx : k - 1) << 4 |
+                         m << 10
+                   : 2 | idx << 4 | m << 10;
+        d[1] = ls;
+        d[2] = le;
+      }
+    }
   }
   __syncthreads();
 
-  const int NP = Lp + NQ;
+  // the decision loop (see 4. above): `extra` is only ever touched by its
+  // owner, so one barrier a candidate decides it
+  const int b0 = tid * B;
   for (int c = 0; c < Cb; ++c) {
     if (!cok[c]) {  // the same answer in every thread: no barrier
       if (tid == 0) {
@@ -424,18 +686,118 @@ __global__ void __launch_bounds__(kThreads) epoch_kernel(Args a) {
       }
       continue;
     }
-    const double st = cst[c], en = cen[c];
-    const double* b = cb + (size_t)c * k;
+    const int* sp = split + (size_t)c * NS;
+    const int* seg = sp + kWin;
+    const int* evs = seg + k;
     const double* v = cv + (size_t)c * k;
+    const double* cp = cpre + (size_t)c * (k + 3);
+    // an admitted candidate adds cpre[#(tn <= x)] at every probe: +0.0
+    // before its first event and, when its deltas sum to +0.0, after its
+    // last, both no-ops on `extra`
+    const int wge = sp[0], wgt = sp[1], wh = sp[2];
+    const int cl = evs[0], ch = cp[K2] != 0.0 ? NP : evs[K2 - 1];
+    const int lo = min(wge, cl), end = max(wh, ch);
+    if (end <= lo) {  // no probe in any range: admitted, nothing to add
+      if (tid == 0) {
+        adm[c] = 1;
+        res[c] = 1;
+      }
+      continue;
+    }
+    const int i0 = max(b0, lo), i1 = min(b0 + B, end), j0 = i0 - b0, nj = i1 - i0;
     bool over = false;
-    for (int p = tid; p < NP; p += T) {
-      if (p < Lp) {
-        const double x = ptime(p);
-        const bool tie = p + 1 < Lp ? x != ptime(p + 1) : isfinite(x);
-        if (tie && x > st && x <= en) over |= (cs[p] + ex1[p]) + own(x, st, b, v, k) > a.budget;
-      } else {
-        const double x = Q[p - Lp];
-        if (x >= st && x <= en) over |= (qprof[p - Lp] + ex2[p - Lp]) + own(x, st, b, v, k) > a.budget;
+    double spec[kSpec];
+    const int* dw = cdesc + ((size_t)c * nw + (tid >> 5)) * 3;
+    const int desc = dw[0];
+    int mode = 0, d = 0;  // 1 the warp's probes all alike; 2 this thread's in two runs; 3, 4 each on its own
+    bool ca = false, cb = false;
+    double ccp = 0.0, ccp2 = 0.0;
+    if (desc & 1) {  // the warp's probes all alike
+      mode = 1;
+      ccp = cp[desc >> 10];
+      if (desc & 4) {
+        double sum[kSpec];
+#pragma unroll
+        for (int j = 0; j < kSpec; ++j) sum[j] = j < B ? rdl[j * T + tid] + exl[j * T + tid] : -INFINITY;
+#pragma unroll
+        for (int w = 1; w < kSpec; w *= 2)
+#pragma unroll
+          for (int j = 0; j + w < kSpec; j += 2 * w) sum[j] = fmax(sum[j], sum[j + w]);
+        over = sum[0] + v[(desc >> 4) & 63] > a.budget;
+      }
+    } else if (desc && nj > 0) {
+      const int w0 = (tid >> 5) * 32 * B, e = b0 + B;
+      const unsigned ls = (unsigned)dw[1], le = (unsigned)dw[2];
+      // a warp holding a split or a range end: most of its threads hold
+      // none, or one cut (all their splits and commit-range ends at one
+      // probe), and test the largest windowed sum of each of their one or
+      // two runs
+      int idx = (desc >> 4) & 63, m = desc >> 10, cut = e;
+      bool many = B > kSpec || (ls >> 30) == 3 || (le >> 30) == 3;
+      auto see = [&](int x) {
+        if (x > b0 && x < e) {
+          many |= cut != e && x != cut;
+          cut = x;
+        }
+      };
+#pragma unroll
+      for (int q = 0; q < 2; ++q) {
+        const int xs = w0 + (int)((ls >> (15 * q)) & 0x7fffu), xe = w0 + (int)((le >> (15 * q)) & 0x7fffu);
+        if (q < (int)(ls >> 30) && !many) {
+          idx += xs <= b0;
+          see(xs);
+        }
+        if (q < (int)(le >> 30) && !many) {
+          m += xe <= b0;
+          see(xe);
+        }
+      }
+      see(cl);
+      see(ch);
+      see(lo);
+      see(end);
+      if (!many) {
+        int idx2 = idx, m2 = m;
+#pragma unroll
+        for (int q = 0; q < 2; ++q) {
+          idx2 += q < (int)(ls >> 30) && w0 + (int)((ls >> (15 * q)) & 0x7fffu) == cut;
+          m2 += q < (int)(le >> 30) && w0 + (int)((le >> (15 * q)) & 0x7fffu) == cut;
+        }
+        mode = 2;
+        d = cut - b0;
+        ca = b0 >= cl && b0 < ch;
+        cb = cut >= cl && cut < ch;
+        ccp = cp[m];
+        ccp2 = cp[m2];
+        double ma = -INFINITY, mb = -INFINITY;
+#pragma unroll
+        for (int j = 0; j < kSpec; ++j) {
+          const int i = b0 + j, o = j * T + tid;
+          const bool inw = j < B && i >= (typl[o] ? wge : wgt) && i < wh;
+          const double sum = inw ? rdl[o] + exl[o] : -INFINITY;
+          ma = fmax(ma, j < d ? sum : -INFINITY);
+          mb = fmax(mb, j < d ? -INFINITY : sum);
+        }
+        over = ma + v[idx < k - 1 ? idx : k - 1] > a.budget || mb + v[idx2 < k - 1 ? idx2 : k - 1] > a.budget;
+      } else if (B <= kSpec) {  // past one cut: each probe on its own, its split counts from the lanes
+        mode = 3;
+        const Lanes sl = lanes(ls, (desc >> 4) & 63, w0, seg, k, b0, B), el = lanes(le, desc >> 10, w0, evs, K2, b0, B);
+#pragma unroll
+        for (int j = 0; j < kSpec; ++j) {
+          const int i = b0 + j, o = j * T + tid, si = sl.at + sl(j);
+          const double ex = exl[o];
+          const bool test = (rdl[o] + ex) + v[si < k - 1 ? si : k - 1] > a.budget;
+          over |= test && (unsigned)(j - j0) < (unsigned)nj && i >= (typl[o] ? wge : wgt) && i < wh;
+          spec[j] = ex + cp[el.at + el(j)];
+        }
+      } else {  // past the registers: each probe's counts one by one, the commit a second pass
+        mode = 4;
+        for (int j = j0; j < j0 + nj; ++j) {
+          const int i = b0 + j, o = j * T + tid;
+          int si = 0;
+          for (int q = 0; q < k; ++q) si += seg[q] <= i;
+          if (i >= (typl[o] ? wge : wgt) && i < wh) over |= (rdl[o] + exl[o]) + v[si < k - 1 ? si : k - 1] > a.budget;
+        }
       }
     }
     const bool admit = !__syncthreads_or(over);
@@ -444,29 +806,43 @@ __global__ void __launch_bounds__(kThreads) epoch_kernel(Args a) {
       res[c] = admit;
     }
     if (!admit) continue;
-    const double* t = tn + (size_t)c * K2;
-    const double* cp = cpre + (size_t)c * (k + 3);
-    for (int p = tid; p < NP; p += T) {
-      if (p < Lp)
-        ex1[p] = ex1[p] + contrib(ptime(p), t, cp, K2);
-      else
-        ex2[p - Lp] = ex2[p - Lp] + contrib(Q[p - Lp], t, cp, K2);
+    const int c0 = max(i0, cl) - b0, nc = max(min(i1, ch) - b0 - c0, 0);  // this thread's probes of the commit range
+    if (mode == 1) {
+      if (desc & 8)
+#pragma unroll
+        for (int j = 0; j < kSpec; ++j)
+          if (j < B) exl[j * T + tid] = exl[j * T + tid] + ccp;
+    } else if (mode == 2) {
+#pragma unroll
+      for (int j = 0; j < kSpec; ++j)
+        if (j < B && (j < d ? ca : cb)) exl[j * T + tid] = exl[j * T + tid] + (j < d ? ccp : ccp2);
+    } else if (mode == 3) {
+#pragma unroll
+      for (int j = 0; j < kSpec; ++j)
+        if ((unsigned)(j - c0) < (unsigned)nc) exl[j * T + tid] = spec[j];
+    } else if (mode == 4) {
+      for (int j = c0; j < c0 + nc; ++j) {
+        int sm = 0;
+        for (int q = 0; q < K2; ++q) sm += evs[q] <= b0 + j;
+        exl[j * T + tid] = exl[j * T + tid] + cp[sm];
+      }
     }
   }
   __syncthreads();
 
-  // 5. the splice: ranks of the new events among themselves (time, index)
-  auto ntime = [&](int f) { return adm[f / K2] ? tn[f] : inf; };
+  // 5. the splice: the new events (a non-admitted candidate's at +inf), each
+  // candidate's row already ascending, merged in (time, index) order
   for (int f = tid; f < NE; f += T) {
-    const double x = ntime(f);
-    int r = 0;
-    for (int g = 0; g < NE; ++g) {
-      const double y = ntime(g);
-      r += y < x || (y == x && g < f);
-    }
-    rank[f] = r;
-    snew[r] = x;
+    mkey[f] = adm[f / K2] ? tn[f] : inf;
+    mid[f] = f;
   }
+  __syncthreads();
+  const int in_b = merge_runs(mkey, mid, snew, mid2, NE, K2);
+  for (int p = tid; p < NE; p += T) {
+    rank[(in_b ? mid2 : mid)[p]] = p;
+    if (!in_b) snew[p] = mkey[p];
+  }
+  auto ntime = [&](int f) { return adm[f / K2] ? tn[f] : inf; };
   __syncthreads();
   int fin_head = 0, live = 0;
   for (int i = tid; i < Lp; i += T) {  // the old prefix
@@ -513,12 +889,23 @@ __global__ void __launch_bounds__(kThreads) epoch_kernel(Args a) {
   }
 }
 
+__global__ void __launch_bounds__(kThreads) epoch_kernel_shared(Args a) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  epoch_block(a, smem_raw, smem_raw + kHeader);
+}
+
+__global__ void __launch_bounds__(kThreads) epoch_kernel_global(Args a) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  epoch_block(a, smem_raw, a.scratch + (size_t)blockIdx.x * a.scratch_row);
+}
+
 struct Plan {
   size_t smem, scratch, bytes;
 };
 
 int make_plan(int L, int Lp, int Smax, int Cb, int k, Plan* pl) {
-  if (L < 1 || Lp < 1 || Lp > L || Smax < 1 || Cb < 1 || k < 1 || xla_scan::too_long(L)) return cudaErrorInvalidValue;
+  if (L < 1 || Lp < 1 || Lp > L || Smax < 1 || Cb < 1 || k < 1 || k > 61 || xla_scan::too_long(L))
+    return cudaErrorInvalidValue;  // k > 61: the counts pack in 6 bits
   pl->bytes = Layout(L, Lp, Smax, Cb, k).bytes;
   const size_t optin = (size_t)xla_scan::optin_limit();
   if (kHeader + pl->bytes <= optin) {
@@ -531,7 +918,7 @@ int make_plan(int L, int Lp, int Smax, int Cb, int k, Plan* pl) {
   return cudaSuccess;
 }
 
-bool g_shared_set = false;
+bool g_shared_set[2] = {false, false};  // the opt-in limit set, per tier
 
 }  // namespace
 
@@ -567,10 +954,14 @@ extern "C" int admission_epoch_launch(const double* base0, const double* tl_t, c
   const int e = make_plan(L, Lp, Smax, Cb, k, &pl);
   if (e != cudaSuccess) return e;
   if (pl.scratch > 0 && scratch == nullptr) return cudaErrorInvalidValue;
-  const int err = xla_scan::allow_shared(epoch_kernel, g_shared_set);
+  const int err = pl.scratch ? xla_scan::allow_shared(epoch_kernel_global, g_shared_set[0])
+                             : xla_scan::allow_shared(epoch_kernel_shared, g_shared_set[1]);
   if (err != 0) return err;
   const Args a{base0, tl_t, tl_d, tl_c, slot_fold, rel_codes, starts, ends, rels, bnd, val, codes, valid, L, Lp,
                Smax, Rb, Cb, k, t0, budget, base0_o, tl_t_o, tl_d_o, tl_c_o, slot_fold_o, res, scratch, pl.scratch};
-  epoch_kernel<<<S, kThreads, pl.smem, static_cast<cudaStream_t>(stream)>>>(a);
+  if (pl.scratch)
+    epoch_kernel_global<<<S, kThreads, pl.smem, static_cast<cudaStream_t>(stream)>>>(a);
+  else
+    epoch_kernel_shared<<<S, kThreads, pl.smem, static_cast<cudaStream_t>(stream)>>>(a);
   return (int)cudaGetLastError();
 }

@@ -733,7 +733,11 @@ def test_sizey_and_ksplus_on_card_match_cpu_run(cuda, mode, window):
 ADMISSION_CASES = [
     (0, 1, 4), (1, 3, 1), (100, 17, 4), (1024, 64, 4), (1025, 8, 2), (2048, 256, 4), (4096, 256, 4),
     (8192, 256, 4), (8192, 1, 15), (8193, 32, 4), (20000, 200, 4), (27000, 64, 15), (40000, 256, 4), (40000, 1, 1),
+    (6061, 1, 4),
 ]
+# probes put on the kernel's splits (_stress_admission's kinds), at two shapes
+ADMISSION_SPLIT_CASES = [(kind, *shape) for kind in ("edges", "inf", "empty", "all", "clock")
+                         for shape in ((300, 40, 4), (2048, 96, 3))]
 
 
 def _admission_inputs(seed: int, Pp: int, C: int, k: int, dev, n_real: int | None = None):
@@ -768,6 +772,52 @@ def _admission_inputs(seed: int, Pp: int, C: int, k: int, dev, n_real: int | Non
     return args, budget
 
 
+def _stress_admission(seed: int, Pp: int, C: int, k: int, kind: str):
+    """``_admission_inputs`` with probes and candidates put on the splits:
+    ``edges`` probes exactly at starts, ends, start + bnd[q] and sw[q];
+    ``inf`` +inf boundaries (some plans never end); ``empty`` windows with
+    no probe (end before start, release at start); ``all`` windows holding
+    every probe; ``clock`` every candidate starting at one instant, as the
+    controller's batches do, the profile peaking there."""
+    args, budget = _admission_inputs(seed, Pp, C, k, "cpu", n_real=Pp - Pp // 7)
+    P, prof, starts, ends, rels, bnd, val, valext, sw, live, valid = (a.numpy().copy() for a in args)
+    INF = np.inf
+    rng = np.random.default_rng(seed)
+    if kind == "inf":
+        rows = rng.random(C) < 0.3
+        bnd[rows, -1] = INF
+        bnd[rng.random((C, k)) < 0.1] = INF
+        bnd = np.sort(bnd, axis=1)
+        ends = starts + bnd[:, -1]
+        rels = np.nextafter(ends, INF)
+        sw = np.nextafter(starts[:, None] + bnd, INF)
+        live = np.isfinite(bnd) & (starts[:, None] + bnd < rels[:, None])
+    elif kind == "empty":
+        rows = rng.random(C) < 0.5
+        ends[rows] = starts[rows] - 1.0
+        rels[rows] = starts[rows]
+    elif kind == "all":
+        rows = rng.random(C) < 0.3
+        starts[rows] = -1.0
+        ends[rows] = 1e6
+        rels[rows] = np.nextafter(1e6, INF)
+    elif kind == "clock":  # the profile's peak at the clock, so the probe there binds
+        starts[:] = P[len(P) // 3]
+        prof[len(P) // 3] = prof.max() + 1.0
+        ends = starts + bnd[:, -1]
+        rels = np.nextafter(ends, INF)
+        sw = np.nextafter(starts[:, None] + bnd, INF)
+        live = np.isfinite(bnd) & (starts[:, None] + bnd < rels[:, None])
+    on = np.concatenate([starts, ends, (starts[:, None] + bnd).ravel(), sw.ravel()])
+    on = on[np.isfinite(on)]
+    if kind == "edges":  # half the real probes sit on a start, end, boundary or switch
+        real = P[np.isfinite(P)]
+        n_on = min(len(on), len(real) // 2)
+        real = np.concatenate([real[: len(real) - n_on], rng.choice(on, n_on, replace=False)])
+        P = np.concatenate([np.sort(real), P[~np.isfinite(P)]])
+    return [P, prof, starts, ends, rels, bnd, val, valext, sw, live, valid], budget
+
+
 def _decide_both(args, budget):
     from repro_torch.kernels import admission
     from repro_torch.sim.device_timeline import admission_scan_plain
@@ -790,15 +840,52 @@ def test_admission_kernel_matches_plain_on_card(cuda, Pp, C, k):
         assert 0 < int(want.sum()) < int(args[-1].sum())  # the budget binds
 
 
-def test_admission_kernel_reaches_every_storage_path(cuda):
+def _register_edge(C: int, k: int) -> int:
+    """The largest probe count the plan keeps in registers, bisected on
+    ``admission.plan``."""
     from repro_torch.kernels import admission
 
-    paths = set()
+    lo, hi = 0, 1 << 16
+    assert admission.plan(lo, C, k)["tier"] == 1 and admission.plan(hi, C, k)["tier"] == 0
+    while hi - lo > 1:
+        mid = (lo + hi) // 2
+        lo, hi = (mid, hi) if admission.plan(mid, C, k)["tier"] == 1 else (lo, mid)
+    return lo
+
+
+def test_admission_kernel_reaches_both_storage_tiers(cuda):
+    from repro_torch.kernels import admission
+
+    tiers = set()
     for Pp, C, k in ADMISSION_CASES:
         pl = admission.plan(Pp, C, k)
-        paths.add(f"regs{pl['regs']}" if pl["regs"] else "global")
-        assert pl["scratch"] == (0 if pl["regs"] else 8 * Pp)
-    assert paths == {"regs1", "regs2", "regs4", "regs8", "global"}
+        tiers.add(admission.TIERS[pl["tier"]])
+        assert pl["threads"] == min(1024, max(32, 32 * -(-Pp // 8 // 32)))  # 8 probes a thread
+        owned = -(-Pp // pl["threads"]) * pl["threads"]  # each thread's consecutive probes
+        assert pl["scratch"] == (8 * owned if pl["tier"] == 0 else 0)
+    assert tiers == {"registers", "global"}
+    assert _register_edge(64, 4) == 8192  # 8 probes a thread, up to 1,024 threads
+
+
+@pytest.mark.parametrize("side", ["below", "above"])
+@pytest.mark.parametrize("C,k", [(1, 4), (64, 4), (256, 15)], ids=lambda v: str(v))
+def test_admission_kernel_at_the_register_edge_on_card(cuda, side, C, k):
+    from repro_torch.kernels import admission
+
+    Pp = _register_edge(C, k) + (side == "above")
+    assert admission.plan(Pp, C, k)["tier"] == (side == "below")
+    args, budget = _admission_inputs(Pp + C, Pp, C, k, cuda, n_real=Pp - Pp // 7)
+    got, want = _decide_both(args, budget)
+    assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("kind,Pp,C,k", ADMISSION_SPLIT_CASES, ids=lambda v: str(v))
+def test_admission_kernel_on_the_splits_on_card(cuda, kind, Pp, C, k):
+    args, budget = _stress_admission(7 + Pp + C, Pp, C, k, kind)
+    args = [torch.from_numpy(np.ascontiguousarray(a)).to(cuda) for a in args]
+    for b in (budget, float(args[1].max()) + 2.0 * float(args[6][:, -1].median()), float("inf")):
+        got, want = _decide_both(args, b)
+        assert torch.equal(got, want)
 
 
 @pytest.mark.parametrize("Pp", [300, 9000, 40000])
@@ -1018,6 +1105,53 @@ EPOCH_CASES = [
     (10, 4, 128, 2, 8, 8, 10, "none", 2.0),  # every candidate fits
 ]
 
+# carried events and Q instants put on the kernel's splits (_stress_epoch's kinds)
+EPOCH_SPLIT_CASES = [(kind, seed) for kind in ("ties", "dupq", "edges") for seed in (40, 41)]
+
+def _stress_epoch(seed: int, kind: str):
+    """``random_epoch`` with probes put on the splits: ``ties`` tie groups
+    of carried events at candidates' starts and ends (straddling the window
+    edges); ``dupq`` candidates sharing their start and boundaries, and a
+    start on another's switch instant (duplicate Q instants); ``edges``
+    starts, ends and start + bnd[q] exactly on carried events."""
+    args, t0, _, Lp = random_epoch(seed, 4, 384, 4, 24, 8, 40, "bucket", 0.5)
+    base0, tl_t, tl_d, tl_c, slot_fold, rel, starts, ends, rels, bnd, val, codes, valid = (np.array(a) for a in args)
+    rng = np.random.default_rng(seed)
+    INF = np.inf
+    for s in range(tl_t.shape[0]):
+        carried = np.flatnonzero(np.isfinite(tl_t[s]) & (tl_t[s] > t0))
+        n = int(valid[s].sum())
+        if len(carried) < 8 or n < 4:
+            continue
+        if kind == "ties":
+            for j in rng.choice(carried[:-2], 4, replace=False):
+                tl_t[s, j + 1] = tl_t[s, j]  # a tie group of two (the row stays sorted)
+                c = int(rng.integers(0, n))
+                if rng.random() < 0.5:
+                    starts[s, c] = tl_t[s, j]
+                else:
+                    ends[s, c] = tl_t[s, j]
+                    rels[s, c] = np.nextafter(ends[s, c], INF)
+        elif kind == "dupq":
+            starts[s, 1], bnd[s, 1] = starts[s, 0], bnd[s, 0]
+            ends[s, 1], rels[s, 1] = ends[s, 0], rels[s, 0]
+            starts[s, 3] = np.nextafter(starts[s, 2] + bnd[s, 2, 0], INF)
+        elif kind == "edges":
+            for c in range(n):
+                x = tl_t[s, rng.choice(carried)]
+                if x <= starts[s, c]:
+                    starts[s, c] = x
+                else:
+                    bnd[s, c, int(rng.integers(0, 4))] = x - starts[s, c]
+                    bnd[s, c] = np.sort(bnd[s, c])
+                ends[s, c] = starts[s, c] + bnd[s, c, -1]
+                if rng.random() < 0.3:
+                    ends[s, c] = tl_t[s, rng.choice(carried)]
+                rels[s, c] = np.nextafter(ends[s, c], INF)
+    args = (base0, tl_t, tl_d, tl_c, slot_fold, rel, starts, ends, rels, bnd, val, codes, valid)
+    return args, t0, Lp
+
+
 # more shards, the microbench's shape, and a row past the shared memory
 CARD_EPOCH_CASES = EPOCH_CASES + [
     (20, 8, 256, 4, 16, 16, 30, "bucket", 0.5),
@@ -1079,6 +1213,15 @@ def test_epoch_kernel_reaches_both_storage_plans(cuda):
         plans["global" if pl["scratch"] else "shared"] = pl
     assert set(plans) == {"shared", "global"}
     assert plans["global"]["smem"] < plans["shared"]["smem"]
+    # the sharded microbench's shape (8 shards, 1,024 resident) stays in shared memory
+    assert admission_epoch.plan(1024, 640, 224, 40, 4)["scratch"] == 0
+
+
+@pytest.mark.parametrize("kind,seed", EPOCH_SPLIT_CASES, ids=lambda v: str(v))
+def test_epoch_kernel_on_the_splits_on_card(cuda, kind, seed):
+    args, t0, Lp = _stress_epoch(seed, kind)
+    for frac in (0.3, 0.7, 2.0):
+        _epoch_both(args, t0, _budget_admitting(args, t0, Lp, frac), Lp, cuda)
 
 
 def test_epoch_kernel_refuses_what_it_cannot_take(cuda):
