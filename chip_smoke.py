@@ -24,13 +24,17 @@ Phases, each of which fails the run on a wrong result:
 2b. the scan kernel (every running sum of the engine's predict phase)
    bitwise against ``scan.cumsum`` in both of its orders (sequential, and
    XLA's blocks of 16) in f32 and f64, at n = 1 to 20,000 and 60,000 (past
-   the shared memory), at the grid's largest bucket shapes ((4, 1,536, 25)
-   sequential along the executions, (4, 1,536, 1,536) in XLA's order along
-   the last axis) and on a non-contiguous input; timed there (CUDA events,
-   profiled device time) beside its bound and ``torch.cumsum``'s time; and
-   ``predict_lanes`` at the largest bucket must dispatch fewer aten ops
-   that launch than the bucket has executions (counted at dispatch, beside
-   the count with the plain scan);
+   the shared memory) and on a non-contiguous input; then at each of the
+   predict phase's calls at the grid's largest bucket (the bank (4, 1,536,
+   5) and PPM-improved's contrib (4, 1,536, 1,536) along axis 1, PPM's C and
+   S along axis 2, Sizey's scores (2, 4, 2, 1,536) along the last axis, the
+   fold (4, 1,536, 25) in order along the executions) in f32 and f64,
+   bitwise and timed (CUDA events, profiled device time) beside its bound,
+   the plain version's and ``torch.cumsum``'s time, the fold also beside
+   its latency bound from the card's measured add latency
+   (``tools/scan_clocks.py``); and ``predict_lanes`` at the largest bucket
+   must dispatch fewer aten ops that launch than the bucket has executions
+   (counted at dispatch, beside the count with the plain scan);
 3. the paper's Fig. 7 grid (all eight methods) at full corpus size on the
    card (cold and warm), with the launch counts of that run, held against
    the port's own CPU run (every Fig. 7a cell within rtol 1e-3), the
@@ -265,13 +269,18 @@ def _bound(nbytes: float, nops: float, ops_per_s: float = F32_OPS_PER_S) -> tupl
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
-def _device_ms(call, kernel: str, n: int) -> float:
+def _device_ms(call, kernel, n: int) -> float:
     """The profiled device time of one ``call()``: ``n`` calls under the
-    profiler, the time of the launches named ``*kernel*`` over the calls
-    the profiler kept (it drops the first twenty or so device events of a
-    window; one call is one launch of the kernel)."""
-    prof = _profile(lambda: [call() for _ in range(n)])
-    hits = [v for name, v in prof["top_all"] if kernel in name]
+    profiler, the time of the launches named ``*kernel*`` (a name, or a
+    tuple of names) over the calls the profiler kept (it drops the first
+    twenty or so device events of a window; one call is one launch of the
+    kernel)."""
+    names = (kernel,) if isinstance(kernel, str) else kernel
+    for _ in range(3):  # a window whose device events the profiler all dropped is taken again
+        prof = _profile(lambda: [call() for _ in range(n)])
+        hits = [v for name, v in prof["top_all"] if any(k in name for k in names)]
+        if hits:
+            break
     return sum(v[0] for v in hits) / max(sum(v[1] for v in hits), 1)
 
 
@@ -521,7 +530,10 @@ def kernels_phase(batch, cfg, dev) -> dict[str, dict]:
     return out
 
 
-SCAN_LENGTHS = (1, 15, 16, 17, 255, 256, 257, 1536, 4096, 20000, 60000)  # 60,000: past the shared memory
+# 2,048 / 2,049: the last length of the warp-per-line tier and the next;
+# 60,000: past the shared memory (the global scratch path)
+SCAN_LENGTHS = (1, 15, 16, 17, 255, 256, 257, 1536, 2048, 2049, 4096, 20000, 60000)
+SCAN_KERNELS = ("chain_kernel", "line_kernel", "tile_kernel", "xla_kernel")  # csrc/scan.cu's device kernels
 
 
 def _scan_rows(shape, dtype, seed: int, dev):
@@ -536,15 +548,69 @@ def _scan_rows(shape, dtype, seed: int, dev):
     return torch.from_numpy(a).to(dev, dtype)
 
 
+def scan_shapes(L: int, B: int, k: int) -> tuple:
+    """The predict phase's scan calls at a bucket of L lanes of B executions
+    (``sim/torch_sim.py``): (name, shape, axis, sequential).  PPM's C and S
+    are two calls at one shape."""
+    return (("bank", (L, B, 5), 1, False),  # _prefix_bank: the regression bank, inner 5
+            ("ppm C, S", (L, B, B), 2, False),  # _ppm_prefix_values: the masked sums, along the last axis
+            ("contrib", (L, B, B), 1, False),  # PPM-improved's contrib, along the middle axis (inner B)
+            ("sizey", (2, L, 2, B), 3, False),  # _sizey_prefix_values: the scores
+            ("fold", (L, B, 5 * (1 + k)), 1, True))  # predict_lanes: the banks' fold, in execution order
+
+
+def scan_timings(L: int, B: int, k: int, dev, kernels=SCAN_KERNELS, add=None) -> dict:
+    """Each of ``scan_shapes(L, B, k)`` in f32 and f64: the kernel bitwise
+    against ``prefix_sum_plain``, its profiled device ms (the launches named
+    like ``kernels``), back-to-back ms, the plain version's, ``torch.cumsum``'s
+    and the bound: bytes (a read and a write) or operations, the larger; for
+    the fold also its latency bound, n dependent adds at ``add``'s measured
+    cycles an add (``tools/scan_clocks.add_latency``)."""
+    import torch
+
+    from repro_torch.kernels import scan
+
+    out = {}
+    for name, shape, dim, sequential in scan_shapes(L, B, k):
+        for dtype in (torch.float32, torch.float64):
+            n = shape[dim]
+            block = n if sequential else scan.XLA_SCAN_BLOCK
+            a = _scan_rows(shape, dtype, n + len(name), dev)
+            got, want = scan.scan_cuda(a, dim, block), scan.prefix_sum_plain(a, dim, block)
+            torch.cuda.synchronize()
+            if not _same_bits(got, want):
+                _fail(f"scan {name} {str(dtype)[6:]} {shape}: not bitwise equal to scan.cumsum")
+            ms = _cuda_ms(lambda: scan.scan_cuda(a, dim, block), 50)
+            device_ms = _device_ms(lambda: scan.scan_cuda(a, dim, block), kernels, 40)
+            plain_ms = _cuda_ms(lambda: scan.prefix_sum_plain(a, dim, block), 2)
+            library_ms = _cuda_ms(lambda: torch.cumsum(a, dim), 50)  # the yardstick: it adds in another order
+            # operations: one add an element, and a second for a block's prefix in XLA's order
+            bound_ms, bound_by = _bound(2 * a.numel() * a.element_size(), a.numel() * (1 if sequential else 2),
+                                        F32_OPS_PER_S if dtype == torch.float32 else F64_OPS_PER_S)
+            row = dict(max_abs_err=(got - want).abs().max().item(), ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
+                       bound_by=bound_by, library_ms=library_ms, device_ms=device_ms)
+            extra = ""
+            if sequential and add:
+                row["latency_bound_ms"] = n * add[str(dtype)[6:]] / add["sm_hz"] * 1e3
+                extra = f", latency bound {row['latency_bound_ms']:.6f} ms ({n} adds)"
+            print(f"  {name} {str(dtype)[6:]} {shape} along axis {dim}: bitwise; profiled device {device_ms:.4f} ms, "
+                  f"{ms:.4f} ms back to back, bound {bound_ms:.6f} ms ({bound_by}){extra}, plain {plain_ms:.4f} ms, "
+                  f"torch.cumsum {library_ms:.4f} ms")
+            out[(name, dtype)] = row
+    return out
+
+
 def scan_phase(batch, cfg, dev) -> dict:
     """The scan kernel bitwise against ``scan.cumsum`` in both orders, and
-    timed at the grid's largest bucket; ``predict_lanes`` there dispatches
-    fewer launching aten ops than the bucket has executions."""
+    timed at the predict phase's calls at the grid's largest bucket;
+    ``predict_lanes`` there dispatches fewer launching aten ops than the
+    bucket has executions."""
     import torch
 
     from repro_torch.kernels import ops, scan
     from repro_torch.sim import torch_sim
     from repro_torch.sim.batch_engine import GRID_METHODS
+    from tools.scan_clocks import add_latency
 
     L, B, T = batch.shape
     cases = 0
@@ -565,33 +631,10 @@ def scan_phase(batch, cfg, dev) -> dict:
     print(f"scan phase: {cases} cases bitwise equal to scan.cumsum (n = {', '.join(map(str, SCAN_LENGTHS))}, "
           f"sequential and XLA order, f32 and f64, and a non-contiguous input)")
 
-    # the largest bucket's calls: the fold (L, B, 5 (1 + k)) along the
-    # executions, and PPM's masked sums (L, B, B) in XLA's order along the last axis
-    C = 5 * (1 + cfg.ksegments.k)
-    out = {}
-    for name, shape, dim, block, kernel in (("fold", (L, B, C), 1, B, "seq_kernel"),
-                                            ("xla", (L, B, B), 2, scan.XLA_SCAN_BLOCK, "xla_kernel")):
-        for dtype in (torch.float32, torch.float64):
-            a = _scan_rows(shape, dtype, B + len(name), dev)
-            got, want = scan.scan_cuda(a, dim, block), scan.prefix_sum_plain(a, dim, block)
-            torch.cuda.synchronize()
-            if not _same_bits(got, want):
-                _fail(f"scan {name} {str(dtype)[6:]} {shape}: not bitwise equal to scan.cumsum")
-            ms = _cuda_ms(lambda: scan.scan_cuda(a, dim, block), 50)
-            device_ms = _device_ms(lambda: scan.scan_cuda(a, dim, block), kernel, 40)
-            plain_ms = _cuda_ms(lambda: scan.prefix_sum_plain(a, dim, block), 2)
-            library_ms = _cuda_ms(lambda: torch.cumsum(a, dim), 50)  # the yardstick: it adds in another order
-            n = shape[dim]
-            # bytes: each element read once and written once; operations:
-            # one add an element, and a second for a block's prefix in XLA's order
-            bound_ms, bound_by = _bound(2 * a.numel() * a.element_size(),
-                                        a.numel() * (1 if block >= n else 2),
-                                        F32_OPS_PER_S if dtype == torch.float32 else F64_OPS_PER_S)
-            print(f"  {name} {str(dtype)[6:]} {shape} along axis {dim}: bitwise; kernel {ms:.4f} ms back to back, "
-                  f"profiled device {device_ms:.4f} ms, bound {bound_ms:.6f} ms ({bound_by}), plain {plain_ms:.4f} "
-                  f"ms, torch.cumsum {library_ms:.4f} ms")
-            out[(name, dtype)] = dict(max_abs_err=(got - want).abs().max().item(), ms=ms, plain_ms=plain_ms,
-                                      bound_ms=bound_ms, bound_by=bound_by, library_ms=library_ms, device_ms=device_ms)
+    add = add_latency()
+    print(f"  dependent adds on the card: f32 {add['float32']:.3f} cycles, f64 {add['float64']:.3f} cycles; "
+          f"SM clock {add['sm_hz'] / 1e6:.1f} MHz")
+    out = scan_timings(L, B, cfg.ksegments.k, dev, add=add)
 
     # predict_lanes at the largest bucket: launching aten ops with the
     # kernel, and with the plain scan (the chains it replaced) on the same tensors
@@ -615,7 +658,7 @@ def scan_phase(batch, cfg, dev) -> dict:
           f"{site} aten ops that launch and {n_scan} scan launches; with the plain scan {plain} aten ops that launch")
     if site >= execs or n_scan < 1:
         _fail(f"predict_lanes dispatched {site} launching aten ops ({n_scan} scan launches) for {execs} executions")
-    return out[("xla", torch.float32)]
+    return out[("ppm C, S", torch.float32)]
 
 
 def _retry_diffs(got, want) -> int:
@@ -647,6 +690,9 @@ def grid_phase(wfs, cfg):
           f"ms (was {GRID_CHAIN_PREDICT_MS})")
     for name, (ms, n) in prof["top"]:
         print(f"    {ms:8.3f} ms {n:6d} x  {name[:100]}")
+    scan_k = [v for name, v in prof["top_all"] if any(k in name for k in SCAN_KERNELS)]
+    print(f"  scan kernels in the profiled run: {sum(v[1] for v in scan_k)} launches, "
+          f"{sum(v[0] for v in scan_k):.3f} ms on the device")
     t0 = time.perf_counter()
     ref = simulate_grid(wfs, cfg=cfg, device="cpu")
     cpu_s = time.perf_counter() - t0

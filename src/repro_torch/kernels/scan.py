@@ -7,8 +7,11 @@ its prefix programs call ``jnp.cumsum``, which XLA's CPU backend folds in
 blocks of 16: sequentially within each block, then the block totals the same
 way, recursively.  ``cumsum(a, block)`` adds in either order (``block >= n``
 the scan's, ``block = 16`` XLA's), so every sum has the reference's bits;
-``scan_cuda`` gives the same bits on the card in one launch, and
-``kernels.ops.prefix_sum`` picks between the two by the tensor's device.
+``scan_cuda`` gives the same bits on the card in one launch (the scan's
+order: a chain of adds a column, fed through shared memory; XLA's: a warp a
+line, or a block a tile of 32 columns along a middle axis with many of
+them), and ``kernels.ops.prefix_sum`` picks between the two by the
+tensor's device.
 The fit-table and fold kernels (``csrc/rangemax.cu``, ``csrc/compaction.cu``)
 share the card's XLA order with it (``csrc/xla_scan.cuh``).
 """
@@ -70,7 +73,7 @@ def _launcher(name: str):
     if fn is None:
         fn = getattr(build.library("scan"), name)
         p, i = ctypes.c_void_p, ctypes.c_int
-        fn.argtypes = {"scan_launch": [p, i, i, i, i, i, p, p, p], "scan_scratch": [i, i]}[name]
+        fn.argtypes = {"scan_launch": [p, i, i, i, i, i, p, p, p], "scan_scratch": [i, i, i]}[name]
         fn.restype = ctypes.c_longlong if name == "scan_scratch" else i
         _fns[name] = fn
     return fn
@@ -97,7 +100,7 @@ def scan_cuda(a: torch.Tensor, dim: int = -1, block: int = XLA_SCAN_BLOCK) -> to
     if a.numel() == 0:
         return out
     code = _DTYPES[a.dtype]
-    row = 0 if sequential else _launcher("scan_scratch")(n, code)
+    row = 0 if sequential else _launcher("scan_scratch")(n, inner, code)
     scratch = torch.empty((outer * inner, row), dtype=torch.uint8, device=a.device) if row > 0 else None
     err = _launcher("scan_launch")(a.data_ptr(), outer, n, inner, int(sequential), code, out.data_ptr(),
                                    scratch.data_ptr() if scratch is not None else None,

@@ -635,9 +635,10 @@ def test_adaptive_k_on_card_matches_cpu_run(cuda):
         assert card.history_k == cpu.history_k and card.history_k
 
 
-# the scan phase's lengths; 60,000 is past the opt-in shared memory in both
-# types (the global scratch path)
-SCAN_LENGTHS = (1, 15, 16, 17, 255, 256, 257, 1536, 4096, 20000, 60000)
+# the scan phase's lengths; 2,048 / 2,049 the last length of the warp-per-line
+# tier and the next; 60,000 is past the opt-in shared memory in both types
+# (the global scratch path)
+SCAN_LENGTHS = (1, 15, 16, 17, 255, 256, 257, 1536, 2048, 2049, 4096, 20000, 60000)
 
 
 def _scan_input(shape, dtype, seed: int, dev):
@@ -678,6 +679,73 @@ def test_scan_kernel_along_any_axis_on_card(cuda, shape, dim, order, dtype):
     a = _scan_input(shape, dtype, sum(shape), cuda)
     block = shape[dim] if order == "sequential" else scan.XLA_SCAN_BLOCK
     assert _same_bits(scan.scan_cuda(a, dim, block), scan.prefix_sum_plain(a, dim, block))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("order", ["sequential", "xla"])
+@pytest.mark.parametrize("n", [17, 1536])
+@pytest.mark.parametrize("inner", [1, 5, 25, 31, 32, 33, 1536])
+def test_scan_kernel_tiles_of_columns_on_card(cuda, inner, n, order, dtype):
+    """(3, n, inner) along n: columns flattened over (outer, inner), so 99
+    columns leave a ragged last tile of 32 at inner 33, and inner 5 and 25
+    put columns of several outers in one tile (the fold's chain); in XLA's
+    order few columns take a warp each, 4,608 at inner 1,536 take tiles."""
+    a = _scan_input((3, n, inner), dtype, inner + n, cuda)
+    a[:, 0] = -0.0
+    block = n if order == "sequential" else scan.XLA_SCAN_BLOCK
+    got = scan.scan_cuda(a, 1, block)
+    assert _same_bits(got, scan.prefix_sum_plain(a, 1, block))
+    assert not torch.signbit(got[:, 0]).any()  # the leading -0.0 became +0.0
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("order", ["sequential", "xla"])
+@pytest.mark.parametrize("shape", [(160, 300, 33), (200, 40, 25), (150, 17, 31), (2, 2049, 2400)])
+def test_scan_kernel_tile_tier_on_card(cuda, shape, order, dtype):
+    """Enough columns along a middle axis (4,650 to 5,280) that XLA's order
+    takes tiles of 32 on an H100's 132 SMs, in tiles that straddle outers
+    and end ragged, and 2,049 rows, past the warp tier."""
+    a = _scan_input(shape, dtype, sum(shape), cuda)
+    a[:, 0] = -0.0
+    block = shape[1] if order == "sequential" else scan.XLA_SCAN_BLOCK
+    got = scan.scan_cuda(a, 1, block)
+    assert _same_bits(got, scan.prefix_sum_plain(a, 1, block))
+    assert not torch.signbit(got[:, 0]).any()
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("shape", [(3, 36, 1), (2, 1540, 4), (2, 50, 8), (4, 1536, 25)])
+def test_scan_kernel_chain_short_last_chunk_on_card(cuda, shape, dtype):
+    """The scan's order with a short last chunk of rows (all but the fold's
+    shape), a chunk one aligned span of 16-byte pieces at (3, 36, 1) and
+    column groups of few outers split up to a block per SM."""
+    a = _scan_input(shape, dtype, sum(shape), cuda)
+    a[:, 0] = -0.0
+    got = scan.scan_cuda(a, 1, shape[1])
+    assert _same_bits(got, scan.prefix_sum_plain(a, 1, shape[1]))
+    assert not torch.signbit(got[:, 0]).any()
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("order", ["sequential", "xla"])
+@pytest.mark.parametrize("n", [16, 257, 1536, 2048, 2049])
+def test_scan_kernel_on_misaligned_lines_on_card(cuda, n, order, dtype):
+    """A contiguous view one element into its storage: no line starts on a
+    16-byte boundary, so the warp-per-line tier loads element by element."""
+    flat = _scan_input((5 * n + 1,), dtype, n, cuda)
+    a = flat[1:].view(5, n)
+    assert a.is_contiguous() and a.data_ptr() % 16
+    block = n if order == "sequential" else scan.XLA_SCAN_BLOCK
+    assert _same_bits(scan.scan_cuda(a, -1, block), scan.cumsum(a, block))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("n", [4097, 65537])
+def test_scan_kernel_deep_tiles_on_card(cuda, n, dtype):
+    """XLA's order along a middle axis past three and four levels: the tile
+    kernel carries each level's sums from chunk to chunk."""
+    a = _scan_input((2, n, 3), dtype, n, cuda)
+    assert _same_bits(scan.scan_cuda(a, 1, scan.XLA_SCAN_BLOCK), scan.prefix_sum_plain(a, 1, scan.XLA_SCAN_BLOCK))
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64])

@@ -9,6 +9,7 @@ because XLA fuses f32 multiply-adds (one rounding) where PyTorch rounds
 each op; wastage rtol 1e-5 with atol 1e-4 GiB*s, because the f32 sums over a
 series also run in another order."""
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -89,6 +90,47 @@ def test_cumsum_adds_in_the_reference_order(n):
     np.testing.assert_array_equal(ops.prefix_sum(_t(a), -1, block=n).numpy(), seq)
     # along a middle axis, as the predict phase folds (lanes, executions, stats)
     np.testing.assert_array_equal(ops.prefix_sum(_t(a).T[None], 1, block=n)[0].T.numpy(), seq)
+
+
+# the predict phase's scan calls at L = 2 lanes of B executions, k = 2:
+# (shape, axis, sequential), as chip_smoke.scan_shapes lists them at full size
+PREDICT_SCAN_CALLS = {
+    "bank": (lambda B: (2, B, 5), 1, False),  # torch_sim._prefix_bank
+    "ppm": (lambda B: (2, B, B), 2, False),  # PPM's C and S
+    "contrib": (lambda B: (2, B, B), 1, False),  # PPM-improved's contrib
+    "sizey": (lambda B: (2, 2, 2, B), 3, False),  # Sizey's scores
+    "fold": (lambda B: (2, B, 5 * (1 + 2)), 1, True),  # predict_lanes: the banks' fold
+}
+
+
+@pytest.mark.parametrize("dtype", [np.float32, np.float64])
+@pytest.mark.parametrize("B", [17, 40])
+@pytest.mark.parametrize("call", list(PREDICT_SCAN_CALLS))
+def test_cumsum_adds_in_the_reference_order_at_predict_calls(call, B, dtype):
+    """``ops.prefix_sum`` on the CPU (the plain version the card's kernel is
+    held to) at each predict-phase call's shape and axis, a -0.0 first:
+    XLA's order bit for bit against jnp.cumsum, the fold against a
+    ``lax.scan`` carry."""
+    make, dim, sequential = PREDICT_SCAN_CALLS[call]
+    shape = make(B)
+    rng = np.random.default_rng(B + len(call))
+    a = rng.standard_normal(shape) * 1e3
+    a[rng.random(shape) < 0.05] = -0.0
+    a[(slice(None),) * dim + (0,)] = -0.0
+    a = a.astype(dtype)
+    with jax.enable_x64(dtype == np.float64):
+        x = jnp.asarray(a)
+        if sequential:
+            step = lambda c, xi: (c + xi, c + xi)  # noqa: E731
+            _, ys = jax.lax.scan(step, jnp.zeros(x.shape[:dim] + x.shape[dim + 1:], x.dtype), jnp.moveaxis(x, dim, 0))
+            want = np.asarray(jnp.moveaxis(ys, 0, dim))
+        else:
+            want = np.asarray(jnp.cumsum(x, axis=dim))
+    got = ops.prefix_sum(_t(a), dim, block=shape[dim] if sequential else 16).numpy()
+    bits = np.int64 if dtype == np.float64 else np.int32
+    assert want.dtype == a.dtype
+    np.testing.assert_array_equal(got.view(bits), want.view(bits))
+    assert not np.signbit(np.take(got, 0, axis=dim)).any()  # the leading -0.0 became +0.0
 
 
 def _prefix_inputs(seed: int, B: int):
