@@ -40,7 +40,8 @@ NVCC_FLAGS = (
 # -fmad=false keeps every f32 multiply and add rounded on its own, as
 # PyTorch's elementwise ops round them, so a kernel and its plain version
 # agree bit for bit where their arithmetic is the same: the engine's and the
-# scheduler's kernels need that.  flash's inner products need no bit
+# scheduler's kernels need that, and so does the MoE combine's rounding
+# after each multiply and each add.  flash's inner products need no bit
 # exactness (its plain version sums in another order) and keep FMA.
 _EXACT = ("-fmad=false",)
 SOURCES = {
@@ -52,6 +53,8 @@ SOURCES = {
     "scan": _EXACT,
     "admission": _EXACT,
     "admission_epoch": _EXACT,
+    "moe_dispatch": _EXACT,
+    "moe_combine": _EXACT,
     "flash": (),
 }
 

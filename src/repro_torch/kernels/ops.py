@@ -8,7 +8,8 @@ the cluster's placement programs, fitstats the kernels API's regression
 bank (``kernels.api``), flash the language model's attention, scan the
 engine's predict phase (every running sum of it, in the reference's
 order), admission the batched admission controller's decision scan,
-admission_epoch the sharded controller's whole carried epoch.  Rows of
+admission_epoch the sharded controller's whole carried epoch,
+moe_dispatch and moe_combine the routed experts of an MoE layer.  Rows of
 segmax and wastage index series: row r reads ``y[series[r]]``, so rows
 that share a series (the methods of one execution, the k values of a
 sweep) never copy it on the card.
@@ -22,6 +23,8 @@ from repro_torch.core.allocation import attempt_outcomes_batch
 from repro_torch.core.segmentation import segment_peaks_dynamic
 from repro_torch.kernels import admission, compaction, fitstats, flash, rangemax, scan, segmax, wastage
 from repro_torch.kernels import admission_epoch as epoch
+from repro_torch.kernels import moe_combine as combine
+from repro_torch.kernels import moe_dispatch as dispatch
 
 
 def _route(y: torch.Tensor) -> bool:
@@ -170,6 +173,24 @@ def admission_epoch(base0, tl_t, tl_d, tl_c, slot_fold, rel_codes, starts, ends,
     return (res, *state)
 
 
+def moe_dispatch(xf: torch.Tensor, ids: torch.Tensor, E: int, C: int) -> tuple[torch.Tensor, torch.Tensor]:
+    """Rows xf (N, D) into the expert buffer by ids (N, k) int32 -> (buf (E,
+    C, D), pos (N, k) int32), as ``moe_dispatch.moe_dispatch_plain``: one
+    call on the card."""
+    if _route(xf):
+        return dispatch.moe_dispatch_cuda(xf, ids, E, C)
+    return dispatch.moe_dispatch_plain(xf, ids, E, C)
+
+
+def moe_combine(out_buf: torch.Tensor, ids: torch.Tensor, pos: torch.Tensor, weights: torch.Tensor) -> torch.Tensor:
+    """The experts' rows out_buf (E, C, D) weighted back into their tokens
+    -> (N, D), as ``moe_combine.moe_combine_plain``: one launch on the
+    card."""
+    if _route(out_buf):
+        return combine.moe_combine_cuda(out_buf, ids, pos, weights)
+    return combine.moe_combine_plain(out_buf, ids, pos, weights)
+
+
 _KERNELS = {
     "segmax": segmax,
     "wastage": wastage,
@@ -180,6 +201,8 @@ _KERNELS = {
     "scan": scan,
     "admission": admission,
     "admission_epoch": epoch,
+    "moe_dispatch": dispatch,
+    "moe_combine": combine,
 }
 
 

@@ -1,6 +1,6 @@
 """Model layers of the port: plain tensor functions over parameter mappings.
 
-Port of the dense half of ``repro.models.layers``.  A parameter mapping
+Port of ``repro.models.layers``.  A parameter mapping
 ``p`` is anything with ``p["name"]`` (the modules of ``models.model``, or a
 dict); each layer has an ``init_*`` that draws its tensors from an explicit
 ``torch.Generator`` and a matching apply function.
@@ -10,8 +10,11 @@ dtype (bf16 by default); norms, softmax statistics and logits are f32.
 Weights keep the reference's ``(in, out)`` layout, so ``x @ w`` means the
 same in both packages.  Attention goes through ``kernels.ops.
 flash_attention``: the hand-written kernel for CUDA tensors, its plain
-version for CPU tensors.  MoE and the mesh helpers are not ported (ROADMAP
-Queue 1 item 7); with no mesh the helpers are the identity.
+version for CPU tensors; the routed experts of an MoE layer go through
+``kernels.ops.moe_dispatch`` and ``moe_combine`` the same way, with the
+expert products as ``torch.bmm``.  ``moe_shard_map`` and the mesh helpers
+(``maybe_constrain``, ``constrain_act``) are not ported: the port runs on
+one card, where they are the identity (ROADMAP Queue 1 item 7a).
 """
 
 from __future__ import annotations
@@ -214,3 +217,67 @@ def mlp(p, x: torch.Tensor, activation: str) -> torch.Tensor:
     g = x @ p["wg"]
     act = F.gelu(g, approximate="tanh") if activation == "gelu" else F.silu(g)
     return (act * (x @ p["wi"])) @ p["wo"]
+
+
+# ---------------------------------------------------------------------------
+# Mixture of Experts (sort-based dispatch, capacity-bounded)
+# ---------------------------------------------------------------------------
+
+
+def init_moe(cfg: ModelConfig, gen: torch.Generator | None, device=None) -> dict[str, torch.Tensor]:
+    """Router (D, E) float32; experts wi, wg (E, D, Fe) and wo (E, Fe, D) in
+    the compute dtype, at the reference's scales."""
+    D, E, Fe = cfg.d_model, cfg.num_experts, cfg.moe_d_ff
+    dt = cdtype(cfg)
+    return {
+        "router": _normal(gen, (D, E), D**-0.5, torch.float32, device),
+        "wi": _normal(gen, (E, D, Fe), D**-0.5, dt, device),
+        "wg": _normal(gen, (E, D, Fe), D**-0.5, dt, device),
+        "wo": _normal(gen, (E, Fe, D), Fe**-0.5, dt, device),
+    }
+
+
+def route(xf: torch.Tensor, router: torch.Tensor, k: int) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """xf (N, D), router (D, E) f32 -> (probs (N, E), weights (N, k) f32
+    renormalised, ids (N, k) int32).  ``jax.lax.top_k`` puts the lower
+    expert index first among equal probabilities; ``torch.topk`` promises no
+    order among ties, so the top k come from a stable descending sort."""
+    probs = torch.softmax(xf.float() @ router, dim=-1)
+    weights, ids = torch.sort(probs, dim=-1, descending=True, stable=True)
+    weights, ids = weights[:, :k], ids[:, :k]
+    weights = weights / torch.clamp(weights.sum(-1, keepdim=True), min=1e-9)
+    return probs, weights, ids.to(torch.int32)
+
+
+def _moe_dispatch_compute(xf, router, wi, wg, wo, *, cfg: ModelConfig, e_offset: int, E_local: int, capacity: int):
+    """The MoE math over a flat token block against the expert slice
+    ``[e_offset, e_offset + E_local)``: xf (N, D); router (D, E); wi, wg
+    (E_local, D, Fe); wo (E_local, Fe, D).  Returns (out (N, D), aux): the
+    slice's part of the output and the load-balancing loss (Switch:
+    ``E * sum_e density_e * mean_prob_e``, density from each token's first
+    choice).  Assignments to experts outside the slice, and those past an
+    expert's ``capacity`` in flat order, add nothing (GShard)."""
+    N, _ = xf.shape
+    E, k = cfg.num_experts, cfg.experts_per_token
+    probs, weights, ids = route(xf, router, k)
+    local = ids - e_offset  # outside [0, E_local): another slice's assignment
+    buf, pos = ops.moe_dispatch(xf, local, E_local, capacity)
+    h = F.silu(torch.bmm(buf, wg)) * torch.bmm(buf, wi)
+    out = ops.moe_combine(torch.bmm(h, wo), local, pos, weights)
+    density = torch.bincount(ids[:, 0].long(), minlength=E).float() / N
+    aux = E * torch.sum(density * probs.mean(dim=0))
+    return out, aux
+
+
+def moe(p, x: torch.Tensor, cfg: ModelConfig):
+    """Top-k routed experts with capacity-bounded sort-based dispatch: x (B,
+    T, D) -> (out (B, T, D), aux loss).  The capacity is the reference's,
+    ``int(N * k / E * capacity_factor) + 1`` with N = B * T tokens of this
+    call, so a decode step (N = B) and a prefill drop differently."""
+    B, T, D = x.shape
+    E, k = cfg.num_experts, cfg.experts_per_token
+    N = B * T
+    capacity = int(N * k / E * cfg.capacity_factor) + 1
+    out, aux = _moe_dispatch_compute(x.reshape(N, D), p["router"], p["wi"], p["wg"], p["wo"], cfg=cfg, e_offset=0,
+                                     E_local=E, capacity=capacity)
+    return out.reshape(B, T, D), aux

@@ -1,7 +1,7 @@
 """Model assembly: a decoder of explicit layers, one module each.
 
-Port of ``repro.models.model`` for the attention kinds ``dense``, ``local``
-and ``global``.  The reference stacks the repetitions of the config's
+Port of ``repro.models.model`` for the attention kinds ``dense``, ``local``,
+``global`` and ``moe``.  The reference stacks the repetitions of the config's
 ``block_pattern`` and runs them with ``lax.scan``; here every layer is its
 own ``Block`` in ``Transformer.layers``, in layer order (``cfg.
 layer_kinds``), and a plain loop runs them.  ``models.convert`` maps the
@@ -16,9 +16,10 @@ Entry points:
                       updates in place;
   * ``init_cache``  - an empty cache, one ``{k, v, pos}`` dict per layer.
 
-Both passes run under ``torch.inference_mode()``.  MoE, the recurrent
-mixers (rwkv, rglru) and the modality frontends raise
-``NotImplementedError`` (ROADMAP Queue 1 item 7).
+Both passes run under ``torch.inference_mode()``.  An MoE layer's aux
+loss is computed and dropped by the passes (training, ROADMAP Queue 1 item
+7d, will carry it up).  The recurrent mixers (rwkv, rglru) and the
+modality frontends raise ``NotImplementedError`` (ROADMAP Queue 1 item 7).
 """
 
 from __future__ import annotations
@@ -30,9 +31,8 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.device import resolve_device
 from repro_torch.models import layers as L
 
-ATTN_KINDS = ("dense", "local", "global")
+ATTN_KINDS = ("dense", "local", "global", "moe")
 _NOT_PORTED = {
-    "moe": "MoE layers are not ported yet (ROADMAP Queue 1 item 7a)",
     "rwkv": "rwkv layers are not ported yet (ROADMAP Queue 1 item 7b)",
     "rglru": "rglru layers are not ported yet (ROADMAP Queue 1 item 7b)",
 }
@@ -70,9 +70,16 @@ class MLP(_Params):
         self._register(L.init_mlp(cfg, gen, device))
 
 
+class MoE(_Params):
+    def __init__(self, cfg: ModelConfig, gen: torch.Generator | None, device=None):
+        super().__init__()
+        self._register(L.init_moe(cfg, gen, device))
+
+
 class Block(nn.Module):
-    """One attention layer: pre-norm attention and MLP, with gemma2's
-    post-norms when the config has them."""
+    """One attention layer: pre-norm attention and MLP (routed experts,
+    ``moe``, on an MoE layer), with gemma2's post-norms when the config has
+    them."""
 
     def __init__(self, cfg: ModelConfig, kind: str, gen: torch.Generator | None, device=None):
         super().__init__()
@@ -85,7 +92,10 @@ class Block(nn.Module):
         self.ln1 = RMSNorm(D, device)
         self.attn = Attention(cfg, gen, device)
         self.ln2 = RMSNorm(D, device)
-        self.mlp = MLP(cfg, gen, device)
+        if kind == "moe":
+            self.moe = MoE(cfg, gen, device)
+        else:
+            self.mlp = MLP(cfg, gen, device)
         if cfg.use_post_norm:
             self.ln1_post = RMSNorm(D, device)
             self.ln2_post = RMSNorm(D, device)
@@ -140,9 +150,10 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int, device=None) -> list[
 
 
 def apply_layer(block: Block, x, positions, cache=None, *, want_cache: bool = False, cache_len: int | None = None):
-    """Returns (x, new_cache).  ``cache=None`` with ``want_cache`` builds one
-    from this (prefill) pass; a cache with one token (x (B, 1, D), positions
-    (B,)) is a decode step, which updates the cache in place."""
+    """Returns (x, new_cache, aux).  ``cache=None`` with ``want_cache`` builds
+    one from this (prefill) pass; a cache with one token (x (B, 1, D),
+    positions (B,)) is a decode step, which updates the cache in place.
+    ``aux`` is an MoE layer's load-balancing loss (0.0 for the others)."""
     cfg = block.cfg
     h = L.rms_norm(block.ln1, x, cfg.norm_eps)
     if cache is None or x.shape[1] != 1:  # prefill
@@ -153,10 +164,13 @@ def apply_layer(block: Block, x, positions, cache=None, *, want_cache: bool = Fa
         attn_out = L.rms_norm(block.ln1_post, attn_out, cfg.norm_eps)
     x = x + attn_out
     h = L.rms_norm(block.ln2, x, cfg.norm_eps)
-    ff = L.mlp(block.mlp, h, cfg.mlp_activation)
+    if block.kind == "moe":
+        ff, aux = L.moe(block.moe, h, cfg)
+    else:
+        ff, aux = L.mlp(block.mlp, h, cfg.mlp_activation), 0.0
     if cfg.use_post_norm:
         ff = L.rms_norm(block.ln2_post, ff, cfg.norm_eps)
-    return x + ff, new_cache
+    return x + ff, new_cache, aux
 
 
 def _embed_inputs(model: Transformer, tokens: torch.Tensor) -> torch.Tensor:
@@ -192,7 +206,7 @@ def forward(model: Transformer, tokens, *, want_cache: bool = False, cache_len: 
     positions = torch.arange(T, dtype=torch.int32, device=x.device)[None].expand(B, T)
     caches = [] if want_cache else None
     for block in model.layers:
-        x, c = apply_layer(block, x, positions, want_cache=want_cache, cache_len=cache_len)
+        x, c, _ = apply_layer(block, x, positions, want_cache=want_cache, cache_len=cache_len)
         if want_cache:
             caches.append(c)
     if last_only:
@@ -210,5 +224,5 @@ def decode_step(model: Transformer, cache: list, tokens, positions):
     x = _embed_inputs(model, torch.as_tensor(tokens, device=model.device))
     positions = torch.as_tensor(positions, dtype=torch.int32, device=model.device)
     for block, c in zip(model.layers, cache):
-        x, _ = apply_layer(block, x, positions, c)
+        x, _, _ = apply_layer(block, x, positions, c)
     return _head(model, x), cache

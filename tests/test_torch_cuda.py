@@ -16,7 +16,9 @@ inputs max |d| 1e-2 and mean |d| 1e-3, because p is rounded to bf16 after
 a running max that depends on the tiling; decode's split partials as the
 outputs, with m within 1e-4 and l within rtol 1e-4.  The model's float32 logits on
 the card within 1e-4 of max |logits| of the CPU run (the products sum in
-another order).  The fitstats bank within 1e-5 of each statistic's sum of
+another order).  The MoE dispatch (buf, pos) and combine bit for bit,
+and the reduced MoE model's float32 logits within 1e-4 as the dense
+ones.  The fitstats bank within 1e-5 of each statistic's sum of
 absolute terms of its plain version (float32 sums in another order;
 relative to the terms because sums of u cancel), and bitwise equal from
 run to run."""
@@ -28,7 +30,7 @@ import torch
 from repro_torch.core.allocation import attempt_outcomes_batch
 from repro_torch.core.segmentation import segment_peaks_dynamic
 from repro_torch import kernels
-from repro_torch.kernels import compaction, fitstats, flash, ops, rangemax, scan, segmax, wastage
+from repro_torch.kernels import compaction, fitstats, flash, moe_combine, moe_dispatch, ops, rangemax, scan, segmax, wastage
 
 WASTE_TOL = dict(rtol=1e-5, atol=1e-4)
 WASTE_TOL_F64 = dict(rtol=1e-9, atol=1e-9)
@@ -1389,3 +1391,113 @@ def test_sharded_controller_needs_cuda_unless_asked_for_cpu():
     with pytest.raises(RuntimeError, match="no CUDA device"):
         run_stream(StreamConfig(n_requests=4, n_warmup=2), "sharded")
     assert ShardedAdmissionController(1000.0, device="cpu").device == torch.device("cpu")
+
+
+# MoE: (N, k, E, C, D, skew, offset); skew biases the routing toward the low
+# experts so that the capacity drops, offset shifts the ids as an expert
+# slice sees them (ids outside [0, E) belong to other slices)
+MOE_CARD_CASES = [
+    (48, 2, 4, 25, 64, 0.0, 0),  # reduced qwen3-moe's widths
+    (8192, 8, 128, 641, 4096, 3.0, 0),  # qwen3-moe's prefill, B 2 x 4,096
+    (2, 8, 128, 1, 4096, 4.0, 0),  # qwen3-moe's decode, B 2
+    (8192, 2, 8, 2561, 6144, 2.0, 0),  # grok-1-314b's widths
+    (300, 3, 6, 40, 7, 3.0, 0),  # odd rows: 14 / 28 bytes
+    (100, 2, 4, 10, 64, 3.0, 4),  # experts 4..7 of 8
+]
+
+
+def _moe_ids(N: int, k: int, E: int, skew: float, seed: int) -> torch.Tensor:
+    """Each token's k distinct experts by biased random logits, as the
+    router's top-k gives them (numpy, so the CPU tests can share it)."""
+    rng = np.random.default_rng(seed)
+    logits = rng.standard_normal((N, E)) - skew * np.arange(E) / E
+    return torch.from_numpy(np.argsort(-logits, axis=1, kind="stable")[:, :k].astype(np.int32))
+
+
+def _bits(t: torch.Tensor) -> torch.Tensor:
+    return t.view({torch.bfloat16: torch.int16, torch.float32: torch.int32}[t.dtype])
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("case", MOE_CARD_CASES, ids=lambda c: "-".join(map(str, c)))
+def test_moe_kernels_match_plain_on_card(cuda, dtype, case):
+    N, k, E, C, D, skew, offset = case
+    ids = (_moe_ids(N, k, E + offset, skew, seed=N + E) - offset).to(cuda)
+    g = torch.Generator(device=cuda).manual_seed(0)
+    x = torch.randn((N, D), generator=g, device=cuda).to(dtype)
+    before = (moe_dispatch.launches, moe_combine.launches)
+    buf, pos = moe_dispatch.moe_dispatch_cuda(x, ids, E, C)
+    want_buf, want_pos = moe_dispatch.moe_dispatch_plain(x, ids, E, C)
+    torch.cuda.synchronize()
+    assert torch.equal(pos, want_pos) and torch.equal(_bits(buf), _bits(want_buf))
+    if skew > 0:
+        assert int((want_pos >= C).sum()) > 0  # the capacity drops assignments
+    if offset:
+        assert int((want_pos < 0).sum()) > 0
+    out_buf = torch.randn((E, C, D), generator=g, device=cuda).to(dtype)
+    w = torch.rand((N, k), generator=g, device=cuda)
+    w = w / w.sum(-1, keepdim=True)
+    got = moe_combine.moe_combine_cuda(out_buf, ids, pos, w)
+    want = moe_combine.moe_combine_plain(out_buf, ids, pos, w)
+    torch.cuda.synchronize()
+    assert torch.equal(_bits(got), _bits(want))
+    assert torch.equal(_bits(moe_combine.moe_combine_cuda(out_buf, ids, pos, w)), _bits(got))  # run to run
+    assert (moe_dispatch.launches, moe_combine.launches) == (before[0] + 1, before[1] + 2)
+
+
+def test_moe_kernels_take_unaligned_rows_on_card(cuda):
+    """Row bases off 16 bytes take the narrower copies and loads."""
+    N, k, E, C, D = 64, 2, 4, 30, 64
+    ids = _moe_ids(N, k, E, 2.0, seed=1).to(cuda)
+    flat = torch.randn(N * D + 1, device=cuda).to(torch.bfloat16)
+    x = flat[1:].view(N, D)  # 2 bytes past the allocation's base
+    buf, pos = moe_dispatch.moe_dispatch_cuda(x, ids, E, C)
+    want_buf, want_pos = moe_dispatch.moe_dispatch_plain(x, ids, E, C)
+    assert torch.equal(pos, want_pos) and torch.equal(_bits(buf), _bits(want_buf))
+    ob = torch.randn(E * C * D + 1, device=cuda).to(torch.bfloat16)[1:].view(E, C, D)
+    w = torch.full((N, k), 0.5, device=cuda)
+    assert torch.equal(_bits(moe_combine.moe_combine_cuda(ob, ids, pos, w)),
+                       _bits(moe_combine.moe_combine_plain(ob, ids, pos, w)))
+
+
+def test_reduced_moe_model_on_card_matches_cpu_run(cuda):
+    """The reduced qwen3-moe in float32 on the card (flash, moe_dispatch and
+    moe_combine) against the same weights on the CPU (their plain
+    versions); greedy generation token for token."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.models.model import decode_step, forward, init_params
+    from repro_torch.serve.engine import greedy_generate
+
+    cfg = dataclasses.replace(get_config("qwen3-moe-235b-a22b").reduced(), dtype="float32")
+    cpu = init_params(cfg, seed=3, device="cpu")
+    card = init_params(cfg, seed=0, device=cuda)
+    card.load_state_dict(cpu.state_dict())
+    tokens = torch.from_numpy(np.random.default_rng(1).integers(0, cfg.vocab_size, (2, 41)).astype(np.int32))
+    T = 40
+    ops.reset_launch_counts()
+    full, _ = forward(card, tokens.to(cuda))
+    _, cache = forward(card, tokens[:, :T].to(cuda), want_cache=True, cache_len=T + 8)
+    dec, _ = decode_step(card, cache, tokens[:, T:].to(cuda), torch.full((2,), T, dtype=torch.int32))
+    counts = ops.launch_counts()
+    assert counts["moe_dispatch"] == counts["moe_combine"] == 3 * cfg.num_layers
+    want_full, _ = forward(cpu, tokens)
+    _, cpu_cache = forward(cpu, tokens[:, :T], want_cache=True, cache_len=T + 8)
+    want_dec, _ = decode_step(cpu, cpu_cache, tokens[:, T:], torch.full((2,), T, dtype=torch.int32))
+    scale = want_full.abs().max().item()
+    assert (full.cpu() - want_full).abs().max().item() <= 1e-4 * scale
+    assert (dec.cpu() - want_dec).abs().max().item() <= 1e-4 * scale
+    got = greedy_generate(card, cfg, tokens[:, :12], steps=6)
+    want = greedy_generate(cpu, cfg, tokens[:, :12], steps=6, device="cpu")
+    assert torch.equal(got.cpu(), want)
+
+
+def test_launcher_serves_an_moe_model_on_card(cuda):
+    from repro_torch.launch import serve as launch_serve
+
+    ops.reset_launch_counts()
+    res = launch_serve.main(["--arch", "qwen3-moe-235b-a22b", "--requests", "8"])
+    assert res["done"] == 8 and all(o.is_cuda for o in res["outputs"])
+    counts = ops.launch_counts()
+    assert counts["flash"] > 0 and counts["moe_dispatch"] > 0 and counts["moe_combine"] == counts["moe_dispatch"]

@@ -187,11 +187,13 @@ def test_every_kernel_source_is_built():
     for name in build.SOURCES:
         src = (build.CSRC / f"{name}.cu").read_text()
         assert f'extern "C" int {name}_launch(' in src
-        # names the TPU kernel it replaces; scan, admission and
-        # admission_epoch, which have none, the reference's running sums, its
-        # admission scan and its carried admission program
+        # names the TPU kernel it replaces; scan, admission, admission_epoch,
+        # moe_dispatch and moe_combine, which have none, the reference's
+        # running sums, its admission scan, its carried admission program and
+        # its MoE layer's dispatch and combine
         no_tpu_kernel = {"scan": "repro/sim/jax_sim.py", "admission": "repro/sim/device_timeline.py",
-                         "admission_epoch": "repro/sim/device_timeline.py"}
+                         "admission_epoch": "repro/sim/device_timeline.py",
+                         "moe_dispatch": "repro/models/layers.py", "moe_combine": "repro/models/layers.py"}
         assert f"repro/kernels/{name}.py" in src or (
             name in no_tpu_kernel and "No TPU kernel" in src and no_tpu_kernel[name] in src
         )

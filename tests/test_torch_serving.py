@@ -75,6 +75,15 @@ def test_launcher_serves_every_request_on_cpu():
     assert ctl.model.n_observations == 5
 
 
+def test_launcher_serves_an_moe_model_on_cpu():
+    """The reduced qwen3-moe through the launcher: its layers' routed
+    experts take the plain dispatch and combine on the CPU."""
+    out = launch_serve.main(["--arch", "qwen3-moe-235b-a22b", "--device", "cpu", "--requests", "4"])
+    vocab = get_config("qwen3-moe-235b-a22b").reduced().vocab_size
+    assert out["done"] == 4 and sum(o.shape[0] for o in out["outputs"]) == 4
+    assert all(o.shape[1] == 16 and int(o.min()) >= 0 and int(o.max()) < vocab for o in out["outputs"])
+
+
 def test_admission_engine_registry():
     assert isinstance(make_admission_controller("scalar", hbm_budget_mib=100.0), AdmissionController)
     batched = make_admission_controller("batched", hbm_budget_mib=100.0, device="cpu")
