@@ -160,7 +160,10 @@ Phases, each of which fails the run on a wrong result:
    (CUDA events and profiled device time) beside its bound, its plain
    version and a yardstick (``index_select`` of the rows given the slot
    table; ``index_add_`` of the weighted rows, which adds in another
-   order).
+   order); a dispatch call must be exactly one device launch (counted from
+   the profiler's events), and its bound counts the rows of the tokens
+   with a kept assignment (printed beside the count with every row, and
+   beside the card's write and copy rates over a buffer of buf's size).
 
 Prints the card's name and power limit, a ``{"kernels": [...]}`` line, and
 as its last line ``{"ok": true, "device": {...}}``.  Exits non-zero without
@@ -2143,7 +2146,7 @@ MOE_CASES = (
     ("qwen3-moe decode", 2, 8, 128, 1, 4096, 3.0),
     ("grok-1 widths", 8192, 2, 8, 2561, 6144, 2.0),
 )
-MOE_DEVICE_KERNELS = {"moe_dispatch": ("rank_kernel", "gather_kernel"), "moe_combine": ("combine_kernel",)}
+MOE_DEVICE_KERNELS = {"moe_dispatch": ("dispatch_kernel",), "moe_combine": ("combine_kernel",)}
 PRODUCT_KERNELS = ("gemm", "xmma", "nvjet", "cutlass", "splitK")  # cuBLAS's product kernels, by name
 
 
@@ -2239,12 +2242,29 @@ def _moe_case(name: str, N: int, k: int, E: int, C: int, D: int, skew: float, de
     if not torch.equal(bits(torch.index_select(xz, 0, slot).view(E, C, D)), bits(buf)):
         _fail(f"moe {name}: the index_select yardstick computes another buffer")
     call = lambda: moe_dispatch.moe_dispatch_cuda(x, ids, E, C)  # noqa: E731
-    nbytes = 2 * (buf.numel() + x.numel()) + 4 * (ids.numel() + pos.numel())
+    launched = _device_launches(call, prof_calls)
+    if sum(launched.values()) != prof_calls or not all("dispatch_kernel" in n for n in launched):
+        _fail(f"moe {name}: {prof_calls} dispatch calls launched {dict(launched)} on the device, not one "
+              f"dispatch_kernel each")
+    # the bound counts what the batch needs: buf written once, the rows of
+    # tokens with a kept assignment read once (and, beside it, every row)
+    rows_read = int(kept.any(-1).sum())
+    small = 4 * (ids.numel() + pos.numel())
+    nbytes, all_bytes = 2 * (buf.numel() + rows_read * D) + small, 2 * (buf.numel() + x.numel()) + small
     bound_ms, bound_by = _bound(nbytes, 0)
+    # the card's write and copy rates over a buffer of this size
+    zero_ms = _cuda_ms(torch.empty_like(buf).zero_, reps)
+    copy_ms = _cuda_ms(lambda: torch.empty_like(buf).copy_(buf), reps)
+    buf_bytes = 2 * buf.numel()
+    # the kernel and its yardstick back to back, each the best of three
+    # windows: a window that the host falls behind in (a pause of the
+    # process between launches) times the host, not the card
     out["moe_dispatch"] = dict(
-        max_abs_err=(buf.float() - want_buf.float()).abs().max().item(), ms=_cuda_ms(call, reps),
+        max_abs_err=(buf.float() - want_buf.float()).abs().max().item(),
+        ms=min(_cuda_ms(call, reps) for _ in range(3)),
         plain_ms=_cuda_ms(lambda: moe_dispatch.moe_dispatch_plain(x, ids, E, C), max(reps // 4, 3)),
-        bound_ms=bound_ms, bound_by=bound_by, library_ms=_cuda_ms(lambda: torch.index_select(xz, 0, slot), reps))
+        bound_ms=bound_ms, bound_by=bound_by,
+        library_ms=min(_cuda_ms(lambda: torch.index_select(xz, 0, slot), reps) for _ in range(3)))
     device = {n: _device_ms(call, n, prof_calls) for n in MOE_DEVICE_KERNELS["moe_dispatch"]}
     out["moe_dispatch"]["device_ms"] = sum(device.values())
     # combine; yardstick: one index_add_ of the weighted slot rows (the
@@ -2267,13 +2287,36 @@ def _moe_case(name: str, N: int, k: int, E: int, C: int, D: int, skew: float, de
     print(f"  (e) {name:17s} N {N} k {k} E {E} C {C} D {D} bf16: {dropped} of {N * k} assignments dropped; "
           f"both bit for bit equal to the plain versions")
     print(f"      dispatch {d['ms']:.4f} ms (device: " + ", ".join(f"{n} {t:.4f}" for n, t in device.items())
-          + f"), plain {d['plain_ms']:.4f}, index_select {d['library_ms']:.4f}, bound {d['bound_ms']:.4f} "
-          f"({d['bound_by']}, {nbytes / 1e6:.1f} MB)")
+          + f"; one device launch a call, {prof_calls} of {prof_calls} profiled), plain {d['plain_ms']:.4f}, "
+          f"index_select {d['library_ms']:.4f}, bound {d['bound_ms']:.4f} ({d['bound_by']}: {nbytes / 1e6:.1f} MB "
+          f"with the {rows_read} rows of tokens with a kept assignment, {all_bytes / 1e6:.1f} MB with all {N} rows, "
+          f"{_bound(all_bytes, 0)[0]:.4f} ms); the card's write rate {buf_bytes / zero_ms / 1e9:.3f} TB/s "
+          f"(buf.zero_ {zero_ms:.4f} ms), copy rate {2 * buf_bytes / copy_ms / 1e9:.3f} TB/s read + write "
+          f"(empty_like(buf).copy_(buf) {copy_ms:.4f} ms)")
     print(f"      combine  {c['ms']:.4f} ms (device {c['device_ms']:.4f}), plain {c['plain_ms']:.4f}, index_add_ "
           f"{c['library_ms']:.4f} (max |d| vs kernel {lib_err:.3e}), bound {c['bound_ms']:.4f} ({c['bound_by']}, "
           f"{cbytes / 1e6:.1f} MB)")
     del buf, want_buf, out_buf, xz, weighted, base
     return out
+
+
+def _device_launches(call, n: int) -> collections.Counter:
+    """Device kernels that ``n`` calls of ``call()`` launch, by name, from
+    the profiler's events.  The window opens with 64 launches of a fill,
+    which take the place of the first device events that the profiler
+    drops."""
+    import torch
+
+    pad = torch.empty(1, device="cuda")
+
+    def run():
+        for _ in range(64):
+            pad.fill_(0.0)
+        for _ in range(n):
+            call()
+
+    prof = _profile(run)
+    return collections.Counter({name: cnt for name, (_, cnt) in prof["top_all"] if "FillFunctor" not in name})
 
 
 def _device_split(prof: dict) -> dict[str, float]:

@@ -18,7 +18,9 @@ from repro_torch.kernels import build
 
 launches = 0  # calls that launched the kernel, since the last ops.reset_launch_counts()
 
+MAX_EXPERTS = 1024  # experts a call at most (csrc/moe_dispatch.cu:kMaxExperts)
 _fn = None
+_pools: dict[tuple[int, int], torch.Tensor] = {}
 
 
 def moe_dispatch_plain(xf: torch.Tensor, ids: torch.Tensor, E: int, C: int) -> tuple[torch.Tensor, torch.Tensor]:
@@ -59,10 +61,22 @@ def _launcher():
     return _fn
 
 
+def _pool(dev: torch.device, stream: int) -> torch.Tensor:
+    """The stream's claim counters of the kernel's pool of zero rows: two
+    int32, zeroed once (each launch leaves them zero; launches on one stream
+    run in turn)."""
+    key = (dev.index, stream)
+    pool = _pools.get(key)
+    if pool is None:
+        pool = _pools[key] = torch.zeros(2, dtype=torch.int32, device=dev)
+    return pool
+
+
 def moe_dispatch_cuda(xf: torch.Tensor, ids: torch.Tensor, E: int, C: int) -> tuple[torch.Tensor, torch.Tensor]:
-    """``moe_dispatch_plain`` on the card: one call, two device launches (the
-    rank pass a block per expert, then the gather a warp per slot row); buf
-    bit for bit and pos exact."""
+    """``moe_dispatch_plain`` on the card: one device launch (each block
+    counts and ranks its range of tokens, reads each kept token's row once
+    and writes it to its slots, and writes its share of the empty slots);
+    buf bit for bit and pos exact.  E is at most ``MAX_EXPERTS``."""
     global launches
     build.check_cuda("moe_dispatch", xf)
     dev = xf.device
@@ -72,13 +86,13 @@ def moe_dispatch_cuda(xf: torch.Tensor, ids: torch.Tensor, E: int, C: int) -> tu
     build.check_arg("ids", ids, torch.int32, 2, dev)
     N, D = xf.shape
     k = ids.shape[1]
-    if ids.shape[0] != N or E < 1 or C < 1:
+    if ids.shape[0] != N or not 1 <= E <= MAX_EXPERTS or C < 1 or E * C >= 2**31:
         raise ValueError(f"moe_dispatch: xf {tuple(xf.shape)}, ids {tuple(ids.shape)}, E {E}, C {C}")
     pos = torch.empty((N, k), dtype=torch.int32, device=dev)
-    slot = torch.empty((E, C), dtype=torch.int32, device=dev)
     buf = torch.empty((E, C, D), dtype=xf.dtype, device=dev)
+    stream = torch.cuda.current_stream(dev).cuda_stream
     err = _launcher()(xf.data_ptr(), N, D * xf.element_size(), ids.data_ptr(), k, E, C, pos.data_ptr(),
-                      slot.data_ptr(), buf.data_ptr(), torch.cuda.current_stream(dev).cuda_stream)
+                      buf.data_ptr(), _pool(dev, stream).data_ptr(), stream)
     if err != 0:
         raise RuntimeError(f"moe_dispatch launch failed with CUDA error {err}")
     launches += 1

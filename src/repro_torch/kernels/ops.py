@@ -176,7 +176,7 @@ def admission_epoch(base0, tl_t, tl_d, tl_c, slot_fold, rel_codes, starts, ends,
 def moe_dispatch(xf: torch.Tensor, ids: torch.Tensor, E: int, C: int) -> tuple[torch.Tensor, torch.Tensor]:
     """Rows xf (N, D) into the expert buffer by ids (N, k) int32 -> (buf (E,
     C, D), pos (N, k) int32), as ``moe_dispatch.moe_dispatch_plain``: one
-    call on the card."""
+    launch on the card."""
     if _route(xf):
         return dispatch.moe_dispatch_cuda(xf, ids, E, C)
     return dispatch.moe_dispatch_plain(xf, ids, E, C)

@@ -1403,6 +1403,10 @@ MOE_CARD_CASES = [
     (8192, 2, 8, 2561, 6144, 2.0, 0),  # grok-1-314b's widths
     (300, 3, 6, 40, 7, 3.0, 0),  # odd rows: 14 / 28 bytes
     (100, 2, 4, 10, 64, 3.0, 4),  # experts 4..7 of 8
+    # token ranges split unevenly over the blocks, N k = 15,009 a multiple
+    # of no chunk of ids; f32 rows of 8,448 bytes are two ring chunks
+    (5003, 3, 16, 1000, 2112, 3.0, 0),
+    (2000, 8, 128, 20, 4096, 3.0, 0),  # 15 or 16 tokens a block: copied through registers
 ]
 
 
@@ -1443,6 +1447,67 @@ def test_moe_kernels_match_plain_on_card(cuda, dtype, case):
     assert torch.equal(_bits(got), _bits(want))
     assert torch.equal(_bits(moe_combine.moe_combine_cuda(out_buf, ids, pos, w)), _bits(got))  # run to run
     assert (moe_dispatch.launches, moe_combine.launches) == (before[0] + 1, before[1] + 2)
+
+
+def _dispatch_ids(case: str, N: int, k: int, E: int, seed: int) -> torch.Tensor:
+    """ids of the dispatch's edge cases: experts repeated within a token with
+    ids below 0 and at or above E in the same call; one expert that
+    receives nothing; or an even spread that the capacity need not drop."""
+    rng = np.random.default_rng(seed)
+    if case == "repeats-and-foreign":
+        ids = rng.integers(-3, E + 3, size=(N, k))
+        ids[0] = 1  # the first token's k assignments all to expert 1
+    elif case == "empty-expert":
+        ids = rng.integers(0, E - 1, size=(N, k))
+        ids[ids >= 2] += 1  # expert 2 receives nothing
+    else:
+        ids = rng.integers(0, E, size=(N, k))
+    return torch.from_numpy(ids.astype(np.int32))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("case", ["repeats-and-foreign", "empty-expert", "nothing-dropped"])
+def test_moe_dispatch_edge_cases_match_plain_on_card(cuda, dtype, case):
+    N, k, E, D = 777, 4, 8, 96
+    ids = _dispatch_ids(case, N, k, E, seed=len(case)).to(cuda)
+    counts = torch.bincount(ids[(ids >= 0) & (ids < E)].long(), minlength=E)
+    C = int(counts.max()) if case == "nothing-dropped" else int(counts.max()) * 3 // 4
+    x = torch.randn((N, D), generator=torch.Generator(device=cuda).manual_seed(1), device=cuda).to(dtype)
+    before = moe_dispatch.launches
+    buf, pos = moe_dispatch.moe_dispatch_cuda(x, ids, E, C)
+    want_buf, want_pos = moe_dispatch.moe_dispatch_plain(x, ids, E, C)
+    torch.cuda.synchronize()
+    assert moe_dispatch.launches == before + 1
+    assert torch.equal(pos, want_pos) and torch.equal(_bits(buf), _bits(want_buf))
+    dropped = int((want_pos >= C).sum())
+    if case == "repeats-and-foreign":
+        assert int((want_pos < 0).sum()) > 0 and dropped > 0
+        assert torch.equal(pos[0].sort().values, torch.arange(k, dtype=torch.int32, device=cuda))
+    elif case == "empty-expert":
+        assert int(counts[2]) == 0 and dropped > 0 and not buf[2].any()
+    else:
+        assert dropped == 0 and int((want_pos < 0).sum()) == 0
+
+
+def test_moe_dispatch_on_two_streams_matches_plain_on_card(cuda):
+    """Calls large enough that the kernel's blocks claim zero rows from its
+    pool, alternating between two streams (each stream keeps its own claim
+    counters, left zero by every launch) and shapes."""
+    side = torch.cuda.Stream(device=cuda)
+    cases = [(4096, 8, 64, 700, 1024), (3000, 2, 8, 1500, 2048)]
+    inputs = []
+    for N, k, E, C, D in cases:
+        ids = _moe_ids(N, k, E, 2.0, seed=N).to(cuda)
+        x = torch.randn((N, D), generator=torch.Generator(device=cuda).manual_seed(N), device=cuda)
+        inputs.append((x.to(torch.bfloat16), ids, E, C))
+    torch.cuda.synchronize()
+    for rep in range(3):
+        for i, (x, ids, E, C) in enumerate(inputs):
+            with torch.cuda.stream(side if (rep + i) % 2 else torch.cuda.current_stream(cuda)):
+                buf, pos = moe_dispatch.moe_dispatch_cuda(x, ids, E, C)
+                want_buf, want_pos = moe_dispatch.moe_dispatch_plain(x, ids, E, C)
+                assert int((want_buf == 0).all(-1).sum()) * x.shape[1] * 2 >= 16 << 20  # the pool takes part
+                assert torch.equal(pos, want_pos) and torch.equal(_bits(buf), _bits(want_buf))
 
 
 def test_moe_kernels_take_unaligned_rows_on_card(cuda):

@@ -240,7 +240,7 @@ def test_cache_bytes_per_token(name):
     port's own cache for every config the port runs."""
     cfg = ARCHS[name]
     assert cache_bytes_per_token(cfg) == ref_cache_bytes_per_token(REF_ARCHS[name])
-    if cfg.frontend is not None or set(cfg.layer_kinds) & {"moe", "rwkv", "rglru"}:
+    if cfg.frontend is not None or set(cfg.layer_kinds) & {"rwkv", "rglru"}:
         return
     batch, max_len = 1, 7
     cache = init_cache(cfg, batch, max_len, device="cpu")
