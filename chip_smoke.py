@@ -6,8 +6,8 @@
 Phases, each of which fails the run on a wrong result:
 
 1. build the segmax, wastage, rangemax, compaction, fitstats, scan,
-   admission, admission_epoch, moe_dispatch, moe_combine and flash kernels
-   from
+   admission, admission_epoch, moe_dispatch, moe_combine, rglru_scan, flash
+   and rwkv_wkv kernels from
    ``src/repro_torch/kernels/csrc`` (one ``nvcc`` per source, in parallel);
 2. hold segmax and wastage against their plain PyTorch versions on the
    card, at the shapes of the largest bucket of the grid (peaks and fail
@@ -163,7 +163,29 @@ Phases, each of which fails the run on a wrong result:
    order); a dispatch call must be exactly one device launch (counted from
    the profiler's events), and its bound counts the rows of the tokens
    with a kept assignment (printed beside the count with every row, and
-   beside the card's write and copy rates over a buffer of buf's size).
+   beside the card's write and copy rates over a buffer of buf's size);
+14. the recurrent mixers at full width and depth, bf16, random weights from
+   seed 0, phase 13's model freed before: rwkv6-1.6b (24 rwkv layers,
+   d_model 2,048, 32 heads of 64, d_ff 7,168, vocab 65,536) and
+   recurrentgemma-2b (26 layers, 18 rglru and 8 local, d_model and rnn
+   width 2,560, window 2,048, 10 / 1 heads of 256, vocab 256,000), each
+   through phase 8's (a)-(d): (a) the launcher's wave loop, every request
+   served, rwkv_wkv (rwkv) or rglru_scan and flash (recurrentgemma)
+   launched in that run; (b) prefill wall (median of 3), ms per decode
+   step and tokens/s (medians of 5; each decode repeat from a copy of the
+   prefill's cache, whose recurrent state a step overwrites), greedy
+   tokens identical across the repeats, a profiled greedy_generate (device
+   time of each kernel, of the products and of the rest) and a profiled
+   decode (busy share, launches a step, flash's decode calls); (c) the
+   cache contract within 2e-2; (d) the plain WKV, RG-LRU and flash against
+   the kernels, last logits within 2e-2 x max |logits|; then (e) each
+   kernel against its plain version at the prefill (B 2, T 4,096) and
+   decode (T 1, a nonzero state) shapes of both models' widths and at B 3,
+   T 1,000: WKV within 1e-4 of max |o| and of max |S| (the token order
+   against the reference's chunk form), RG-LRU bit for bit; exactly one
+   device launch a call (from the profiler's events), CUDA-event and
+   profiled device time beside the bound and the plain version's time (no
+   library yardstick: no single PyTorch call runs either recurrence).
 
 Prints the card's name and power limit, a ``{"kernels": [...]}`` line, and
 as its last line ``{"ok": true, "device": {...}}``.  Exits non-zero without
@@ -2321,7 +2343,7 @@ def _device_launches(call, n: int) -> collections.Counter:
 
 def _device_split(prof: dict) -> dict[str, float]:
     """A profiled run's device ms by family: flash, the two MoE kernels,
-    the products, the rest."""
+    the two recurrent kernels, the products, the rest."""
     split = collections.Counter()
     for n, (ms, _) in prof["top_all"]:
         if FLASH_KERNELS in n:
@@ -2330,6 +2352,10 @@ def _device_split(prof: dict) -> dict[str, float]:
             split["moe_dispatch"] += ms
         elif "combine_kernel" in n:
             split["moe_combine"] += ms
+        elif "wkv_kernel" in n:
+            split["rwkv_wkv"] += ms
+        elif "rglru_kernel" in n:
+            split["rglru_scan"] += ms
         elif any(k in n for k in PRODUCT_KERNELS):
             split["products"] += ms
         else:
@@ -2509,6 +2535,273 @@ def moe_phase(dev) -> tuple[dict[str, dict], dict[str, int]]:
     return per_kernel, {n: counts[n] for n in ("moe_dispatch", "moe_combine")}
 
 
+RECURRENT_ARCHS = ("rwkv6-1.6b", "recurrentgemma-2b")
+RECURRENT_KERNELS = {"rwkv_wkv": "wkv_kernel", "rglru_scan": "rglru_kernel"}  # device kernels, by name
+WKV_TOL = 1e-4  # kernel vs plain, of max |o| and of max |S|: the token order against the chunk form
+# name, B, T, width (heads for WKV, channels for RG-LRU), state nonzero; the
+# first of each is the main path's prefill shape.  Each kernel at both
+# models' widths: rwkv6's 32 heads / 2,048 channels, recurrentgemma's 40
+# heads (d_model 2,560) / rnn width 2,560
+WKV_CASES = (
+    ("rwkv6 prefill", 2, 4096, 32, False),
+    ("rwkv6 decode", 2, 1, 32, True),
+    ("rwkv6 B 3 T 1000", 3, 1000, 32, True),
+    ("d 2,560 prefill", 2, 4096, 40, False),
+    ("d 2,560 decode", 2, 1, 40, True),
+)
+RGLRU_CASES = (
+    ("recurrentgemma prefill", 2, 4096, 2560, False),
+    ("recurrentgemma decode", 2, 1, 2560, True),
+    ("recurrentgemma B 3 T 1000", 3, 1000, 2560, True),
+    ("R 2,048 prefill", 2, 4096, 2048, False),
+    ("R 2,048 decode", 2, 1, 2048, True),
+)
+NO_LIBRARY = {"rwkv_wkv": "no single PyTorch call runs a linear recurrence with a matrix state",
+              "rglru_scan": "no single PyTorch call runs an affine recurrence"}
+
+
+def _kernel_case(kernel: str, name: str, call, plain, nbytes: float, nops: float, exact: bool) -> dict:
+    """One recurrent kernel against its plain version on the same inputs:
+    the error (WKV within WKV_TOL of max |out|, RG-LRU bit for bit), one
+    device launch a call (from the profiler's events), CUDA-event and
+    profiled device time beside the bound and the plain version's time."""
+    import torch
+
+    got, want = call(), plain()
+    torch.cuda.synchronize()
+    errs = [(g - w).abs().max().item() for g, w in zip(got, want)]
+    scales = [w.abs().max().item() for w in want]
+    if exact and not all(torch.equal(g, w) for g, w in zip(got, want)):
+        _fail(f"{kernel} {name}: differs from its plain version (max |d| {max(errs):.3e})")
+    if not exact and any(e > WKV_TOL * s for e, s in zip(errs, scales)):
+        _fail(f"{kernel} {name}: off its plain version by {errs} against {WKV_TOL} of max |out| {scales}")
+    device_name = RECURRENT_KERNELS[kernel]
+    n_prof = 64
+    launched = _device_launches(call, n_prof)
+    if sum(launched.values()) != n_prof or not all(device_name in k for k in launched):
+        _fail(f"{kernel} {name}: {n_prof} calls launched {dict(launched)} on the device, not one {device_name} each")
+    reps = 20 if nbytes > 1e8 else 200
+    ms = _cuda_ms(call, reps)
+    device_ms = _device_ms(call, device_name, n_prof)
+    plain_ms = _cuda_ms(plain, 3)
+    bound_ms, bound_by = _bound(nbytes, nops)
+    print(f"  (e) {kernel} {name:26s} {'bit for bit' if exact else f'max |d| {max(e / s for e, s in zip(errs, scales)):.2e} of max |out|'}; "
+          f"{ms:.4f} ms (device {device_ms:.4f}; one device launch a call, {n_prof} of {n_prof} profiled), plain "
+          f"{plain_ms:.3f}, bound {bound_ms:.5f} ({bound_by}: {nbytes / 1e6:.1f} MB, {nops / 1e9:.3f} GFLOP), "
+          f"{100 * bound_ms / device_ms:.1f}% of it; library null: {NO_LIBRARY[kernel]}")
+    return dict(max_abs_err=max(errs), ms=ms, device_ms=device_ms, plain_ms=plain_ms, bound_ms=bound_ms,
+                bound_by=bound_by, library_ms=None)
+
+
+def _wkv_case(name: str, B: int, T: int, H: int, stateful: bool, dev) -> dict:
+    import torch
+
+    from repro_torch.kernels import rwkv_wkv
+
+    g = torch.Generator(device=dev).manual_seed(B * T + H)
+    r, k, v = (torch.randn((B, T, H, 64), generator=g, device=dev) for _ in range(3))
+    logw = torch.clamp(-torch.exp(torch.rand((B, T, H, 64), generator=g, device=dev) * 4.5 - 4.0), -1.2, -1e-6)
+    u = torch.randn((H, 64), generator=g, device=dev) * 0.1
+    S0 = torch.randn((B, H, 64, 64), generator=g, device=dev) if stateful else torch.zeros((B, H, 64, 64), device=dev)
+    # bytes: r, k, v, logw read and o written once, S read and written once
+    # (u too); operations: the token form's 5 a (key, value) pair
+    nbytes = 4 * (5 * r.numel() + 2 * S0.numel() + u.numel())
+    return _kernel_case("rwkv_wkv", name, lambda: rwkv_wkv.rwkv_wkv_cuda(r, k, v, logw, u, S0),
+                        lambda: rwkv_wkv.wkv_plain(r, k, v, logw, u, S0), nbytes, 5 * r.numel() * 64, False)
+
+
+def _rglru_case(name: str, B: int, T: int, R: int, stateful: bool, dev) -> dict:
+    import torch
+
+    from repro_torch.kernels import rglru_scan
+
+    g = torch.Generator(device=dev).manual_seed(B * T + R)
+    a = torch.exp(-8.0 * torch.nn.functional.softplus(torch.tensor(4.0)) * torch.rand((B, T, R), generator=g, device=dev))
+    b = torch.sqrt(torch.clamp(1.0 - a * a, min=1e-12)) * torch.randn((B, T, R), generator=g, device=dev)
+    h0 = torch.randn((B, R), generator=g, device=dev) if stateful else torch.zeros((B, R), device=dev)
+    nbytes = 4 * (3 * a.numel() + 2 * h0.numel())  # a, b read, h_seq written; h0 read, h_last written
+    return _kernel_case("rglru_scan", name, lambda: rglru_scan.rglru_scan_cuda(a, b, h0),
+                        lambda: rglru_scan.rglru_scan_plain(a, b, h0), nbytes, 2 * a.numel(), True)
+
+
+def _recurrent_model(arch: str, dev) -> dict[str, int]:
+    """One recurrent model at full width and depth through (a)-(d)."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import flash, ops, rglru_scan, rwkv_wkv
+    from repro_torch.launch.serve import serve_requests
+    from repro_torch.models.model import Transformer, decode_step, forward, init_params
+    from repro_torch.serve import AdmissionController, cache_bytes_per_token
+    from repro_torch.serve.engine import greedy_generate, make_decode_step, make_prefill_step
+
+    cfg = get_config(arch)
+    torch.cuda.empty_cache()
+    held = torch.cuda.memory_allocated()
+    model, init_s = _wall(lambda: init_params(cfg, seed=0, device=dev))
+    n_params = sum(p.numel() for p in model.parameters())
+    kinds = collections.Counter(cfg.layer_kinds)
+    print(f"recurrent phase: {cfg.name} at full width and depth ({cfg.num_layers} layers: "
+          + ", ".join(f"{n} {k}" for k, n in kinds.items()) + f"; d_model {cfg.d_model}, d_ff {cfg.d_ff}, vocab "
+          f"{cfg.vocab_size}); {n_params / 1e9:.3f} B parameters, "
+          f"{(torch.cuda.memory_allocated() - held) / 1e9:.2f} GB on the card; random weights from seed 0, "
+          f"init_params {init_s:.2f} s")
+    mine = ("rwkv_wkv",) if "rwkv" in kinds else ("rglru_scan", "flash")
+
+    # (a) the launcher's wave loop, its defaults
+    ctl = AdmissionController(hbm_budget_mib=512.0, k=4, interval_s=1.0)
+    bpt = max(cache_bytes_per_token(cfg) / 2**20, 1e-4)
+    ops.reset_launch_counts()
+    res, wall = _wall(lambda: serve_requests(cfg, model, ctl, requests=24, decode_steps=SERVE_STEPS,
+                                             bytes_per_token_mib=bpt, device=dev, log=lambda m: None))
+    counts = ops.launch_counts()
+    toks = torch.cat([o.flatten() for o in res["outputs"]])
+    print(f"  (a) launcher loop: {res['done']} served in {res['waves']} waves, {res['rejected']} deferred, "
+          f"wall {wall:.3f} s; launches " + ", ".join(f"{n} {counts[n]}" for n in ("rwkv_wkv", "rglru_scan", "flash")))
+    if res["done"] != 24 or sum(o.shape[0] for o in res["outputs"]) != 24:
+        _fail(f"{arch} serve: {res['done']} of 24 requests served")
+    if any(o.shape[1] != SERVE_STEPS for o in res["outputs"]) or not 0 <= int(toks.min()) <= int(toks.max()) < cfg.vocab_size:
+        _fail(f"{arch} serve: generated tokens of the wrong shape or outside the vocabulary")
+    if min(counts[n] for n in mine) < 1:
+        _fail(f"{arch} serve: {' or '.join(mine)} was not launched on the serving path: {counts}")
+
+    # (b) one long batch: prefill wall, ms per decode step, tokens/s
+    g = torch.Generator(device=dev).manual_seed(1)
+    prompt = torch.randint(0, cfg.vocab_size, (SERVE_BATCH, SERVE_PROMPT + 1), generator=g, device=dev,
+                           dtype=torch.int32)
+    tokens = prompt[:, :SERVE_PROMPT].contiguous()
+    cache_len = SERVE_PROMPT + SERVE_STEPS
+    prefill = make_prefill_step(cfg, cache_len, device=dev)
+    step = make_decode_step(cfg, device=dev)
+    prefill(model, {"tokens": tokens})  # warm-up
+    prefills = [_wall(lambda: prefill(model, {"tokens": tokens})) for _ in range(MOE_PREFILL_REPEATS)]
+    (logits, cache), _ = prefills[-1]
+    prefill_s = statistics.median(s for _, s in prefills)
+    first = torch.argmax(logits, -1).to(torch.int32)
+
+    def decode_all():
+        last = [first]
+        for i in range(SERVE_STEPS - 1):
+            pos = torch.full((SERVE_BATCH,), SERVE_PROMPT + i, dtype=torch.int32, device=dev)
+            lg, _ = step(model, cache, {"tokens": last[-1][:, None], "positions": pos})
+            last.append(torch.argmax(lg, -1).to(torch.int32))
+        return torch.stack(last, 1)
+
+    # a decode step writes the recurrent state in place: each repeat
+    # starts from a copy of the prefill's cache
+    start = [{n: t.clone() for n, t in c.items()} for c in cache]
+
+    def decode_from_start():
+        with torch.inference_mode():  # the cache's tensors are inference tensors
+            for c, s in zip(cache, start):
+                for n, t in c.items():
+                    t.copy_(s[n])
+        return decode_all()
+
+    decodes = [_wall(decode_from_start) for _ in range(SERVE_REPEATS)]
+    gens = [_wall(lambda: greedy_generate(model, cfg, tokens, SERVE_STEPS, device=dev)) for _ in range(SERVE_REPEATS)]
+    if not all(torch.equal(out, gens[0][0]) for out, _ in decodes + gens):
+        _fail(f"{arch} serve: greedy tokens differ between repeats, or from greedy_generate")
+    steps_ms = [s / (SERVE_STEPS - 1) * 1e3 for _, s in decodes]
+    step_ms = statistics.median(steps_ms)
+    gen_s = statistics.median(s for _, s in gens)
+    prof = _profile(lambda: greedy_generate(model, cfg, tokens, SERVE_STEPS, device=dev))
+    split = _device_split(prof)
+    dprof = _profile(decode_from_start)
+    dsplit = _device_split(dprof)
+    flash_decode = [(ms, n) for name, (ms, n) in dprof["top_all"] if FLASH_KERNELS in name]
+    print(f"  (b) B {SERVE_BATCH} x {SERVE_PROMPT}-token prompt, {SERVE_STEPS} greedy tokens: prefill {prefill_s:.4f} s "
+          f"(median of {' '.join(f'{s:.4f}' for _, s in prefills)}); decode {step_ms:.3f} ms/step (median of "
+          f"{' '.join(f'{x:.3f}' for x in steps_ms)}); greedy_generate {gen_s:.4f} s (median of "
+          f"{' '.join(f'{s:.4f}' for _, s in gens)}) = {SERVE_BATCH * SERVE_STEPS / gen_s:.2f} tokens/s; greedy "
+          f"tokens identical across the {2 * SERVE_REPEATS} repeats")
+    print(f"  profiled greedy_generate: wall {prof['wall_s']:.4f} s; kernels {prof['kernel_ms']:.2f} ms on the device "
+          f"({100 * prof['kernel_ms'] / 1e3 / prof['wall_s']:.2f}% busy, {prof['launches']} launches): "
+          + ", ".join(f"{n} {ms:.2f}" for n, ms in split.most_common()) + f"; copies {prof['copy_ms']:.2f} ms")
+    for name, (ms, n) in prof["top"]:
+        print(f"    {ms:9.3f} ms {n:6d} x  {name[:100]}")
+    print(f"  profiled decode ({SERVE_STEPS - 1} steps): wall {dprof['wall_s']:.4f} s; kernels {dprof['kernel_ms']:.2f} "
+          f"ms ({100 * dprof['kernel_ms'] / 1e3 / dprof['wall_s']:.2f}% busy), {dprof['launches'] / (SERVE_STEPS - 1):.1f} "
+          f"launches a step: " + ", ".join(f"{n} {ms:.3f}" for n, ms in dsplit.most_common())
+          + (f"; flash's decode calls (T x G = {cfg.num_heads // cfg.num_kv_heads} > 4: the tensor-core path, over a "
+             f"{min(cfg.window_size, cache_len)}-slot window cache): "
+             + ", ".join(f"{name_ms[0]:.3f} ms over {name_ms[1]}" for name_ms in flash_decode)
+             if flash_decode else ""))
+
+    # (c) the cache contract and (d) the kernels against their plain
+    # versions, each in bf16 and with the same weights in float32.  The
+    # float32 runs hold the state's handling and the kernels' arithmetic to
+    # 2e-2 where rounding cannot hide a fault; the bf16 runs are held to
+    # 2e-2 or to twice the bf16 rounding distance of the model (its forward
+    # against the float32 one's), whichever is larger: two bf16 paths that
+    # round apart (the decode step's products of B rows against the
+    # prefill's, the kernels' sums against the plain versions') may each lie
+    # that distance from the float32 function, and with random weights a
+    # flip of one bf16 rounding grows through the depth
+    del cache, start, logits
+    f32 = Transformer(dataclasses.replace(cfg, dtype="float32"), seed=None, device=dev).eval()
+    f32.load_state_dict(model.state_dict())  # the bf16 weights, exactly
+    at = torch.full((SERVE_BATCH,), SERVE_PROMPT, dtype=torch.int32, device=dev)
+
+    def contract(m):
+        full, _ = forward(m, prompt, last_only=True)
+        _, c_cache = forward(m, tokens, want_cache=True, cache_len=cache_len)
+        dec, _ = decode_step(m, c_cache, prompt[:, SERVE_PROMPT:], at)
+        return full[:, 0], (full[:, 0] - dec[:, 0]).abs().max().item() / full.abs().max().item()
+
+    full, c_err = contract(model)
+    full32, c_err32 = contract(f32)
+    delta = (full - full32).abs().max().item() / full32.abs().max().item()
+    lim = max(2e-2, 2 * delta)
+    print(f"  (c) cache contract at T={SERVE_PROMPT}: |decode - forward(T+1)| / max|logits| = {c_err32:.3e} with the "
+          f"weights in float32 (limit 2e-2), {c_err:.3e} in bf16 (limit {lim:.3e}: the bf16 forward lies {delta:.3e} "
+          f"from the float32 one)")
+    if not np.isfinite(c_err32) or c_err32 > 2e-2 or not np.isfinite(c_err) or c_err > lim:
+        _fail(f"{arch} serve: prefill + decode_step off forward on T + 1 tokens by {c_err32:.3e} (float32, limit "
+              f"2e-2), {c_err:.3e} (bf16, limit {lim:.3e}) of max |logits|")
+    del full, full32
+
+    def kernels_vs_plain(m):
+        logits, _ = prefill(m, {"tokens": tokens})
+        before = ops.launch_counts()
+        with _patched(ops, "flash_attention", lambda orig: flash.flash_attention_plain), \
+                _patched(ops, "rwkv_wkv", lambda orig: rwkv_wkv.wkv_plain), \
+                _patched(ops, "rglru_scan", lambda orig: rglru_scan.rglru_scan_plain):
+            (plain_logits, _), plain_s = _wall(lambda: prefill(m, {"tokens": tokens}))
+        if ops.launch_counts() != before:
+            _fail(f"{arch} serve: the plain prefill launched a kernel")
+        err = (plain_logits - logits).abs().max().item() / plain_logits.abs().max().item()
+        return err, plain_s, int((torch.argmax(plain_logits, -1) == torch.argmax(logits, -1)).sum())
+
+    d_err32, plain_s32, agree32 = kernels_vs_plain(f32)
+    d_err, plain_s, agree = kernels_vs_plain(model)
+    print(f"  (d) plain WKV, RG-LRU and flash: last logits |kernels - plain| / max|logits| = {d_err32:.3e} in float32 "
+          f"(limit 2e-2; plain prefill {plain_s32:.4f} s), {d_err:.3e} in bf16 (limit {lim:.3e}; plain prefill "
+          f"{plain_s:.4f} s); greedy first tokens agree {agree32}/{SERVE_BATCH}, {agree}/{SERVE_BATCH}")
+    if not np.isfinite(d_err32) or d_err32 > 2e-2 or not np.isfinite(d_err) or d_err > lim:
+        _fail(f"{arch} serve: kernel logits off the plain path by {d_err32:.3e} (float32, limit 2e-2), {d_err:.3e} "
+              f"(bf16, limit {lim:.3e}) of max |logits|")
+    del model, f32
+    torch.cuda.empty_cache()
+    return {n: counts[n] for n in mine}
+
+
+def recurrent_phase(dev) -> tuple[dict[str, dict], dict[str, int]]:
+    """rwkv6-1.6b and recurrentgemma-2b at full width and depth, then the
+    WKV and RG-LRU kernels against their plain versions."""
+    counts = {}
+    for arch in RECURRENT_ARCHS:
+        t0 = time.perf_counter()
+        counts.update(_recurrent_model(arch, dev))
+        print(f"  {arch}: {time.perf_counter() - t0:.2f} s")
+    wkv = [_wkv_case(*case, dev) for case in WKV_CASES]
+    lru = [_rglru_case(*case, dev) for case in RGLRU_CASES]
+    return {"rwkv_wkv": wkv[0], "rglru_scan": lru[0]}, {n: counts[n] for n in ("rwkv_wkv", "rglru_scan")}
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0, help="seed of the synthetic corpus")
@@ -2575,6 +2868,11 @@ def main() -> int:
     per_kernel.update(moe_kernels)
     counts.update(moe_counts)
     print(f"moe phase: {time.perf_counter() - t0:.2f} s")
+    t0 = time.perf_counter()
+    rec_kernels, rec_counts = recurrent_phase(dev)
+    per_kernel.update(rec_kernels)
+    counts.update(rec_counts)
+    print(f"recurrent phase: {time.perf_counter() - t0:.2f} s")
 
     sources = {
         "segmax": ("src/repro_torch/kernels/csrc/segmax.cu", "src/repro/kernels/segmax.py:55"),
@@ -2600,6 +2898,13 @@ def main() -> int:
         "moe_combine": ("src/repro_torch/kernels/csrc/moe_combine.cu",
                         "src/repro/models/layers.py:565-566 (moe's weighted gather and scatter-add into out; "
                         "_moe_dispatch_compute :450-451)"),
+        # no TPU kernel: the reference's recurrent mixers' recurrences, left to XLA
+        "rwkv_wkv": ("src/repro_torch/kernels/csrc/rwkv_wkv.cu",
+                     "src/repro/models/recurrent.py:105-126 (rwkv_time_mix's lax.scan of chunk_step), :87-93 "
+                     "(its step at T = 1)"),
+        "rglru_scan": ("src/repro_torch/kernels/csrc/rglru_scan.cu",
+                       "src/repro/models/recurrent.py:214-224 (rglru_block's lax.associative_scan), :210-212 "
+                       "(its step at T = 1)"),
     }
     keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     line = {"kernels": [

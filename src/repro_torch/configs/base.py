@@ -126,6 +126,9 @@ class ModelConfig:
                 R = self.rnn_width or D
                 total += 2 * D
                 total += 2 * D * R + R * D  # in/gate + out proj
+                # the recurrence and input gates w_r, w_i (R, R): the
+                # reference's count leaves them out (8% of recurrentgemma-2b)
+                total += 2 * R * R
                 total += self.conv_width * R + 2 * R  # conv + rg-lru params
                 total += 3 * D * F  # mlp
         total += D  # final norm

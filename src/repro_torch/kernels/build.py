@@ -41,8 +41,9 @@ NVCC_FLAGS = (
 # PyTorch's elementwise ops round them, so a kernel and its plain version
 # agree bit for bit where their arithmetic is the same: the engine's and the
 # scheduler's kernels need that, and so does the MoE combine's rounding
-# after each multiply and each add.  flash's inner products need no bit
-# exactness (its plain version sums in another order) and keep FMA.
+# after each multiply and each add, and the RG-LRU's multiply then add a
+# step.  flash's inner products and the WKV recurrence need no bit
+# exactness (their plain versions sum in another order) and keep FMA.
 _EXACT = ("-fmad=false",)
 SOURCES = {
     "segmax": _EXACT,
@@ -55,7 +56,9 @@ SOURCES = {
     "admission_epoch": _EXACT,
     "moe_dispatch": _EXACT,
     "moe_combine": _EXACT,
+    "rglru_scan": _EXACT,
     "flash": (),
+    "rwkv_wkv": (),
 }
 
 _lock = threading.Lock()

@@ -9,7 +9,9 @@ bank (``kernels.api``), flash the language model's attention, scan the
 engine's predict phase (every running sum of it, in the reference's
 order), admission the batched admission controller's decision scan,
 admission_epoch the sharded controller's whole carried epoch,
-moe_dispatch and moe_combine the routed experts of an MoE layer.  Rows of
+moe_dispatch and moe_combine the routed experts of an MoE layer,
+rwkv_wkv the WKV recurrence of an rwkv layer's time mix and rglru_scan the
+affine recurrence of an rglru layer.  Rows of
 segmax and wastage index series: row r reads ``y[series[r]]``, so rows
 that share a series (the methods of one execution, the k values of a
 sweep) never copy it on the card.
@@ -25,6 +27,8 @@ from repro_torch.kernels import admission, compaction, fitstats, flash, rangemax
 from repro_torch.kernels import admission_epoch as epoch
 from repro_torch.kernels import moe_combine as combine
 from repro_torch.kernels import moe_dispatch as dispatch
+from repro_torch.kernels import rglru_scan as lru
+from repro_torch.kernels import rwkv_wkv as wkv
 
 
 def _route(y: torch.Tensor) -> bool:
@@ -191,6 +195,25 @@ def moe_combine(out_buf: torch.Tensor, ids: torch.Tensor, pos: torch.Tensor, wei
     return combine.moe_combine_plain(out_buf, ids, pos, weights)
 
 
+def rwkv_wkv(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor, logw: torch.Tensor, u: torch.Tensor,
+             S0: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """The WKV recurrence of RWKV-6 heads: r, k, v, logw (B, T, H, 64) f32,
+    u (H, 64), S0 (B, H, 64, 64) f32 -> (o (B, T, H, 64), S), as
+    ``rwkv_wkv.wkv_plain``: one launch on the card, any T."""
+    if _route(r):
+        return wkv.rwkv_wkv_cuda(r, k, v, logw, u, S0)
+    return wkv.wkv_plain(r, k, v, logw, u, S0)
+
+
+def rglru_scan(a: torch.Tensor, b: torch.Tensor, h0: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """``h_t = a_t h_{t-1} + b_t`` over a, b (B, T, R) f32 from h0 (B, R) ->
+    (h_seq (B, T, R), h_last (B, R)), as ``rglru_scan.rglru_scan_plain``:
+    one launch on the card, bit for bit."""
+    if _route(a):
+        return lru.rglru_scan_cuda(a, b, h0)
+    return lru.rglru_scan_plain(a, b, h0)
+
+
 _KERNELS = {
     "segmax": segmax,
     "wastage": wastage,
@@ -203,6 +226,8 @@ _KERNELS = {
     "admission_epoch": epoch,
     "moe_dispatch": dispatch,
     "moe_combine": combine,
+    "rwkv_wkv": wkv,
+    "rglru_scan": lru,
 }
 
 

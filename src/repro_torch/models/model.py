@@ -1,7 +1,8 @@
 """Model assembly: a decoder of explicit layers, one module each.
 
 Port of ``repro.models.model`` for the attention kinds ``dense``, ``local``,
-``global`` and ``moe``.  The reference stacks the repetitions of the config's
+``global`` and ``moe`` and the recurrent kinds ``rwkv`` and ``rglru``
+(``models.recurrent``).  The reference stacks the repetitions of the config's
 ``block_pattern`` and runs them with ``lax.scan``; here every layer is its
 own ``Block`` in ``Transformer.layers``, in layer order (``cfg.
 layer_kinds``), and a plain loop runs them.  ``models.convert`` maps the
@@ -14,12 +15,18 @@ Entry points:
                       cache, optionally the head on the last position only);
   * ``decode_step`` - one token per sequence against the cache, which it
                       updates in place;
-  * ``init_cache``  - an empty cache, one ``{k, v, pos}`` dict per layer.
+  * ``init_cache``  - an empty cache, one dict per layer: ``{k, v, pos}``
+                      for an attention layer, the recurrent state
+                      (``{shift, wkv, cm_shift}``, ``{h, conv}``) for an
+                      rwkv or rglru layer.
 
-Both passes run under ``torch.inference_mode()``.  An MoE layer's aux
-loss is computed and dropped by the passes (training, ROADMAP Queue 1 item
-7d, will carry it up).  The recurrent mixers (rwkv, rglru) and the
-modality frontends raise ``NotImplementedError`` (ROADMAP Queue 1 item 7).
+Both passes run under ``torch.inference_mode()``.  A prefill starts every
+recurrent layer from the zero state; a decode step writes each layer's
+new state into the cache's tensors in place, as it writes an attention
+layer's k, v and position.  An MoE layer's aux loss is computed and
+dropped by the passes (training, ROADMAP Queue 1 item 7d, will carry it
+up).  The modality frontends raise ``NotImplementedError`` (ROADMAP Queue
+1 item 7c).
 """
 
 from __future__ import annotations
@@ -30,12 +37,10 @@ from torch import nn
 from repro_torch.configs.base import ModelConfig
 from repro_torch.device import resolve_device
 from repro_torch.models import layers as L
+from repro_torch.models import recurrent as R
 
 ATTN_KINDS = ("dense", "local", "global", "moe")
-_NOT_PORTED = {
-    "rwkv": "rwkv layers are not ported yet (ROADMAP Queue 1 item 7b)",
-    "rglru": "rglru layers are not ported yet (ROADMAP Queue 1 item 7b)",
-}
+RECURRENT_KINDS = ("rwkv", "rglru")
 
 
 class _Params(nn.Module):
@@ -76,19 +81,48 @@ class MoE(_Params):
         self._register(L.init_moe(cfg, gen, device))
 
 
+class TimeMix(_Params):
+    """An rwkv layer's time mix, with its RMS norm over D (``out_norm``)."""
+
+    def __init__(self, cfg: ModelConfig, gen: torch.Generator | None, device=None):
+        super().__init__()
+        self._register(R.init_rwkv_time_mix(cfg, gen, device))
+        self.out_norm = RMSNorm(cfg.d_model, device)
+
+
+class ChannelMix(_Params):
+    def __init__(self, cfg: ModelConfig, gen: torch.Generator | None, device=None):
+        super().__init__()
+        self._register(R.init_rwkv_channel_mix(cfg, gen, device))
+
+
+class RGLRU(_Params):
+    def __init__(self, cfg: ModelConfig, gen: torch.Generator | None, device=None):
+        super().__init__()
+        self._register(R.init_rglru_block(cfg, gen, device))
+
+
 class Block(nn.Module):
-    """One attention layer: pre-norm attention and MLP (routed experts,
-    ``moe``, on an MoE layer), with gemma2's post-norms when the config has
-    them."""
+    """One layer.  Attention kinds: pre-norm attention and MLP (routed
+    experts, ``moe``, on an MoE layer), with gemma2's post-norms when the
+    config has them.  ``rwkv``: pre-norm time mix (``tm``) and channel mix
+    (``cm``).  ``rglru``: pre-norm RG-LRU block (``rec``) and MLP.  The
+    submodules carry the reference's subtree names."""
 
     def __init__(self, cfg: ModelConfig, kind: str, gen: torch.Generator | None, device=None):
         super().__init__()
-        if kind in _NOT_PORTED:
-            raise NotImplementedError(_NOT_PORTED[kind])
-        if kind not in ATTN_KINDS:
+        if kind not in ATTN_KINDS + RECURRENT_KINDS:
             raise ValueError(f"unknown layer kind {kind!r}")
         self.cfg, self.kind = cfg, kind
         D = cfg.d_model
+        if kind == "rwkv":
+            self.ln1, self.tm = RMSNorm(D, device), TimeMix(cfg, gen, device)
+            self.ln2, self.cm = RMSNorm(D, device), ChannelMix(cfg, gen, device)
+            return
+        if kind == "rglru":
+            self.ln1, self.rec = RMSNorm(D, device), RGLRU(cfg, gen, device)
+            self.ln2, self.mlp = RMSNorm(D, device), MLP(cfg, gen, device)
+            return
         self.ln1 = RMSNorm(D, device)
         self.attn = Attention(cfg, gen, device)
         self.ln2 = RMSNorm(D, device)
@@ -133,13 +167,16 @@ def init_params(cfg: ModelConfig, seed: int = 0, device=None) -> Transformer:
 
 
 def init_layer_cache(cfg: ModelConfig, kind: str, batch: int, max_len: int, device=None):
-    if kind in _NOT_PORTED:
-        raise NotImplementedError(_NOT_PORTED[kind])
+    if kind == "rwkv":
+        return R.init_rwkv_state(cfg, batch, device)
+    if kind == "rglru":
+        return R.init_rglru_state(cfg, batch, device)
     return L.build_cache(cfg, batch, max_len, local=(kind == "local"), device=device)
 
 
 def init_cache(cfg: ModelConfig, batch: int, max_len: int, device=None) -> list[dict[str, torch.Tensor]]:
-    """Empty decode cache: one ``{k, v, pos}`` per layer, in layer order."""
+    """Empty decode cache, one dict per layer in layer order: ``{k, v,
+    pos}`` for an attention layer, the zero state for a recurrent one."""
     dev = resolve_device(device)
     return [init_layer_cache(cfg, kind, batch, max_len, dev) for kind in cfg.layer_kinds]
 
@@ -155,6 +192,8 @@ def apply_layer(block: Block, x, positions, cache=None, *, want_cache: bool = Fa
     positions (B,)) is a decode step, which updates the cache in place.
     ``aux`` is an MoE layer's load-balancing loss (0.0 for the others)."""
     cfg = block.cfg
+    if block.kind in RECURRENT_KINDS:
+        return _apply_recurrent(block, x, cache, want_cache=want_cache)
     h = L.rms_norm(block.ln1, x, cfg.norm_eps)
     if cache is None or x.shape[1] != 1:  # prefill
         positions, cache = positions.expand(h.shape[:2]), None
@@ -171,6 +210,36 @@ def apply_layer(block: Block, x, positions, cache=None, *, want_cache: bool = Fa
     if cfg.use_post_norm:
         ff = L.rms_norm(block.ln2_post, ff, cfg.norm_eps)
     return x + ff, new_cache, aux
+
+
+def _apply_recurrent(block: Block, x, cache, *, want_cache: bool):
+    """An rwkv or rglru layer (``repro.models.model.apply_layer``'s recurrent
+    kinds).  A prefill starts from the zero state and, with ``want_cache``,
+    returns the new state; a decode step (a cache and one token) starts from
+    the cache's state and copies the new one into its tensors in place."""
+    cfg = block.cfg
+    decode = cache is not None and x.shape[1] == 1
+    B = x.shape[0]
+    h = L.rms_norm(block.ln1, x, cfg.norm_eps)
+    if block.kind == "rwkv":
+        state = cache if decode else R.init_rwkv_state(cfg, B, x.device)
+        tm_out, tm_state = R.rwkv_time_mix(block.tm, h, cfg, {"shift": state["shift"], "wkv": state["wkv"]})
+        x = x + tm_out
+        h = L.rms_norm(block.ln2, x, cfg.norm_eps)
+        cm_out, cm_shift = R.rwkv_channel_mix(block.cm, h, cfg, state["cm_shift"])
+        new_state = {"shift": tm_state["shift"], "wkv": tm_state["wkv"], "cm_shift": cm_shift}
+        x = x + cm_out
+    else:
+        state = cache if decode else R.init_rglru_state(cfg, B, x.device)
+        rec_out, new_state = R.rglru_block(block.rec, h, cfg, state)
+        x = x + rec_out
+        h = L.rms_norm(block.ln2, x, cfg.norm_eps)
+        x = x + L.mlp(block.mlp, h, cfg.mlp_activation)
+    if decode:
+        for name, t in new_state.items():
+            cache[name].copy_(t)
+        return x, cache, 0.0
+    return x, ({n: t.contiguous() for n, t in new_state.items()} if want_cache else None), 0.0
 
 
 def _embed_inputs(model: Transformer, tokens: torch.Tensor) -> torch.Tensor:

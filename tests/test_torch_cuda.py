@@ -21,7 +21,10 @@ and the reduced MoE model's float32 logits within 1e-4 as the dense
 ones.  The fitstats bank within 1e-5 of each statistic's sum of
 absolute terms of its plain version (float32 sums in another order;
 relative to the terms because sums of u cancel), and bitwise equal from
-run to run."""
+run to run.  The WKV recurrence's o and S within 1e-4 of max |o| and max
+|S| of its plain version (the token order against the reference's chunk
+form), the RG-LRU scan bit for bit, and the reduced recurrent models'
+float32 logits within 1e-4 as the dense ones."""
 
 import numpy as np
 import pytest
@@ -30,7 +33,8 @@ import torch
 from repro_torch.core.allocation import attempt_outcomes_batch
 from repro_torch.core.segmentation import segment_peaks_dynamic
 from repro_torch import kernels
-from repro_torch.kernels import compaction, fitstats, flash, moe_combine, moe_dispatch, ops, rangemax, scan, segmax, wastage
+from repro_torch.kernels import (compaction, fitstats, flash, moe_combine, moe_dispatch, ops, rangemax, rglru_scan,
+                                  rwkv_wkv, scan, segmax, wastage)
 
 WASTE_TOL = dict(rtol=1e-5, atol=1e-4)
 WASTE_TOL_F64 = dict(rtol=1e-9, atol=1e-9)
@@ -1566,3 +1570,147 @@ def test_launcher_serves_an_moe_model_on_card(cuda):
     assert res["done"] == 8 and all(o.is_cuda for o in res["outputs"])
     counts = ops.launch_counts()
     assert counts["flash"] > 0 and counts["moe_dispatch"] > 0 and counts["moe_combine"] == counts["moe_dispatch"]
+
+
+# ---------------------------------------------------------------------------
+# the recurrent mixers: WKV and RG-LRU
+# ---------------------------------------------------------------------------
+
+WKV_TOL = 1e-4  # of max |o| and of max |S|: the token order against the plain version's chunk form
+
+
+def wkv_inputs(B: int, T: int, H: int, seed: int):
+    """r, k, v (B, T, H, 64) N(0, 1), logw in [-1.2, -1e-6] (as the time
+    mix clamps it, some at each end), u (H, 64) and a nonzero S0 (B, H, 64,
+    64), float32 numpy (shared with the CPU tests)."""
+    hd = 64
+    rng = np.random.default_rng(seed)
+    r, k, v = (rng.standard_normal((B, T, H, hd)).astype(np.float32) for _ in range(3))
+    logw = np.clip(-np.exp(rng.uniform(-4.0, 0.5, (B, T, H, hd))), -1.2, -1e-6).astype(np.float32)
+    u = (rng.standard_normal((H, hd)) * 0.1).astype(np.float32)
+    S0 = rng.standard_normal((B, H, hd, hd)).astype(np.float32)
+    return r, k, v, logw, u, S0
+
+
+def rglru_inputs(B: int, T: int, R: int, seed: int):
+    """a in (0, 1) and b as the RG-LRU block makes them, and a nonzero h0,
+    float32 numpy."""
+    rng = np.random.default_rng(seed)
+    a = np.exp(-8.0 * np.log1p(np.exp(4.0)) * rng.random((B, T, R))).astype(np.float32)
+    b = (np.sqrt(np.maximum(1.0 - a.astype(np.float64) ** 2, 1e-12)) * rng.standard_normal((B, T, R))).astype(np.float32)
+    return a, b, rng.standard_normal((B, R)).astype(np.float32)
+
+
+@pytest.mark.parametrize("B,T,H", [(3, 37, 2), (3, 1, 2), (2, 64, 2), (1, 200, 3), (2, 16, 32)])
+def test_wkv_kernel_matches_plain_on_card(cuda, B, T, H):
+    args = [torch.from_numpy(a).to(cuda) for a in wkv_inputs(B, T, H, seed=B * T + H)]
+    before = rwkv_wkv.launches
+    o, S = ops.rwkv_wkv(*args)
+    assert rwkv_wkv.launches == before + 1
+    want_o, want_S = rwkv_wkv.wkv_plain(*args)
+    torch.cuda.synchronize()
+    assert o.shape == (B, T, H, 64) and S.shape == (B, H, 64, 64)
+    assert (o - want_o).abs().max().item() <= WKV_TOL * want_o.abs().max().item()
+    assert (S - want_S).abs().max().item() <= WKV_TOL * want_S.abs().max().item()
+
+
+def test_wkv_kernel_takes_unaligned_views_on_card(cuda):
+    r, k, v, logw, u, S0 = (torch.from_numpy(a).to(cuda) for a in wkv_inputs(2, 5, 2, seed=7))
+    flat = torch.zeros(r.numel() + 1, device=cuda)
+    flat[1:] = r.flatten()
+    r_off = flat[1:].view(r.shape)  # 4 bytes past the allocation's base
+    o, S = ops.rwkv_wkv(r_off, k, v, logw, u, S0)
+    want_o, want_S = rwkv_wkv.wkv_plain(r, k, v, logw, u, S0)
+    assert (o - want_o).abs().max().item() <= WKV_TOL * want_o.abs().max().item()
+
+
+@pytest.mark.parametrize("B,T,R", [(3, 37, 70), (3, 1, 70), (2, 300, 2560), (1, 4096, 33)])
+def test_rglru_scan_kernel_matches_plain_on_card(cuda, B, T, R):
+    a, b, h0 = (torch.from_numpy(x).to(cuda) for x in rglru_inputs(B, T, R, seed=T + R))
+    before = rglru_scan.launches
+    h_seq, h_last = ops.rglru_scan(a, b, h0)
+    assert rglru_scan.launches == before + 1
+    want_seq, want_last = rglru_scan.rglru_scan_plain(a, b, h0)
+    torch.cuda.synchronize()
+    assert torch.equal(h_seq, want_seq) and torch.equal(h_last, want_last)
+
+
+def test_recurrent_kernels_refuse_what_they_cannot_take(cuda):
+    r, k, v, logw, u, S0 = (torch.from_numpy(a).to(cuda) for a in wkv_inputs(1, 3, 1, seed=1))
+    with pytest.raises(ValueError, match="head size 64"):
+        rwkv_wkv.rwkv_wkv_cuda(r[..., :32].contiguous(), k[..., :32].contiguous(), v[..., :32].contiguous(),
+                               logw[..., :32].contiguous(), u[:, :32].contiguous(), S0[..., :32, :32].contiguous())
+    with pytest.raises(ValueError, match="CUDA tensors"):
+        rwkv_wkv.rwkv_wkv_cuda(r.cpu(), k.cpu(), v.cpu(), logw.cpu(), u.cpu(), S0.cpu())
+    a, b, h0 = (torch.from_numpy(x).to(cuda) for x in rglru_inputs(1, 3, 4, seed=1))
+    with pytest.raises(ValueError, match="float32"):
+        rglru_scan.rglru_scan_cuda(a.double(), b.double(), h0.double())
+    with pytest.raises(ValueError, match="CUDA tensors"):
+        rglru_scan.rglru_scan_cuda(a.cpu(), b.cpu(), h0.cpu())
+
+
+@pytest.mark.parametrize("name", ["rwkv6-1.6b", "recurrentgemma-2b"])
+def test_reduced_recurrent_model_on_card_matches_cpu_run(cuda, name, monkeypatch):
+    """A reduced recurrent model in float32 on the card against the same
+    weights on the CPU: prefill, decode (the state written in place) and
+    greedy generation.  On the card the recurrences never reach their
+    plain versions: each call is one launch of its kernel."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.models.model import decode_step, forward, init_params
+    from repro_torch.serve.engine import greedy_generate
+
+    cfg = dataclasses.replace(get_config(name).reduced(), dtype="float32", d_model=128)
+    cpu = init_params(cfg, seed=3, device="cpu")
+    card = init_params(cfg, seed=0, device=cuda)
+    card.load_state_dict(cpu.state_dict())
+    tokens = torch.from_numpy(np.random.default_rng(1).integers(0, cfg.vocab_size, (2, 71)).astype(np.int32))
+    T = 70
+
+    wkv_plain, lru_plain = rwkv_wkv.wkv_plain, rglru_scan.rglru_scan_plain
+
+    def guard(fn):
+        def call(*args):
+            assert not any(isinstance(t, torch.Tensor) and t.is_cuda for t in args), "a CUDA tensor reached a plain version"
+            return fn(*args)
+        return call
+
+    monkeypatch.setattr(rwkv_wkv, "wkv_plain", guard(wkv_plain))
+    monkeypatch.setattr(rglru_scan, "rglru_scan_plain", guard(lru_plain))
+    ops.reset_launch_counts()
+    full, _ = forward(card, tokens.to(cuda))
+    _, cache = forward(card, tokens[:, :T].to(cuda), want_cache=True, cache_len=T + 8)
+    held = [{n: t.data_ptr() for n, t in c.items()} for c in cache]
+    dec, cache = decode_step(card, cache, tokens[:, T:].to(cuda), torch.full((2,), T, dtype=torch.int32))
+    assert held == [{n: t.data_ptr() for n, t in c.items()} for c in cache]  # written in place
+    counts = ops.launch_counts()
+    kind = "rwkv" if name.startswith("rwkv") else "rglru"
+    n_rec = sum(k == kind for k in cfg.layer_kinds)
+    assert counts["rwkv_wkv" if kind == "rwkv" else "rglru_scan"] == 3 * n_rec
+    want_full, _ = forward(cpu, tokens)
+    _, cpu_cache = forward(cpu, tokens[:, :T], want_cache=True, cache_len=T + 8)
+    want_dec, cpu_cache = decode_step(cpu, cpu_cache, tokens[:, T:], torch.full((2,), T, dtype=torch.int32))
+    scale = want_full.abs().max().item()
+    assert (full.cpu() - want_full).abs().max().item() <= 1e-4 * scale
+    assert (dec.cpu() - want_dec).abs().max().item() <= 1e-4 * scale
+    for c, w in zip(cache, cpu_cache):
+        for n in c:
+            assert (c[n].cpu().float() - w[n].float()).abs().max().item() <= 1e-4 * w[n].float().abs().max().item(), n
+    got = greedy_generate(card, cfg, tokens[:, :12], steps=6)
+    want = greedy_generate(cpu, cfg, tokens[:, :12], steps=6, device="cpu")
+    assert torch.equal(got.cpu(), want)
+
+
+@pytest.mark.parametrize("name", ["rwkv6-1.6b", "recurrentgemma-2b"])
+def test_launcher_serves_a_recurrent_model_on_card(cuda, name):
+    from repro_torch.launch import serve as launch_serve
+
+    ops.reset_launch_counts()
+    res = launch_serve.main(["--arch", name, "--requests", "8"])
+    assert res["done"] == 8 and all(o.is_cuda for o in res["outputs"])
+    counts = ops.launch_counts()
+    if name.startswith("rwkv"):
+        assert counts["rwkv_wkv"] > 0 and counts["flash"] == 0
+    else:
+        assert counts["rglru_scan"] > 0 and counts["flash"] > 0

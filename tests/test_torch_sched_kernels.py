@@ -111,7 +111,7 @@ def test_cpu_tensors_take_the_plain_versions_and_no_kernel():
     assert admits.tolist() == [True]
     assert ops.launch_counts() == {"segmax": 0, "wastage": 0, "rangemax": 0, "compaction": 0, "fitstats": 0, "flash": 0,
                                    "scan": 0, "admission": 0, "admission_epoch": 0, "moe_dispatch": 0,
-                                   "moe_combine": 0}
+                                   "moe_combine": 0, "rwkv_wkv": 0, "rglru_scan": 0}
 
 
 def test_dispatch_has_no_fallback_for_other_devices():

@@ -6,6 +6,7 @@ prompt tokens, the same greedy tokens.  Admission: the port's scalar
 like the reference's, so decisions, plans and predictions must be equal
 exactly, on the seeded streams of ``tests/test_serving.py``."""
 
+import collections
 import dataclasses
 
 import jax
@@ -19,6 +20,7 @@ from repro.configs.registry import ARCHS as REF_ARCHS
 from repro.core.allocation import StepAllocation as RefStepAllocation
 from repro.core.ksegments import KSegmentsConfig as RefKSegmentsConfig
 from repro.core.ksegments import KSegmentsModel as RefKSegmentsModel
+from repro.models import init_cache as ref_init_cache
 from repro.models import init_params as ref_init_params
 from repro.serve import AdmissionController as RefAdmissionController
 from repro.serve.admission import cache_bytes_per_token as ref_cache_bytes_per_token
@@ -82,6 +84,30 @@ def test_launcher_serves_an_moe_model_on_cpu():
     vocab = get_config("qwen3-moe-235b-a22b").reduced().vocab_size
     assert out["done"] == 4 and sum(o.shape[0] for o in out["outputs"]) == 4
     assert all(o.shape[1] == 16 and int(o.min()) >= 0 and int(o.max()) < vocab for o in out["outputs"])
+
+
+@pytest.mark.parametrize("name", ["rwkv6-1.6b", "recurrentgemma-2b"])
+def test_launcher_serves_a_recurrent_model_on_cpu(name):
+    """The reduced rwkv6 and recurrentgemma through the launcher: their
+    recurrences take the plain versions on the CPU; the decode steps carry
+    the recurrent state in the cache."""
+    out = launch_serve.main(["--arch", name, "--device", "cpu", "--requests", "5", "--decode-steps", "6"])
+    vocab = get_config(name).reduced().vocab_size
+    assert out["done"] == 5 and out["rejected"] == 0 and sum(o.shape[0] for o in out["outputs"]) == 5
+    assert all(o.shape[1] == 6 and int(o.min()) >= 0 and int(o.max()) < vocab for o in out["outputs"])
+
+
+def test_greedy_generate_of_a_recurrent_model_matches_reference():
+    """The reduced recurrentgemma (rglru and local layers) in float32: the
+    reference's greedy tokens."""
+    rcfg = dataclasses.replace(ref_config("recurrentgemma-2b").reduced(), dtype="float32")
+    cfg = dataclasses.replace(get_config("recurrentgemma-2b").reduced(), dtype="float32")
+    params = ref_init_params(jax.random.PRNGKey(0), rcfg)
+    model = load_params(cfg, jax.tree.map(np.asarray, params), device="cpu")
+    tokens = np.random.default_rng(2).integers(0, cfg.vocab_size, (2, 12)).astype(np.int32)
+    want = np.asarray(ref_greedy_generate(params, rcfg, jnp.asarray(tokens), steps=5))
+    got = greedy_generate(model, cfg, torch.from_numpy(tokens), steps=5, device="cpu")
+    np.testing.assert_array_equal(got.numpy(), want)
 
 
 def test_admission_engine_registry():
@@ -236,13 +262,27 @@ def test_ksegments_model_predicts_like_the_reference(error_mode, window, offset_
 
 @pytest.mark.parametrize("name", sorted(ARCHS))
 def test_cache_bytes_per_token(name):
-    """Equal to the reference's for every config, and to the bytes of the
-    port's own cache for every config the port runs."""
+    """Equal to the reference's for every config, and to the k and v bytes
+    of the port's own cache for every config the port runs; a recurrent
+    layer's state (no bytes a token) takes the bytes of the reference's
+    state of that name."""
     cfg = ARCHS[name]
     assert cache_bytes_per_token(cfg) == ref_cache_bytes_per_token(REF_ARCHS[name])
-    if cfg.frontend is not None or set(cfg.layer_kinds) & {"rwkv", "rglru"}:
+    if cfg.frontend is not None:
         return
     batch, max_len = 1, 7
     cache = init_cache(cfg, batch, max_len, device="cpu")
-    kv = sum(c[n].numel() * c[n].element_size() for c in cache for n in ("k", "v"))
+    kv = sum(c[n].numel() * c[n].element_size() for c in cache if "k" in c for n in ("k", "v"))
     assert kv == batch * max_len * cache_bytes_per_token(cfg)
+    ref = jax.eval_shape(lambda: ref_init_cache(REF_ARCHS[name], batch, max_len))
+    ref_bytes = collections.Counter()
+    for path, leaf in jax.tree_util.tree_leaves_with_path(ref):
+        ref_bytes[path[-1].key] += leaf.size * leaf.dtype.itemsize
+    got_bytes = collections.Counter()
+    for c in cache:
+        for n, t in c.items():
+            got_bytes[n] += t.numel() * t.element_size()
+    states = {"shift", "wkv", "cm_shift", "h", "conv"}
+    assert {n: b for n, b in got_bytes.items() if n in states} == {n: b for n, b in ref_bytes.items() if n in states}
+    assert (set(got_bytes) & states) == ({"shift", "wkv", "cm_shift"} if "rwkv" in cfg.layer_kinds else
+                                         {"h", "conv"} if "rglru" in cfg.layer_kinds else set())
