@@ -46,7 +46,8 @@ def _launcher():
 
 def rglru_scan_cuda(a: torch.Tensor, b: torch.Tensor, h0: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
     """``rglru_scan_plain`` on the card, bit for bit: one launch, a thread a
-    channel."""
+    channel in token order, a and b fed through a ring of asynchronous
+    copies in shared memory (any alignment of the rows)."""
     global launches
     build.check_cuda("rglru_scan", a)
     dev = a.device

@@ -80,7 +80,10 @@ def _launcher():
 
 def rwkv_wkv_cuda(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor, logw: torch.Tensor, u: torch.Tensor,
                   S0: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
-    """``wkv_plain`` on the card in the token order: one launch, any T."""
+    """``wkv_plain`` on the card: one launch, any T.  Prefill computes the
+    plain version's chunk form on the tensor cores (three TF32 passes a
+    product), a block per (b, h, half of the value columns) walking its
+    chunks in order; T = 1 takes the token form."""
     global launches
     build.check_cuda("rwkv_wkv", r)
     dev = r.device

@@ -22,8 +22,9 @@ ones.  The fitstats bank within 1e-5 of each statistic's sum of
 absolute terms of its plain version (float32 sums in another order;
 relative to the terms because sums of u cancel), and bitwise equal from
 run to run.  The WKV recurrence's o and S within 1e-4 of max |o| and max
-|S| of its plain version (the token order against the reference's chunk
-form), the RG-LRU scan bit for bit, and the reduced recurrent models'
+|S| of its plain version (the kernel's three-pass TF32 products and the
+plain version's float32 ones sum the same chunk form in other orders),
+the RG-LRU scan bit for bit, and the reduced recurrent models'
 float32 logits within 1e-4 as the dense ones."""
 
 import numpy as np
@@ -1576,7 +1577,7 @@ def test_launcher_serves_an_moe_model_on_card(cuda):
 # the recurrent mixers: WKV and RG-LRU
 # ---------------------------------------------------------------------------
 
-WKV_TOL = 1e-4  # of max |o| and of max |S|: the token order against the plain version's chunk form
+WKV_TOL = 1e-4  # of max |o| and of max |S|: the chunk form on the tensor cores (3 TF32 passes) against float32
 
 
 def wkv_inputs(B: int, T: int, H: int, seed: int):
@@ -1592,6 +1593,16 @@ def wkv_inputs(B: int, T: int, H: int, seed: int):
     return r, k, v, logw, u, S0
 
 
+def wkv_clamp_inputs(B: int, T: int, H: int, seed: int):
+    """``wkv_inputs`` with logw at the clamp -1.2 over every even chunk of
+    64 tokens: the largest exp(-c) the chunk form meets (exp(76.8)), from
+    a nonzero S0."""
+    r, k, v, logw, u, S0 = wkv_inputs(B, T, H, seed)
+    for t0 in range(0, T, 128):
+        logw[:, t0:t0 + 64] = np.float32(-1.2)
+    return r, k, v, logw, u, S0
+
+
 def rglru_inputs(B: int, T: int, R: int, seed: int):
     """a in (0, 1) and b as the RG-LRU block makes them, and a nonzero h0,
     float32 numpy."""
@@ -1601,7 +1612,8 @@ def rglru_inputs(B: int, T: int, R: int, seed: int):
     return a, b, rng.standard_normal((B, R)).astype(np.float32)
 
 
-@pytest.mark.parametrize("B,T,H", [(3, 37, 2), (3, 1, 2), (2, 64, 2), (1, 200, 3), (2, 16, 32)])
+@pytest.mark.parametrize("B,T,H", [(3, 37, 2), (3, 1, 2), (2, 64, 2), (1, 200, 3), (2, 16, 32), (2, 63, 2), (1, 64, 3),
+                                   (2, 65, 2), (2, 129, 3), (2, 4096, 32)])
 def test_wkv_kernel_matches_plain_on_card(cuda, B, T, H):
     args = [torch.from_numpy(a).to(cuda) for a in wkv_inputs(B, T, H, seed=B * T + H)]
     before = rwkv_wkv.launches
@@ -1610,6 +1622,19 @@ def test_wkv_kernel_matches_plain_on_card(cuda, B, T, H):
     want_o, want_S = rwkv_wkv.wkv_plain(*args)
     torch.cuda.synchronize()
     assert o.shape == (B, T, H, 64) and S.shape == (B, H, 64, 64)
+    assert (o - want_o).abs().max().item() <= WKV_TOL * want_o.abs().max().item()
+    assert (S - want_S).abs().max().item() <= WKV_TOL * want_S.abs().max().item()
+
+
+@pytest.mark.parametrize("T", [64, 300])
+def test_wkv_kernel_at_the_decay_clamp_on_card(cuda, T):
+    """logw at -1.2 for whole chunks, from a nonzero state: k_f reaches
+    ~exp(76.8) |k| and q_f ~exp(-76.8) |r| within a chunk."""
+    args = [torch.from_numpy(a).to(cuda) for a in wkv_clamp_inputs(2, T, 3, seed=T)]
+    o, S = ops.rwkv_wkv(*args)
+    want_o, want_S = rwkv_wkv.wkv_plain(*args)
+    torch.cuda.synchronize()
+    assert torch.isfinite(o).all() and torch.isfinite(S).all()
     assert (o - want_o).abs().max().item() <= WKV_TOL * want_o.abs().max().item()
     assert (S - want_S).abs().max().item() <= WKV_TOL * want_S.abs().max().item()
 
@@ -1624,11 +1649,31 @@ def test_wkv_kernel_takes_unaligned_views_on_card(cuda):
     assert (o - want_o).abs().max().item() <= WKV_TOL * want_o.abs().max().item()
 
 
-@pytest.mark.parametrize("B,T,R", [(3, 37, 70), (3, 1, 70), (2, 300, 2560), (1, 4096, 33)])
+@pytest.mark.parametrize("B,T,R", [(3, 37, 70), (3, 1, 70), (2, 300, 2560), (1, 4096, 33), (3, 1000, 2560),
+                                   (2, 129, 96), (1, 2, 2560)])
 def test_rglru_scan_kernel_matches_plain_on_card(cuda, B, T, R):
     a, b, h0 = (torch.from_numpy(x).to(cuda) for x in rglru_inputs(B, T, R, seed=T + R))
     before = rglru_scan.launches
     h_seq, h_last = ops.rglru_scan(a, b, h0)
+    assert rglru_scan.launches == before + 1
+    want_seq, want_last = rglru_scan.rglru_scan_plain(a, b, h0)
+    torch.cuda.synchronize()
+    assert torch.equal(h_seq, want_seq) and torch.equal(h_last, want_last)
+
+
+@pytest.mark.parametrize("R", [2560, 70])
+def test_rglru_scan_kernel_takes_unaligned_rows_on_card(cuda, R):
+    """a, b and h0 views 4 bytes past a 16-byte boundary: the kernel's
+    4-byte copies, never the plain version."""
+    a, b, h0 = (torch.from_numpy(x).to(cuda) for x in rglru_inputs(2, 333, R, seed=R))
+    views = []
+    for x in (a, b, h0):
+        flat = torch.zeros(x.numel() + 1, device=cuda)
+        flat[1:] = x.flatten()
+        views.append(flat[1:].view(x.shape))
+    assert all(x.data_ptr() % 16 == 4 for x in views)
+    before = rglru_scan.launches
+    h_seq, h_last = ops.rglru_scan(*views)
     assert rglru_scan.launches == before + 1
     want_seq, want_last = rglru_scan.rglru_scan_plain(a, b, h0)
     torch.cuda.synchronize()

@@ -25,7 +25,7 @@ from repro_torch.kernels.rglru_scan import rglru_scan_plain
 from repro_torch.kernels.rwkv_wkv import wkv_plain
 from repro_torch.models import recurrent as PR
 from repro_torch.models.convert import _tensor
-from test_torch_cuda import rglru_inputs, wkv_inputs
+from test_torch_cuda import rglru_inputs, wkv_clamp_inputs, wkv_inputs
 
 TOL = {"float32": 1e-4, "bfloat16": 2e-2}
 B, D = 2, 128
@@ -165,12 +165,14 @@ def _wkv_f64(r, k, v, logw, u, S0):
     return o, S
 
 
-@pytest.mark.parametrize("T", [1, 37, 64, 70, 130])
-def test_wkv_plain_is_the_recurrence(T):
+@pytest.mark.parametrize("T,clamp", [pytest.param(T, False, id=str(T)) for T in (1, 37, 64, 70, 130)]
+                         + [pytest.param(T, True, id=f"clamp-{T}") for T in (64, 200)])
+def test_wkv_plain_is_the_recurrence(T, clamp):
     """The plain version (the reference's chunk form, its single step at
     T = 1) against the token recurrence in float64, two heads whose decays
-    differ by channel, from a nonzero state."""
-    args = wkv_inputs(2, T, 2, seed=T)
+    differ by channel, from a nonzero state; with ``clamp``, logw at -1.2
+    over every even chunk (the largest exp(-c) the chunk form meets)."""
+    args = (wkv_clamp_inputs if clamp else wkv_inputs)(2, T, 2, seed=T)
     o, S = wkv_plain(*(torch.from_numpy(a) for a in args))
     want_o, want_S = _wkv_f64(*(a.astype(np.float64) for a in args))
     assert _rel(want_o, o.numpy()) <= 1e-5 and _rel(want_S, S.numpy()) <= 1e-5
