@@ -186,6 +186,36 @@ Phases, each of which fails the run on a wrong result:
    device launch a call (from the profiler's events), CUDA-event and
    profiled device time beside the bound and the plain version's time (no
    library yardstick: no single PyTorch call runs either recurrence).
+15. the modality frontends, bf16, random weights from seed 0, phase 14's
+   models freed before: (a) hubert-xlarge at full width and depth (48
+   layers, d_model 1,280, 16 heads of 80, non-causal, d_ff 5,120, vocab
+   504, 512-dim frames) encoding B 8 x 1,500 seeded N(0, 1) frames (eight
+   30-s clips at 50 frames a second): encode wall (median of 3) and
+   frames/s, one flash launch a layer, logits finite of shape (8, 1,500,
+   504) and the same across the repeats, ``make_prefill_step``'s logits
+   forward's last position, a new last frame moving the first frame's
+   logits (non-causal), a profiled encode (device time of flash, the
+   products and the rest), the plain attention within 2e-2 x max
+   |logits| with the weights in float32 and within max(2e-2, twice the
+   bf16 encode's distance from the float32 one) in bf16; (b) qwen2-vl-72b
+   at full width (d_model 8,192, 64/8 heads of 128, d_ff 29,568, vocab
+   152,064, M-RoPE sections (16, 24, 24)), its
+   depth cut to 16 of 80 layers (a layer is 1.755 GB of bf16), B 2 x 4,096
+   tokens whose first 256 carry seeded patch embeddings (one 448 x 448
+   image: a 16 x 16 grid of merged patches) with Qwen2-VL's M-RoPE rows
+   (image tokens (0, row, col), text from 16 on all three rows, decode
+   steps after it; the cache's positions the sequence's): prefill wall
+   (median of 3), ms per decode step and tokens/s (medians of 5) through
+   ``make_prefill_step`` / ``make_decode_step``, 16 greedy tokens the same
+   across the repeats, one flash launch a layer call, a profiled prefill
+   and decode (flash, products, rest, busy share, launches a step); (c)
+   the cache contract within 2e-2 (every cache holding the sequence
+   positions); (d) the plain attention in (b)'s prefill within 2e-2; (e)
+   the sequence index on all three M-RoPE rows moving the last logits by
+   more than (d)'s distance; (f) flash alone at the three new shapes
+   (hubert's prefill, qwen2-vl's prefill and its G = 8 decode over a
+   ragged 4,112-slot cache) as phase 7, beside the bound, the plain
+   version and SDPA.
 
 Prints the card's name and power limit, a ``{"kernels": [...]}`` line, and
 as its last line ``{"ok": true, "device": {...}}``.  Exits non-zero without
@@ -1246,7 +1276,7 @@ def _flash_case_inputs(B, T, S, H, KV, hd, dtype, seed, dev, ragged=None, window
 
 def _flash_mask(qpos, kpos, causal, window):
     """(B, T, S) bool: the key slots each query attends to."""
-    ok = (kpos >= 0)[:, None, :]
+    ok = (kpos >= 0)[:, None, :].expand(qpos.shape[0], qpos.shape[1], kpos.shape[1])  # every query's row, non-causal too
     if causal:
         ok = ok & (kpos[:, None, :] <= qpos[:, :, None])
     if window is not None:
@@ -1275,9 +1305,6 @@ def _flash_device_ms(call, n: int) -> tuple[float, dict]:
 def flash_phase(dev) -> dict:
     """flash against its plain version; times at the main path's shapes."""
     import torch
-    import torch.nn.functional as F
-
-    from repro_torch.kernels import flash
 
     sms = torch.cuda.get_device_properties(dev).multi_processor_count
     # name, (B, T, S, H, KV, hd), causal, window, softcap, positions, timed
@@ -1303,60 +1330,78 @@ def flash_phase(dev) -> dict:
     ]
     out = {}
     print("flash phase: kernel vs plain; f32 atol 3e-5 rtol 1e-4, bf16 max|d| <= 1e-2 and mean|d| <= 1e-3")
-    for i, (name, (B, T, S, H, KV, hd), causal, window, cap, ragged, timed) in enumerate(cases):
-        kw = dict(causal=causal, window=window, softcap=cap)
-        for dtype in (torch.float32, torch.bfloat16):
-            q, k, v, qp, kp = _flash_case_inputs(B, T, S, H, KV, hd, dtype, 100 + i, dev, ragged, window)
-            got = flash.flash_attention_cuda(q, k, v, qp, kp, **kw)
-            want = flash.flash_attention_plain(q, k, v, qp, kp, **kw)
-            torch.cuda.synchronize()
-            d = (got.float() - want.float()).abs()
-            err, mean = d.max().item(), d.mean().item()
-            if not torch.isfinite(got.float()).all():
-                _fail(f"flash {name} {dtype}: non-finite output")
-            if dtype == torch.float32:
-                if not torch.allclose(got, want, atol=3e-5, rtol=1e-4):
-                    _fail(f"flash {name} f32: max |d| {err:.3e} beyond atol 3e-5 / rtol 1e-4")
-            elif err > 1e-2 or mean > 1e-3:
-                _fail(f"flash {name} bf16: max |d| {err:.3e} (limit 1e-2), mean |d| {mean:.3e} (limit 1e-3)")
-            mask = _flash_mask(qp, kp, causal, window)
-            path, bm, bn = flash.kernel_plan(dtype, hd, T * (H // KV))
-            splits = flash.decode_splits(B, KV, S, sms) if path == "split" else 1
-            live = flash.flash_tile_live(qp, kp, H // KV, bm, bn, causal=causal, window=window)
-            skipped = 1.0 - live.float().mean().item()
-            line = (f"  {name:20s} {str(dtype)[6:]:8s} B{B} T{T} S{S} H{H} KV{KV} hd{hd}: "
-                    f"max |d| {err:.3e}, mean {mean:.3e}; {path} {bm}x{bn}"
-                    f"{f', {splits} splits' if path == 'split' else ''}, {100 * skipped:.1f}% of KV tiles skipped"
-                    f"{f', {(~mask.any(-1)).sum().item()} queries without a valid key' if not mask.any(-1).all() else ''}")
-            if timed and dtype == torch.bfloat16:
-                call = lambda: flash.flash_attention_cuda(q, k, v, qp, kp, **kw)  # noqa: E731
-                reps = 10 if T > 1 else 50
-                ms = _cuda_ms(call, reps)
-                plain_ms = _cuda_ms(lambda: flash.flash_attention_plain(q, k, v, qp, kp, **kw), 3 if T > 1 else 20)
-                dev_ms, parts = _flash_device_ms(call, 30 if T > 1 else 60)
-                pairs = mask.sum().item() * H
-                nbytes = 2 * (2 * q.numel() + k.numel() + v.numel()) + 4 * (qp.numel() + kp.numel())
-                bound_ms, bound_by = _bound(nbytes, 4 * hd * pairs, BF16_OPS_PER_S)
-                lib_ms = lib_note = None
-                if cap is None:  # SDPA has no softcap
-                    qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
-                    m4 = mask[:, None]
-                    sdpa = lambda: F.scaled_dot_product_attention(qt, kt, vt, attn_mask=m4, enable_gqa=True)  # noqa: E731
-                    lib_ms = _cuda_ms(sdpa, reps)
-                    lib_err = (sdpa().transpose(1, 2).float() - got.float()).abs().max().item()
-                    lib_note = f"sdpa {lib_ms:.4f} ms (max |d| vs kernel {lib_err:.3e})"
-                else:
-                    lib_note = "sdpa: null (no softcap)"
-                line += (f"; kernel {ms:.4f} ms, profiled device time {dev_ms:.4f} ms ("
-                         + ", ".join(f"{n} {t / max(c, 1):.4f} ms x {c}" for n, (t, c) in parts.items())
-                         + f"), plain {plain_ms:.4f} ms, {lib_note}, bound {bound_ms:.4f} ms "
-                         f"({bound_by}; {4 * hd * pairs:.3e} flop, {nbytes / 1e6:.1f} MB)")
-                out[name] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
-                                 library_ms=lib_ms)
-            print(line)
-            del q, k, v, got, want, d, mask
+    for i, case in enumerate(cases):
+        timed = _flash_case(case, 100 + i, sms, dev)
+        if timed:
+            out[case[0]] = timed
     torch.cuda.empty_cache()
     return out
+
+
+def _flash_case(case, seed: int, sms: int, dev) -> dict | None:
+    """One flash case in f32 and bf16, each against the plain version
+    (printed with its path and share of KV tiles skipped); a timed case's
+    bf16 run also timed (CUDA events, profiled device time), beside its
+    plain version, SDPA and its bound.  Returns the timed numbers."""
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch.kernels import flash
+
+    name, (B, T, S, H, KV, hd), causal, window, cap, ragged, timed = case
+    kw = dict(causal=causal, window=window, softcap=cap)
+    result = None
+    for dtype in (torch.float32, torch.bfloat16):
+        q, k, v, qp, kp = _flash_case_inputs(B, T, S, H, KV, hd, dtype, seed, dev, ragged, window)
+        got = flash.flash_attention_cuda(q, k, v, qp, kp, **kw)
+        want = flash.flash_attention_plain(q, k, v, qp, kp, **kw)
+        torch.cuda.synchronize()
+        d = (got.float() - want.float()).abs()
+        err, mean = d.max().item(), d.mean().item()
+        if not torch.isfinite(got.float()).all():
+            _fail(f"flash {name} {dtype}: non-finite output")
+        if dtype == torch.float32:
+            if not torch.allclose(got, want, atol=3e-5, rtol=1e-4):
+                _fail(f"flash {name} f32: max |d| {err:.3e} beyond atol 3e-5 / rtol 1e-4")
+        elif err > 1e-2 or mean > 1e-3:
+            _fail(f"flash {name} bf16: max |d| {err:.3e} (limit 1e-2), mean |d| {mean:.3e} (limit 1e-3)")
+        mask = _flash_mask(qp, kp, causal, window)
+        path, bm, bn = flash.kernel_plan(dtype, hd, T * (H // KV))
+        splits = flash.decode_splits(B, KV, S, sms) if path == "split" else 1
+        live = flash.flash_tile_live(qp, kp, H // KV, bm, bn, causal=causal, window=window)
+        skipped = 1.0 - live.float().mean().item()
+        line = (f"  {name:20s} {str(dtype)[6:]:8s} B{B} T{T} S{S} H{H} KV{KV} hd{hd}: "
+                f"max |d| {err:.3e}, mean {mean:.3e}; {path} {bm}x{bn}"
+                f"{f', {splits} splits' if path == 'split' else ''}, {100 * skipped:.1f}% of KV tiles skipped"
+                f"{f', {(~mask.any(-1)).sum().item()} queries without a valid key' if not mask.any(-1).all() else ''}")
+        if timed and dtype == torch.bfloat16:
+            call = lambda: flash.flash_attention_cuda(q, k, v, qp, kp, **kw)  # noqa: E731
+            reps = 10 if T > 1 else 50
+            ms = _cuda_ms(call, reps)
+            plain_ms = _cuda_ms(lambda: flash.flash_attention_plain(q, k, v, qp, kp, **kw), 3 if T > 1 else 20)
+            dev_ms, parts = _flash_device_ms(call, 30 if T > 1 else 60)
+            pairs = mask.sum().item() * H
+            nbytes = 2 * (2 * q.numel() + k.numel() + v.numel()) + 4 * (qp.numel() + kp.numel())
+            bound_ms, bound_by = _bound(nbytes, 4 * hd * pairs, BF16_OPS_PER_S)
+            lib_ms = lib_note = None
+            if cap is None:  # SDPA has no softcap
+                qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+                m4 = mask[:, None]
+                sdpa = lambda: F.scaled_dot_product_attention(qt, kt, vt, attn_mask=m4, enable_gqa=True)  # noqa: E731
+                lib_ms = _cuda_ms(sdpa, reps)
+                lib_err = (sdpa().transpose(1, 2).float() - got.float()).abs().max().item()
+                lib_note = f"sdpa {lib_ms:.4f} ms (max |d| vs kernel {lib_err:.3e})"
+            else:
+                lib_note = "sdpa: null (no softcap)"
+            line += (f"; kernel {ms:.4f} ms, profiled device time {dev_ms:.4f} ms ("
+                     + ", ".join(f"{n} {t / max(c, 1):.4f} ms x {c}" for n, (t, c) in parts.items())
+                     + f"), plain {plain_ms:.4f} ms, {lib_note}, bound {bound_ms:.4f} ms "
+                     f"({bound_by}; {4 * hd * pairs:.3e} flop, {nbytes / 1e6:.1f} MB)")
+            result = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
+                          library_ms=lib_ms, device_ms=dev_ms, path=path, skipped=skipped)
+        print(line)
+        del q, k, v, got, want, d, mask
+    return result
 
 
 SERVE_ARCH = "llama3.2-3b"
@@ -2328,8 +2373,10 @@ def _device_launches(call, n: int) -> collections.Counter:
     """Device kernels that ``n`` calls of ``call()`` launch, by name, from
     the profiler's events.  The window opens with 64 launches of a fill,
     which take the place of the first device events that the profiler
-    drops; a window in which it kept no device event at all, not even a
-    fill, is taken again."""
+    drops.  A window that kept fewer than ``n`` launches of the calls
+    (the profiler dropped past the fills, or kept no device event at all)
+    is taken again, up to three windows; the last is returned, so a call
+    that launches nothing still shows short."""
     import torch
 
     pad = torch.empty(1, device="cuda")
@@ -2342,9 +2389,10 @@ def _device_launches(call, n: int) -> collections.Counter:
 
     for _ in range(3):
         prof = _profile(run)
-        if prof["top_all"]:
+        launched = collections.Counter({name: cnt for name, (_, cnt) in prof["top_all"] if "FillFunctor" not in name})
+        if sum(launched.values()) >= n:
             break
-    return collections.Counter({name: cnt for name, (_, cnt) in prof["top_all"] if "FillFunctor" not in name})
+    return launched
 
 
 def _device_split(prof: dict) -> dict[str, float]:
@@ -2822,6 +2870,283 @@ def recurrent_phase(dev) -> tuple[dict[str, dict], dict[str, int]]:
     return {"rwkv_wkv": wkv[0], "rglru_scan": lru[0]}, {n: counts[n] for n in ("rwkv_wkv", "rglru_scan")}
 
 
+AUDIO_ARCH = "hubert-xlarge"
+AUDIO_BATCH, AUDIO_FRAMES = 8, 1500  # eight 30-s clips at 50 frames a second
+VISION_ARCH = "qwen2-vl-72b"
+VISION_LAYERS = 16  # of 80: a layer is 1.755 GB of bf16, the whole depth ~145 GB
+VISION_GRID = (16, 16)  # one 448 x 448 image: 32 x 32 patches of 14, merged 2 x 2
+FRONTEND_REPEATS = 3
+# name, (B, T, S, H, KV, hd), causal, window, softcap, positions, timed
+FRONTEND_FLASH_CASES = (
+    ("hubert prefill", (AUDIO_BATCH, AUDIO_FRAMES, AUDIO_FRAMES, 16, 16, 80), False, None, None, None, True),
+    ("qwen2-vl prefill", (2, 4096, 4096, 64, 8, 128), True, None, None, None, True),
+    ("qwen2-vl decode", (2, 1, 4112, 64, 8, 128), True, None, None, (4112, 3000), True),
+)
+
+
+def _mrope_grid(batch: int, n: int, rows: int, cols: int, dev):
+    """Qwen2-VL's M-RoPE rows (3, batch, n) int32 for a sequence whose first
+    rows x cols tokens are an image: image token i at (t 0, h i // cols,
+    w i % cols); the text after it from max(rows, cols) on, the same on all
+    three rows (and so on through the decode steps)."""
+    import torch
+
+    s = torch.arange(n, device=dev)
+    P = rows * cols
+    text = s - P + max(rows, cols)
+    pos = torch.stack([torch.where(s < P, 0, text), torch.where(s < P, s // cols, text),
+                       torch.where(s < P, s % cols, text)])
+    return pos[:, None].expand(3, batch, n).to(torch.int32).contiguous()
+
+
+def _split_line(prof: dict) -> str:
+    split = _device_split(prof)
+    return (f"wall {prof['wall_s']:.4f} s, kernels {prof['kernel_ms']:.2f} ms on the device "
+            f"({100 * prof['kernel_ms'] / 1e3 / prof['wall_s']:.2f}% busy, {prof['launches']} launches): "
+            + ", ".join(f"{n} {ms:.3f}" for n, ms in split.most_common()) + f"; copies {prof['copy_ms']:.2f} ms")
+
+
+def _audio_model(dev) -> int:
+    """hubert-xlarge at full width and depth: encode, gates, profile, plain."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import flash, ops
+    from repro_torch.models.model import Transformer, forward, init_params
+    from repro_torch.serve.engine import make_prefill_step
+
+    cfg = get_config(AUDIO_ARCH)
+    torch.cuda.empty_cache()
+    held = torch.cuda.memory_allocated()
+    model, init_s = _wall(lambda: init_params(cfg, seed=0, device=dev))
+    n_params = sum(p.numel() for p in model.parameters())
+    B, T = AUDIO_BATCH, AUDIO_FRAMES
+    print(f"frontend phase (a): {cfg.name} at full width and depth ({cfg.num_layers} layers, d_model {cfg.d_model}, "
+          f"{cfg.num_heads} heads of {cfg.head_dim}, non-causal, d_ff {cfg.d_ff}, vocab {cfg.vocab_size}, "
+          f"{cfg.frontend_dim}-dim frames); {n_params / 1e9:.3f} B parameters, "
+          f"{(torch.cuda.memory_allocated() - held) / 1e9:.2f} GB on the card; random weights from seed 0, "
+          f"init_params {init_s:.2f} s; B {B} x T {T} seeded N(0, 1) bf16 frames")
+    g = torch.Generator(device=dev).manual_seed(1)
+    feats = torch.randn((B, T, cfg.frontend_dim), generator=g, device=dev).to(torch.bfloat16)
+
+    def encode(f=feats):
+        return forward(model, features=f)[0]
+
+    encode()  # warm-up
+    ops.reset_launch_counts()
+    logits, _ = _wall(encode)
+    counts = ops.launch_counts()
+    runs = [_wall(encode) for _ in range(FRONTEND_REPEATS)]
+    wall = statistics.median(s for _, s in runs)
+    print(f"  encode {wall:.4f} s (median of {' '.join(f'{s:.4f}' for _, s in runs)}) = {B * T / wall:,.0f} frames/s; "
+          f"flash launches in one encode {counts['flash']}")
+    if counts["flash"] != cfg.num_layers:
+        _fail(f"{cfg.name}: {counts['flash']} flash launches in one encode, not one a layer ({cfg.num_layers})")
+    if tuple(logits.shape) != (B, T, cfg.vocab_size) or not torch.isfinite(logits).all():
+        _fail(f"{cfg.name}: logits of shape {tuple(logits.shape)}, finite {bool(torch.isfinite(logits).all())}")
+    if not all(torch.equal(out, logits) for out, _ in runs):
+        _fail(f"{cfg.name}: the encode differs between repeats")
+    scale = logits.abs().max().item()
+    step_logits, cache = make_prefill_step(cfg, T, device=dev)(model, {"features": feats})
+    last, _ = forward(model, features=feats, last_only=True)
+    last_err = (step_logits - logits[:, -1]).abs().max().item() / scale
+    print(f"  make_prefill_step: the last position's logits, equal to forward(last_only) {torch.equal(step_logits, last[:, 0])}, "
+          f"|step - forward[:, -1]| / max|logits| {last_err:.3e} (limit 2e-2); cache {cache}")
+    if cache is not None or not torch.equal(step_logits, last[:, 0]) or last_err > 2e-2:
+        _fail(f"{cfg.name}: make_prefill_step's logits are not forward's last position")
+    other = feats.clone()
+    other[:, -1] = torch.randn((B, cfg.frontend_dim), generator=g, device=dev).to(torch.bfloat16)
+    moved = (encode(other)[:, 0] - logits[:, 0]).abs().max().item() / scale
+    print(f"  a new last frame moves the first frame's logits by {moved:.3e} of max |logits| (non-causal; the encode "
+          f"repeats bit for bit)")
+    if not moved > 0.0:
+        _fail(f"{cfg.name}: the last frame does not reach the first position: the encoder is not non-causal")
+    prof = _profile(encode)
+    print(f"  profiled encode: {_split_line(prof)}")
+    for name, (ms, n) in prof["top"]:
+        print(f"    {ms:9.3f} ms {n:6d} x  {name[:100]}")
+    if _device_split(prof)["flash"] <= 0.0:
+        _fail(f"{cfg.name}: the profiled encode launched no flash kernel")
+    # the plain attention against the kernel, with the bf16 weights and
+    # with the same weights in float32: the float32 run holds the kernel's
+    # arithmetic to 2e-2 where rounding cannot hide a fault; the bf16 run
+    # to 2e-2 or to twice the model's own bf16 distance (its logits against
+    # the float32 copy's), whichever is larger, as phase 14 (c), (d): two
+    # bf16 paths that round apart may each lie that distance from the
+    # float32 function, and through 48 layers of random weights a flip of
+    # one rounding grows
+    f32 = Transformer(dataclasses.replace(cfg, dtype="float32"), seed=None, device=dev).eval()
+    f32.load_state_dict(model.state_dict())  # the bf16 weights, exactly
+
+    def kernel_vs_plain(m, kernel_logits):
+        before = flash.launches
+        with _patched(ops, "flash_attention", lambda orig: flash.flash_attention_plain):
+            plain, plain_s = _wall(lambda: forward(m, features=feats)[0])
+        if flash.launches != before:
+            _fail(f"{cfg.name}: the plain encode launched the kernel")
+        return (plain - kernel_logits).abs().max().item() / plain.abs().max().item(), plain_s
+
+    logits32 = forward(f32, features=feats)[0]
+    delta = (logits - logits32).abs().max().item() / logits32.abs().max().item()
+    lim = max(2e-2, 2 * delta)
+    d_err32, plain_s32 = kernel_vs_plain(f32, logits32)
+    del logits32
+    d_err, plain_s = kernel_vs_plain(model, logits)
+    print(f"  plain attention: |kernel - plain| / max|logits| = {d_err32:.3e} with the weights in float32 (limit "
+          f"2e-2; plain encode {plain_s32:.4f} s), {d_err:.3e} in bf16 (limit {lim:.3e}: the bf16 encode lies "
+          f"{delta:.3e} from the float32 one; plain encode {plain_s:.4f} s)")
+    if not np.isfinite(d_err32) or d_err32 > 2e-2 or not np.isfinite(d_err) or d_err > lim:
+        _fail(f"{cfg.name}: kernel logits off the plain path by {d_err32:.3e} (float32, limit 2e-2), {d_err:.3e} "
+              f"(bf16, limit {lim:.3e}) of max |logits|")
+    del model, f32, logits, runs
+    torch.cuda.empty_cache()
+    return counts["flash"]
+
+
+def _vision_model(dev) -> int:
+    """qwen2-vl-72b at full width, 16 layers: prefill and decode with an
+    image on the first positions and M-RoPE rows, gates, profile, plain."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import flash, ops
+    from repro_torch.models.model import decode_step, forward, init_params
+    from repro_torch.serve.engine import make_decode_step, make_prefill_step
+
+    whole = get_config(VISION_ARCH)
+    cfg = dataclasses.replace(whole, num_layers=VISION_LAYERS)
+    rows, cols = VISION_GRID
+    P = rows * cols
+    if P != cfg.num_patches:
+        _fail(f"{cfg.name}: a {rows} x {cols} grid is not the config's {cfg.num_patches} patches")
+    torch.cuda.empty_cache()
+    held = torch.cuda.memory_allocated()
+    model, init_s = _wall(lambda: init_params(cfg, seed=0, device=dev))
+    n_params = sum(p.numel() for p in model.parameters())
+    B, T, steps = SERVE_BATCH, SERVE_PROMPT, SERVE_STEPS
+    print(f"frontend phase (b): {cfg.name} at full width (d_model {cfg.d_model}, {cfg.num_heads}/{cfg.num_kv_heads} "
+          f"heads of {cfg.head_dim}, d_ff {cfg.d_ff}, vocab {cfg.vocab_size}, M-RoPE sections {cfg.mrope_sections}), "
+          f"depth cut to {VISION_LAYERS} of {whole.num_layers} layers (the whole depth is "
+          f"{whole.param_count() / 1e9:.1f} B parameters); {n_params / 1e9:.3f} B parameters, "
+          f"{(torch.cuda.memory_allocated() - held) / 1e9:.2f} GB on the card; random weights from seed 0, "
+          f"init_params {init_s:.2f} s; B {B} x T {T} tokens, the first {P} an image ({rows} x {cols} merged "
+          f"patches, seeded N(0, 1) bf16 embeddings)")
+    g = torch.Generator(device=dev).manual_seed(1)
+    prompt = torch.randint(0, cfg.vocab_size, (B, T + 1), generator=g, device=dev, dtype=torch.int32)
+    patches = torch.randn((B, P, cfg.d_model), generator=g, device=dev).to(torch.bfloat16)
+    grid = _mrope_grid(B, T + steps, rows, cols, dev)
+    inputs = {"tokens": prompt[:, :T].contiguous(), "patch_embeds": patches, "mrope_positions": grid[:, :, :T]}
+    cache_len = T + steps
+    prefill = make_prefill_step(cfg, cache_len, device=dev)
+    step = make_decode_step(cfg, device=dev)
+    prefill(model, inputs)  # warm-up
+    ops.reset_launch_counts()
+    prefills = [_wall(lambda: prefill(model, inputs)) for _ in range(FRONTEND_REPEATS)]
+    (logits, cache), _ = prefills[-1]
+    prefill_s = statistics.median(s for _, s in prefills)
+    first = torch.argmax(logits, -1).to(torch.int32)
+
+    def decode_all():
+        last = [first]
+        for i in range(steps - 1):
+            pos = torch.full((B,), T + i, dtype=torch.int32, device=dev)
+            lg, _ = step(model, cache, {"tokens": last[-1][:, None], "positions": pos,
+                                        "mrope_positions": grid[:, :, T + i : T + i + 1]})
+            last.append(torch.argmax(lg, -1).to(torch.int32))
+        return torch.stack(last, 1)
+
+    decodes = [_wall(decode_all) for _ in range(SERVE_REPEATS)]
+    counts = ops.launch_counts()
+    want_flash = cfg.num_layers * (FRONTEND_REPEATS + SERVE_REPEATS * (steps - 1))
+    if counts["flash"] != want_flash:
+        _fail(f"{cfg.name}: {counts['flash']} flash launches in {FRONTEND_REPEATS} prefills and {SERVE_REPEATS} "
+              f"decodes, not one a layer call ({want_flash})")
+    firsts = [torch.argmax(lg, -1) for (lg, _), _ in prefills]
+    if not all(torch.equal(f, firsts[0]) for f in firsts) or not all(torch.equal(o, decodes[0][0]) for o, _ in decodes):
+        _fail(f"{cfg.name}: greedy tokens differ between repeats")
+    steps_ms = [s / (steps - 1) * 1e3 for _, s in decodes]
+    step_ms = statistics.median(steps_ms)
+    print(f"  prefill {prefill_s:.4f} s (median of {' '.join(f'{s:.4f}' for _, s in prefills)}); decode "
+          f"{step_ms:.3f} ms/step (median of {' '.join(f'{x:.3f}' for x in steps_ms)}) = {B * 1e3 / step_ms:.2f} "
+          f"tokens/s; {steps} greedy tokens {B * steps / (prefill_s + step_ms * (steps - 1) / 1e3):.2f} tokens/s with "
+          f"the prefill; greedy tokens identical across the repeats; flash launches {counts['flash']}")
+    pprof = _profile(lambda: prefill(model, inputs))
+    dprof = _profile(decode_all)
+    G = cfg.num_heads // cfg.num_kv_heads
+    flash_decode = [(ms, n) for name, (ms, n) in dprof["top_all"] if FLASH_KERNELS in name]
+    print(f"  profiled prefill: {_split_line(pprof)}")
+    for name, (ms, n) in pprof["top"]:
+        print(f"    {ms:9.3f} ms {n:6d} x  {name[:100]}")
+    print(f"  profiled decode ({steps - 1} steps, {dprof['launches'] / (steps - 1):.1f} launches a step): "
+          f"{_split_line(dprof)}; flash's decode kernels ({flash.kernel_plan(torch.bfloat16, cfg.head_dim, G)[0]} "
+          f"path at T x G = {G}): "
+          + ", ".join(f"{ms:.3f} ms over {n}" for ms, n in flash_decode))
+    if _device_split(pprof)["flash"] <= 0.0 or not flash_decode:
+        _fail(f"{cfg.name}: a profiled prefill or decode launched no flash kernel")
+
+    # (c) the cache contract: prefill on T, decode with its M-RoPE rows,
+    # against forward on T + 1 (last only)
+    del cache
+    full, _ = forward(model, prompt, patch_embeds=patches, mrope_positions=grid[:, :, : T + 1], last_only=True)
+    _, c_cache = forward(model, **inputs, want_cache=True, cache_len=cache_len)
+    at = torch.full((B,), T, dtype=torch.int32, device=dev)
+    dec, _ = decode_step(model, c_cache, prompt[:, T:], at, mrope_positions=grid[:, :, T : T + 1])
+    seq_pos = all(torch.equal(c["pos"][:, : T + 1], torch.arange(T + 1, device=dev, dtype=torch.int32).expand(B, -1))
+                  for c in c_cache)
+    c_err = (full[:, 0] - dec[:, 0]).abs().max().item() / full.abs().max().item()
+    print(f"  (c) cache contract at T={T}: |decode - forward(T+1)| / max|logits| = {c_err:.3e} (limit 2e-2); every "
+          f"layer's cache holds the sequence positions 0..T: {seq_pos}")
+    if not np.isfinite(c_err) or c_err > 2e-2 or not seq_pos:
+        _fail(f"{cfg.name}: prefill + decode_step off forward on T + 1 by {c_err:.3e} of max |logits| (limit 2e-2), "
+              f"or a cache holds other positions")
+    del c_cache, full
+
+    # (d) the kernel against the plain path, (e) M-RoPE reaches the model
+    before = flash.launches
+    with _patched(ops, "flash_attention", lambda orig: flash.flash_attention_plain):
+        (plain, _), plain_s = _wall(lambda: prefill(model, inputs))
+    if flash.launches != before:
+        _fail(f"{cfg.name}: the plain prefill launched the kernel")
+    d_err = (plain - logits).abs().max().item() / plain.abs().max().item()
+    seq = torch.arange(T, device=dev, dtype=torch.int32).expand(3, B, T).contiguous()
+    flat, _ = prefill(model, dict(inputs, mrope_positions=seq))
+    e_err = (flat - logits).abs().max().item() / logits.abs().max().item()
+    print(f"  (d) plain attention prefill {plain_s:.4f} s; last logits |kernel - plain| / max|logits| = {d_err:.3e} "
+          f"(limit 2e-2)")
+    print(f"  (e) the sequence index on all three M-RoPE rows: last logits {e_err:.3e} of max |logits| from the "
+          f"grid's (must exceed (d)'s {d_err:.3e})")
+    if not np.isfinite(d_err) or d_err > 2e-2:
+        _fail(f"{cfg.name}: kernel logits off the plain path by {d_err:.3e} of max |logits| (limit 2e-2)")
+    if not e_err > d_err:
+        _fail(f"{cfg.name}: the M-RoPE rows move the logits by {e_err:.3e}, no more than the kernel's distance")
+    del model, logits, plain, flat, prefills
+    torch.cuda.empty_cache()
+    return counts["flash"]
+
+
+def frontend_phase(dev) -> dict[str, dict]:
+    """hubert-xlarge and qwen2-vl-72b, then flash alone at their shapes."""
+    import torch
+
+    t0 = time.perf_counter()
+    _audio_model(dev)
+    print(f"  {AUDIO_ARCH}: {time.perf_counter() - t0:.2f} s")
+    t0 = time.perf_counter()
+    _vision_model(dev)
+    print(f"  {VISION_ARCH}: {time.perf_counter() - t0:.2f} s")
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    print("frontend phase (f): flash at the frontends' shapes; kernel vs plain as phase 7")
+    out = {case[0]: _flash_case(case, 200 + i, sms, dev) for i, case in enumerate(FRONTEND_FLASH_CASES)}
+    torch.cuda.empty_cache()
+    return out
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0, help="seed of the synthetic corpus")
@@ -2893,6 +3218,9 @@ def main() -> int:
     per_kernel.update(rec_kernels)
     counts.update(rec_counts)
     print(f"recurrent phase: {time.perf_counter() - t0:.2f} s")
+    t0 = time.perf_counter()
+    frontend_phase(dev)
+    print(f"frontend phase: {time.perf_counter() - t0:.2f} s")
 
     sources = {
         "segmax": ("src/repro_torch/kernels/csrc/segmax.cu", "src/repro/kernels/segmax.py:55"),

@@ -9,7 +9,8 @@ params)``) into a ``state_dict`` of ``models.model.Transformer``:
   ``r * len(pattern) + i``;
 * ``params["tail"][str(j)]`` (the layers past the last whole repetition)
   becomes layer ``n_rep * len(pattern) + j``;
-* the nested names (``attn/wq``, ``ln1/scale``, ...) are the modules' own.
+* the nested names (``attn/wq``, ``ln1/scale``, ...) are the modules' own;
+* ``frontend_proj`` (the audio frontend's projection) keeps its name.
 
 Weight layouts stay the reference's ``(in, out)``.  bf16 leaves arrive with
 ``ml_dtypes``' bfloat16 dtype, which ``torch.from_numpy`` refuses; they
@@ -43,11 +44,11 @@ def _flatten(prefix: str, tree: dict, out: dict, index: int | None = None) -> No
 
 def params_from_jax(cfg: ModelConfig, params: dict) -> dict[str, torch.Tensor]:
     """The reference's parameter pytree (numpy leaves) -> the port's state_dict."""
-    if "frontend_proj" in params:
-        raise NotImplementedError(f"the {cfg.frontend} frontend is not ported yet (ROADMAP Queue 1 item 7c)")
     plen = len(cfg.block_pattern)
     n_rep = cfg.num_layers // plen
     out = {"embed": _tensor(params["embed"])}
+    if "frontend_proj" in params:  # audio frames' projection
+        out["frontend_proj"] = _tensor(params["frontend_proj"])
     for i in range(plen):
         for r in range(n_rep):
             _flatten(f"layers.{r * plen + i}", params["blocks"][str(i)], out, r)

@@ -65,7 +65,10 @@ def rms_norm(p, x: torch.Tensor, eps: float) -> torch.Tensor:
 def _rope_angles(positions: torch.Tensor, head_dim: int, theta: float, sections=None) -> torch.Tensor:
     """positions: (B, T), or (3, B, T) for M-RoPE.  Returns (B, T, head_dim/2)
     angles.  M-RoPE splits the frequency slots into (t, h, w) sections, each
-    driven by its own position row."""
+    driven by its own position row.  The section ids are cut or padded to
+    the ``head_dim // 2`` slots as ``jnp.repeat(..., total_repeat_length=
+    half)`` does: a longer run of ids is cut, a shorter one repeats its last
+    id."""
     half = head_dim // 2
     freq = 1.0 / (theta ** (torch.arange(half, dtype=torch.float32, device=positions.device) * 2.0 / head_dim))
     if sections is None:
@@ -73,8 +76,9 @@ def _rope_angles(positions: torch.Tensor, head_dim: int, theta: float, sections=
         return pos[..., None].float() * freq
     if positions.dim() != 3:
         raise ValueError("M-RoPE needs (3, B, T) positions")
-    sec_id = torch.repeat_interleave(torch.arange(3, device=positions.device), torch.as_tensor(sections,
-                                                                                               device=positions.device))
+    sec_id = torch.repeat_interleave(torch.arange(3, device=positions.device),
+                                     torch.as_tensor(sections, device=positions.device))
+    sec_id = torch.cat([sec_id[:half], sec_id[-1:].expand(max(half - len(sec_id), 0))])
     pos = positions[sec_id]  # (half, B, T)
     return pos.movedim(0, -1).float() * freq
 

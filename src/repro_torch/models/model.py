@@ -11,8 +11,9 @@ reference's stacked parameters onto this layout.
 Entry points:
   * ``init_params`` / ``Transformer(cfg, seed=..., device=None)`` - weights
     drawn from a ``torch.Generator`` seeded with ``seed`` on the device;
-  * ``forward``     - prefill over T tokens (optionally building the decode
-                      cache, optionally the head on the last position only);
+  * ``forward``     - prefill over T tokens, or T audio frames (optionally
+                      building the decode cache, optionally the head on the
+                      last position only);
   * ``decode_step`` - one token per sequence against the cache, which it
                       updates in place;
   * ``init_cache``  - an empty cache, one dict per layer: ``{k, v, pos}``
@@ -25,8 +26,16 @@ recurrent layer from the zero state; a decode step writes each layer's
 new state into the cache's tensors in place, as it writes an attention
 layer's k, v and position.  An MoE layer's aux loss is computed and
 dropped by the passes (training, ROADMAP Queue 1 item 7d, will carry it
-up).  The modality frontends raise ``NotImplementedError`` (ROADMAP Queue
-1 item 7c).
+up).
+
+The modality frontends are the reference's stubs.  ``audio_frames``
+(hubert-xlarge, an encoder): precomputed frame features (B, T,
+``frontend_dim``) are projected by ``frontend_proj`` in place of the token
+embedding, which the model still holds, unused, as the reference's pytree
+does.  ``vision_patches`` (qwen2-vl-72b): patch embeddings (B, P, D) are
+added on the first P positions, and the rotary angles come from M-RoPE's
+(3, B, T) position rows.  Those rows reach the rotation alone: the cache's
+positions, its slots and flash's mask take the sequence positions.
 """
 
 from __future__ import annotations
@@ -136,19 +145,21 @@ class Block(nn.Module):
 
 
 class Transformer(nn.Module):
-    """The decoder: embedding, ``layers`` in layer order, final norm, head
-    (tied to the embedding when the config says so).  ``seed=None`` leaves
-    the weights uninitialised for a loader (``models.convert``).  The
-    passes are the module functions ``forward`` and ``decode_step``."""
+    """The decoder: embedding (and ``frontend_proj`` for audio frames),
+    ``layers`` in layer order, final norm, head (tied to the embedding when
+    the config says so).  ``seed=None`` leaves the weights uninitialised
+    for a loader (``models.convert``).  The passes are the module functions
+    ``forward`` and ``decode_step``."""
 
     def __init__(self, cfg: ModelConfig, *, seed: int | None = 0, device=None):
         super().__init__()
-        if cfg.frontend is not None:
-            raise NotImplementedError(f"the {cfg.frontend} frontend is not ported yet (ROADMAP Queue 1 item 7c)")
         dev = resolve_device(device)
         gen = None if seed is None else torch.Generator(device=dev).manual_seed(seed)
         self.cfg = cfg
         D, V = cfg.d_model, cfg.vocab_size
+        if cfg.frontend == "audio_frames":
+            self.frontend_proj = nn.Parameter(L._normal(gen, (cfg.frontend_dim, D), cfg.frontend_dim**-0.5,
+                                                        L.cdtype(cfg), dev), requires_grad=False)
         self.embed = nn.Parameter(L._normal(gen, (V, D), D**-0.5, L.cdtype(cfg), dev), requires_grad=False)
         self.layers = nn.ModuleList(Block(cfg, kind, gen, dev) for kind in cfg.layer_kinds)
         self.final_norm = RMSNorm(D, dev)
@@ -186,11 +197,14 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int, device=None) -> list[
 # ---------------------------------------------------------------------------
 
 
-def apply_layer(block: Block, x, positions, cache=None, *, want_cache: bool = False, cache_len: int | None = None):
+def apply_layer(block: Block, x, positions, cache=None, *, want_cache: bool = False, cache_len: int | None = None,
+                mrope_positions=None):
     """Returns (x, new_cache, aux).  ``cache=None`` with ``want_cache`` builds
     one from this (prefill) pass; a cache with one token (x (B, 1, D),
     positions (B,)) is a decode step, which updates the cache in place.
-    ``aux`` is an MoE layer's load-balancing loss (0.0 for the others)."""
+    ``mrope_positions`` (3, B, T) drive M-RoPE's angles only; the cache and
+    the mask take ``positions``.  ``aux`` is an MoE layer's load-balancing
+    loss (0.0 for the others)."""
     cfg = block.cfg
     if block.kind in RECURRENT_KINDS:
         return _apply_recurrent(block, x, cache, want_cache=want_cache)
@@ -198,7 +212,7 @@ def apply_layer(block: Block, x, positions, cache=None, *, want_cache: bool = Fa
     if cache is None or x.shape[1] != 1:  # prefill
         positions, cache = positions.expand(h.shape[:2]), None
     attn_out, new_cache = L.attention(block.attn, h, positions, cfg, local=(block.kind == "local"), cache=cache,
-                                      want_cache=want_cache, cache_len=cache_len)
+                                      want_cache=want_cache, cache_len=cache_len, mrope_positions=mrope_positions)
     if cfg.use_post_norm:
         attn_out = L.rms_norm(block.ln1_post, attn_out, cfg.norm_eps)
     x = x + attn_out
@@ -242,11 +256,25 @@ def _apply_recurrent(block: Block, x, cache, *, want_cache: bool):
     return x, ({n: t.contiguous() for n, t in new_state.items()} if want_cache else None), 0.0
 
 
-def _embed_inputs(model: Transformer, tokens: torch.Tensor) -> torch.Tensor:
-    x = torch.nn.functional.embedding(tokens, model.embed)
-    if model.cfg.scale_embed:
-        x = x * torch.tensor(model.cfg.d_model**0.5, dtype=x.dtype)
+def _embed_inputs(model: Transformer, tokens, features, patch_embeds) -> torch.Tensor:
+    """Audio frames projected by ``frontend_proj``; else the tokens'
+    embedding (scaled where the config says so), with ``patch_embeds``
+    added on the first P positions."""
+    cfg, dev = model.cfg, model.device
+    if cfg.frontend == "audio_frames":
+        return torch.as_tensor(features, device=dev).to(L.cdtype(cfg)) @ model.frontend_proj
+    x = torch.nn.functional.embedding(torch.as_tensor(tokens, device=dev), model.embed)
+    if cfg.scale_embed:
+        x = x * torch.tensor(cfg.d_model**0.5, dtype=x.dtype)
+    if patch_embeds is not None:
+        patch = torch.as_tensor(patch_embeds, device=dev)
+        P = patch.shape[1]
+        x = torch.cat([x[:, :P] + patch.to(x.dtype), x[:, P:]], dim=1)
     return x
+
+
+def _mrope_rows(mrope_positions, dev):
+    return None if mrope_positions is None else torch.as_tensor(mrope_positions, dtype=torch.int32, device=dev)
 
 
 def _head(model: Transformer, x: torch.Tensor) -> torch.Tensor:
@@ -260,22 +288,24 @@ def _head(model: Transformer, x: torch.Tensor) -> torch.Tensor:
 
 
 @torch.inference_mode()
-def forward(model: Transformer, tokens, *, want_cache: bool = False, cache_len: int | None = None,
-            last_only: bool = False):
-    """Full-sequence forward (prefill) over tokens (B, T).
+def forward(model: Transformer, tokens=None, *, features=None, patch_embeds=None, mrope_positions=None,
+            want_cache: bool = False, cache_len: int | None = None, last_only: bool = False):
+    """Full-sequence forward (prefill) over tokens (B, T), or over audio
+    frames ``features`` (B, T, frontend_dim); a vision model also takes
+    ``patch_embeds`` (B, P, D) and ``mrope_positions`` (3, B, T).
 
     Returns (logits, cache or None): logits (B, T, V) f32, or (B, 1, V) with
     ``last_only`` (the head applied to the last position alone: at T = 4096
     the full logits of llama3.2-3b would be 4.2 GB of f32).  ``cache_len``
     sizes the decode cache a prefill builds (>= T + tokens still to decode).
     """
-    tokens = torch.as_tensor(tokens, device=model.device)
-    x = _embed_inputs(model, tokens)
-    B, T = tokens.shape
+    x = _embed_inputs(model, tokens, features, patch_embeds)
+    B, T = x.shape[:2]
     positions = torch.arange(T, dtype=torch.int32, device=x.device)[None].expand(B, T)
+    rows = _mrope_rows(mrope_positions, x.device)
     caches = [] if want_cache else None
     for block in model.layers:
-        x, c, _ = apply_layer(block, x, positions, want_cache=want_cache, cache_len=cache_len)
+        x, c, _ = apply_layer(block, x, positions, want_cache=want_cache, cache_len=cache_len, mrope_positions=rows)
         if want_cache:
             caches.append(c)
     if last_only:
@@ -284,14 +314,16 @@ def forward(model: Transformer, tokens, *, want_cache: bool = False, cache_len: 
 
 
 @torch.inference_mode()
-def decode_step(model: Transformer, cache: list, tokens, positions):
+def decode_step(model: Transformer, cache: list, tokens, positions, *, mrope_positions=None):
     """One decode step.  tokens (B, 1); positions (B,) int32, the tokens'
-    positions.  Writes them into ``cache`` in place; returns (logits (B, 1, V),
-    cache)."""
+    positions; a vision model's ``mrope_positions`` (3, B, 1).  Writes the
+    tokens into ``cache`` in place at ``positions``; returns (logits (B, 1,
+    V), cache)."""
     if not model.cfg.has_decode:
         raise ValueError(f"{model.cfg.name} is an encoder: it has no decode step")
-    x = _embed_inputs(model, torch.as_tensor(tokens, device=model.device))
+    x = _embed_inputs(model, tokens, None, None)
     positions = torch.as_tensor(positions, dtype=torch.int32, device=model.device)
+    rows = _mrope_rows(mrope_positions, model.device)
     for block, c in zip(model.layers, cache):
-        x, _, _ = apply_layer(block, x, positions, c)
+        x, _, _ = apply_layer(block, x, positions, c, mrope_positions=rows)
     return _head(model, x), cache

@@ -2,8 +2,11 @@
 
 Port of ``repro.serve.engine``.  The steps take the model (a
 ``models.model.Transformer``) where the reference takes its parameter
-pytree, and run under ``torch.inference_mode()``.  The prefill step applies
-the head to the last position only, since it returns only ``logits[:, -1]``
+pytree, and run under ``torch.inference_mode()``.  Their inputs are dicts
+by name, as the reference's, so the modality frontends' inputs (audio
+``features``, ``patch_embeds``, ``mrope_positions``) pass through them;
+``greedy_generate`` is token-only, as the reference's.  The prefill step
+applies the head to the last position only, since it returns only ``logits[:, -1]``
 (the reference computes all T positions and slices).  The decode step
 updates the cache in place and returns it.  ``cache_shape`` (a
 ``jax.eval_shape``) is not ported.
@@ -68,27 +71,34 @@ def _on(model: Transformer, dev: torch.device) -> None:
 
 
 def make_prefill_step(cfg: ModelConfig, cache_len: int, device=None):
-    """(model, {"tokens": (B, T)}) -> (last-token logits (B, V) f32, cache
-    sized ``cache_len``).  ``device=None`` is the CUDA card."""
+    """(model, inputs) -> (last-position logits (B, V) f32, cache sized
+    ``cache_len``, or None for an encoder).  ``inputs`` holds what the
+    architecture takes, by name: ``tokens`` (B, T), or ``features`` (B, T,
+    frontend_dim) for audio frames; ``patch_embeds`` (B, P, D) and
+    ``mrope_positions`` (3, B, T) for a vision model.  ``device=None`` is
+    the CUDA card."""
     dev = resolve_device(device)
 
     def prefill(model: Transformer, inputs: dict):
         _on(model, dev)
-        logits, cache = forward(model, torch.as_tensor(inputs["tokens"], device=dev), want_cache=cfg.has_decode,
-                                cache_len=cache_len, last_only=True)
+        logits, cache = forward(model, inputs.get("tokens"), features=inputs.get("features"),
+                                patch_embeds=inputs.get("patch_embeds"), mrope_positions=inputs.get("mrope_positions"),
+                                want_cache=cfg.has_decode, cache_len=cache_len, last_only=True)
         return logits[:, -1], cache
 
     return prefill
 
 
 def make_decode_step(cfg: ModelConfig, device=None):
-    """(model, cache, {"tokens": (B, 1), "positions": (B,)}) -> (logits (B, V),
-    cache updated in place).  ``device=None`` is the CUDA card."""
+    """(model, cache, {"tokens": (B, 1), "positions": (B,)}, and a vision
+    model's "mrope_positions" (3, B, 1)) -> (logits (B, V), cache updated in
+    place).  ``device=None`` is the CUDA card."""
     dev = resolve_device(device)
 
     def step(model: Transformer, cache: list, inputs: dict):
         _on(model, dev)
-        logits, cache = decode_step(model, cache, torch.as_tensor(inputs["tokens"], device=dev), inputs["positions"])
+        logits, cache = decode_step(model, cache, inputs["tokens"], inputs["positions"],
+                                    mrope_positions=inputs.get("mrope_positions"))
         return logits[:, 0], cache
 
     return step

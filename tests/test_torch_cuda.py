@@ -25,7 +25,9 @@ run to run.  The WKV recurrence's o and S within 1e-4 of max |o| and max
 |S| of its plain version (the kernel's three-pass TF32 products and the
 plain version's float32 ones sum the same chunk form in other orders),
 the RG-LRU scan bit for bit, and the reduced recurrent models'
-float32 logits within 1e-4 as the dense ones."""
+float32 logits within 1e-4 as the dense ones; the reduced frontend models
+(hubert-xlarge's audio frames, qwen2-vl-72b's patches and M-RoPE rows)
+likewise; a checkpoint of CUDA tensors restores on the card bit for bit."""
 
 import numpy as np
 import pytest
@@ -409,6 +411,11 @@ FLASH_CARD_CASES = [
     (1, 40, 300, 24, 8, 128, True, 100, None, "rolling"),
     # a causal prefill at S = 4,096 + 37: a ragged last tile after the skip
     (1, 4133, 4133, 6, 2, 128, True, None, None, False),
+    # the frontends' shapes: hubert's non-causal hd 80 encoder over 1,500
+    # frames (a multiple of no tile), qwen2-vl's decode at G = 8 (T x G = 8:
+    # the prefill kernels, not the split path) over a ragged 4,112-slot cache
+    (1, 1500, 1500, 16, 16, 80, False, None, None, False),
+    (2, 1, 4112, 64, 8, 128, True, None, None, True),
 ]
 
 
@@ -1759,3 +1766,108 @@ def test_launcher_serves_a_recurrent_model_on_card(cuda, name):
         assert counts["rwkv_wkv"] > 0 and counts["flash"] == 0
     else:
         assert counts["rglru_scan"] > 0 and counts["flash"] > 0
+
+
+# ---------------------------------------------------------------------------
+# the modality frontends and the trainer's host modules
+# ---------------------------------------------------------------------------
+
+
+def grid_positions(batch: int, n: int, rows: int, cols: int) -> np.ndarray:
+    """Qwen2-VL's M-RoPE rows (3, batch, n) for a sequence whose first
+    rows x cols tokens are an image: image token i at (t 0, h i // cols,
+    w i % cols), text from max(rows, cols) on, the same on all three rows."""
+    s = np.arange(n)
+    P = rows * cols
+    text = s - P + max(rows, cols)
+    pos = np.stack([np.where(s < P, 0, text), np.where(s < P, s // cols, text), np.where(s < P, s % cols, text)])
+    return np.ascontiguousarray(np.broadcast_to(pos[:, None], (3, batch, n)), dtype=np.int32)
+
+
+@pytest.mark.parametrize("name,head_dim,sections", [("hubert-xlarge", 16, None), ("hubert-xlarge", 80, None),
+                                                    ("qwen2-vl-72b", 16, (2, 3, 3)), ("qwen2-vl-72b", 128, None)])
+def test_reduced_frontend_model_on_card_matches_cpu_run(cuda, name, head_dim, sections):
+    """A reduced frontend model in float32 on the card (flash) against the
+    same weights on the CPU (its plain version): hubert's encoder over
+    audio frames; qwen2-vl's forward, prefill and decode with patch
+    embeddings on the first 8 positions and grid M-RoPE rows, the caches'
+    positions the sequence's."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.models.model import decode_step, forward, init_params
+    from repro_torch.serve.engine import make_decode_step, make_prefill_step
+
+    changes = {"dtype": "float32", "head_dim": head_dim}
+    if sections is not None:
+        changes["mrope_sections"] = sections
+    cfg = dataclasses.replace(get_config(name).reduced(), **changes)
+    cpu = init_params(cfg, seed=3, device="cpu")
+    card = init_params(cfg, seed=0, device=cuda)
+    card.load_state_dict(cpu.state_dict())
+    rng = np.random.default_rng(1)
+    B, T = 2, 40
+    if cfg.frontend == "audio_frames":
+        inputs = {"features": torch.from_numpy(rng.normal(0, 1, (B, T, cfg.frontend_dim)).astype(np.float32))}
+    else:
+        inputs = {"tokens": torch.from_numpy(rng.integers(0, cfg.vocab_size, (B, T + 1)).astype(np.int32)),
+                  "patch_embeds": torch.from_numpy(rng.normal(0, 1, (B, cfg.num_patches, cfg.d_model)).astype(np.float32)),
+                  "mrope_positions": torch.from_numpy(grid_positions(B, T + 1, 2, 4))}
+    on_card = {k: v.to(cuda) for k, v in inputs.items()}
+    before = flash.launches
+    full, _ = forward(card, **on_card)
+    assert flash.launches - before == cfg.num_layers
+    want_full, _ = forward(cpu, **inputs)
+    scale = want_full.abs().max().item()
+    assert (full.cpu() - want_full).abs().max().item() <= 1e-4 * scale
+    if not cfg.has_decode:
+        step, _ = make_prefill_step(cfg, T, device=cuda)(card, on_card)
+        last, _ = forward(card, **on_card, last_only=True)
+        assert torch.equal(step, last[:, 0])
+        with pytest.raises(ValueError, match="encoder"):
+            decode_step(card, [], torch.zeros((B, 1), dtype=torch.int32), torch.zeros((B,), dtype=torch.int32))
+        return
+    pre = {"tokens": inputs["tokens"][:, :T], "patch_embeds": inputs["patch_embeds"],
+           "mrope_positions": inputs["mrope_positions"][:, :, :T]}
+    nxt = {"tokens": inputs["tokens"][:, T:], "positions": torch.full((B,), T, dtype=torch.int32),
+           "mrope_positions": inputs["mrope_positions"][:, :, T:]}
+    logits, cache = make_prefill_step(cfg, T + 8, device=cuda)(card, {k: v.to(cuda) for k, v in pre.items()})
+    dec, cache = make_decode_step(cfg, device=cuda)(card, cache, {k: v.to(cuda) for k, v in nxt.items()})
+    want_logits, cpu_cache = make_prefill_step(cfg, T + 8, device="cpu")(cpu, pre)
+    want_dec, cpu_cache = make_decode_step(cfg, device="cpu")(cpu, cpu_cache, nxt)
+    assert (logits.cpu() - want_logits).abs().max().item() <= 1e-4 * scale
+    assert (dec.cpu() - want_dec).abs().max().item() <= 1e-4 * scale
+    assert (dec.cpu() - want_full[:, T]).abs().max().item() <= 2e-2 * scale  # the cache contract
+    for c, w in zip(cache, cpu_cache):
+        assert torch.equal(c["pos"].cpu(), w["pos"])
+        assert torch.equal(c["pos"][:, : T + 1].cpu(), torch.arange(T + 1, dtype=torch.int32).expand(B, T + 1))
+
+
+def test_checkpoint_of_cuda_tensors_round_trips_on_card(cuda, tmp_path):
+    """A bf16 model's state_dict and int32 / float32 leaves on the card:
+    saved (synchronously and by the AsyncCheckpointer), restored on the
+    card bit for bit, and on the CPU when asked."""
+    from repro_torch.checkpoint import AsyncCheckpointer, latest_step, restore, save
+    from repro_torch.configs import get_config
+    from repro_torch.data import DataConfig, SyntheticLMData, make_host_batch
+    from repro_torch.models.model import init_params
+
+    cfg = get_config("hubert-xlarge").reduced()
+    model = init_params(cfg, seed=0, device=cuda)
+    data = SyntheticLMData(DataConfig(vocab_size=cfg.vocab_size, seq_len=16, global_batch=2))
+    tree = {"params": model.state_dict(), "batch": make_host_batch(data, 3),
+            "opt": [torch.zeros(3, device=cuda), torch.tensor(7, dtype=torch.int32, device=cuda)]}
+    assert all(t.is_cuda and t.dtype == torch.int32 for t in tree["batch"].values())
+    save(str(tmp_path / "sync"), 3, tree)
+    ck = AsyncCheckpointer(str(tmp_path / "async"), keep=1)
+    ck.save(3, tree)
+    ck.wait()
+    for d in ("sync", "async"):
+        assert latest_step(str(tmp_path / d)) == 3
+        got = restore(str(tmp_path / d), 3, tree)
+        back = restore(str(tmp_path / d), 3, tree, device="cpu")
+        for k, t in tree["params"].items():
+            assert got["params"][k].is_cuda and got["params"][k].dtype == t.dtype and torch.equal(got["params"][k], t)
+            assert back["params"][k].device.type == "cpu" and torch.equal(back["params"][k], t.cpu())
+        assert all(torch.equal(got["batch"][k], v) for k, v in tree["batch"].items())
+        assert int(got["opt"][1]) == 7

@@ -245,14 +245,16 @@ def test_params_from_jax_covers_every_parameter():
 
 
 @pytest.mark.parametrize("name", ["llama3.2-3b", "gemma2-9b", "mistral-large-123b", "deepseek-67b",
-                                  "qwen3-moe-235b-a22b", "grok-1-314b", "rwkv6-1.6b", "recurrentgemma-2b"])
+                                  "qwen3-moe-235b-a22b", "grok-1-314b", "rwkv6-1.6b", "recurrentgemma-2b",
+                                  "hubert-xlarge", "qwen2-vl-72b"])
 def test_param_count_matches_the_port(name):
     """At full size, on the meta device: the port's parameters are the
     reference's pytree, leaf for leaf in count; ``param_count()`` is exact
     for models without post-norms or q/k norms and, as the reference's own
     test allows, within 2% for gemma2 (its analytic count leaves the
-    post-norms out) and the recurrent models (it counts their small
-    vectors loosely); qwen3-moe's count leaves out its q/k norm scales."""
+    post-norms out), the recurrent models (it counts their small vectors
+    loosely) and hubert (it leaves out ``frontend_proj``); qwen3-moe's count
+    leaves out its q/k norm scales."""
     cfg = get_config(name)
     model = Transformer(cfg, seed=None, device="meta")
     n = sum(p.numel() for p in model.parameters())
@@ -264,21 +266,27 @@ def test_param_count_matches_the_port(name):
     elif cfg.use_post_norm:
         assert n - cfg.param_count() == 2 * cfg.d_model * cfg.num_layers
         assert abs(n - cfg.param_count()) / n < 0.02
+    elif cfg.frontend == "audio_frames":
+        assert n - cfg.param_count() == cfg.frontend_dim * cfg.d_model
+        assert abs(n - cfg.param_count()) / n < 0.02
     else:
         qk_norms = 2 * cfg.head_dim * cfg.num_layers if cfg.qk_norm else 0
         assert n == cfg.param_count() + qk_norms
 
 
 @pytest.mark.parametrize("name", sorted(ARCHS))
-def test_unported_kinds_raise(name):
-    """Only the modality frontends still raise; every layer kind builds."""
+def test_every_config_builds(name):
+    """Every config builds, every layer kind and both modality frontends:
+    the audio frontend's ``frontend_proj`` (frontend_dim, D) beside the
+    embedding, and nothing more for the vision frontend."""
     cfg = get_config(name).reduced()
-    if cfg.frontend is not None:
-        with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item 7"):
-            init_params(cfg, device="cpu")
-    else:
-        model = init_params(cfg, device="cpu")
-        assert [b.kind for b in model.layers] == list(cfg.layer_kinds)
+    model = init_params(cfg, device="cpu")
+    assert [b.kind for b in model.layers] == list(cfg.layer_kinds)
+    names = dict(model.named_parameters())
+    assert ("frontend_proj" in names) == (cfg.frontend == "audio_frames")
+    if cfg.frontend == "audio_frames":
+        assert names["frontend_proj"].shape == (cfg.frontend_dim, cfg.d_model)
+        assert names["frontend_proj"].dtype == model.embed.dtype
 
 
 def test_params_from_jax_carries_the_moe_subtree():
