@@ -6,8 +6,8 @@
 Phases, each of which fails the run on a wrong result:
 
 1. build the segmax, wastage, rangemax, compaction, fitstats, scan,
-   admission, admission_epoch, moe_dispatch, moe_combine, rglru_scan, flash
-   and rwkv_wkv kernels from
+   admission, admission_epoch, moe_dispatch, moe_combine, rglru_scan, flash,
+   flash_bwd and rwkv_wkv kernels from
    ``src/repro_torch/kernels/csrc`` (one ``nvcc`` per source, in parallel);
 2. hold segmax and wastage against their plain PyTorch versions on the
    card, at the shapes of the largest bucket of the grid (peaks and fail
@@ -216,6 +216,33 @@ Phases, each of which fails the run on a wrong result:
    (hubert's prefill, qwen2-vl's prefill and its G = 8 decode over a
    ragged 4,112-slot cache) as phase 7, beside the bound, the plain
    version and SDPA.
+16. training, bf16, random weights from seed 0, phase 15's models freed
+   before: (a) ``repro_torch.launch.train`` with its defaults (reduced
+   llama3.2-3b, B 8 x T 128) on the card, 30 steps with a failure injected
+   at step 12: exactly one restart, step 30, finite losses, flash and
+   flash_bwd launched; (b) llama3.2-3b at full width and depth (28 layers,
+   3.213 B parameters, bf16 weights, f32 moments, remat, the reference's
+   ``OptimizerConfig`` defaults) on B 2 x T 4,096 of ``SyntheticLMData``:
+   six steps (the first a warm-up; walls, median of the other five,
+   tokens/s, peak memory against the card's), loss and grad_norm finite at
+   every step, the first step's ce within 1e-2 relative of ``forward``'s
+   logits' cross-entropy on the same batch, 56 flash and 28 flash_bwd
+   launches a step, every parameter moved (a sample of each), one profiled
+   step split into products, flash forward and backward, cross-entropy,
+   optimizer and the rest (busy share, launches), then three steps with
+   ``accum_steps`` 2; (c) the gradients through the kernels against those
+   through the plain attention (``ops.flash_attention`` patched), at full
+   width on 2 layers, every parameter's within 2e-2 of its max |g| with
+   float32 weights, and within max(2e-2, twice the bf16 run's distance from
+   the float32 one) with bf16 weights; (d) flash_bwd alone at llama's (B 2,
+   T 4,096, 24/8, hd 128, causal), gemma2-9b's (B 1, T 8,192, 16/8, hd
+   256, window 4,096, softcap 50), hubert's (B 8 x 1,500, 16/16, hd 80,
+   non-causal) and qwen2-vl's (B 2 x 4,096, 64/8, hd 128) shapes, dq, dk
+   and dv within 2e-2 (bf16) and 1e-4 (f32) of max |plain|, timed (CUDA
+   events and profiled device time) beside the plain backward, SDPA's
+   backward (a yardstick only; none under softcap) and the bound (2.5
+   times the forward's 4 hd flops a valid pair at the bf16 rate, or the
+   bytes, whichever is larger).
 
 Prints the card's name and power limit, a ``{"kernels": [...]}`` line, and
 as its last line ``{"ok": true, "device": {...}}``.  Exits non-zero without
@@ -3147,6 +3174,356 @@ def frontend_phase(dev) -> dict[str, dict]:
     return out
 
 
+TRAIN_ARCH = "llama3.2-3b"
+TRAIN_BATCH, TRAIN_SEQ = 2, 4096
+TRAIN_STEPS, TRAIN_ACCUM_STEPS = 6, 3  # the first of TRAIN_STEPS is the warm-up
+GRAD_LAYERS = 2  # of 28: the gradients through the kernel against the plain version's
+FLASH_BWD_KERNELS = "flash_bwd_kernel"  # every launch of csrc/flash_bwd.cu is named flash_bwd_kernel_*
+# name, (B, T, H, KV, hd), causal, window, softcap: the training shapes of
+# llama3.2-3b, gemma2-9b's widths, hubert-xlarge and qwen2-vl-72b
+BWD_CASES = (
+    ("llama", (2, 4096, 24, 8, 128), True, None, None),
+    ("gemma2", (1, 8192, 16, 8, 256), True, 4096, 50.0),
+    ("hubert", (8, 1500, 16, 16, 80), False, None, None),
+    ("qwen2-vl", (2, 4096, 64, 8, 128), True, None, None),
+)
+BWD_TOL = {"float32": 1e-4, "bfloat16": 2e-2}  # kernel vs plain, of max |plain| per output
+
+
+def _train_split(prof) -> dict[str, list]:
+    """A profiled train step's device time by family, [ms, launches]:
+    products (cuBLAS), flash's forward and backward (by kernel name),
+    cross-entropy (the kernels launched inside ``train.cross_entropy`` and
+    by the backward of the autograd nodes made there, matched by sequence
+    number), the optimizer (inside ``train.optimizer``) and the rest.  A
+    kernel the profiler lists on an event and on one of its children is
+    counted once, at the child."""
+    events = prof.events()
+
+    def chain(e):
+        while e is not None:
+            yield e
+            e = e.cpu_parent
+
+    ce_seq = {e.sequence_nr for e in events
+              if e.sequence_nr >= 0 and any(a.name == "train.cross_entropy" for a in chain(e))}
+    split = {k: [0.0, 0] for k in ("products", "flash forward", "flash backward", "cross-entropy", "optimizer",
+                                   "rest")}
+    for e in events:
+        # an event may list the kernels its children list too: count each at the innermost
+        inner = collections.Counter((k.name, k.duration) for c in e.cpu_children for k in c.kernels)
+        for kern in e.kernels:
+            if inner[(kern.name, kern.duration)] > 0:
+                inner[(kern.name, kern.duration)] -= 1
+                continue
+            if kern.name.startswith(("train.", "Memcpy", "Memset")):  # a range's device span, copies
+                continue
+            names = [a.name for a in chain(e)]
+            if FLASH_BWD_KERNELS in kern.name:
+                fam = "flash backward"
+            elif FLASH_KERNELS in kern.name:
+                fam = "flash forward"
+            elif "train.optimizer" in names:
+                fam = "optimizer"
+            elif "train.cross_entropy" in names or any(
+                    a.sequence_nr in ce_seq and a.name.startswith("autograd::engine") for a in chain(e)):
+                fam = "cross-entropy"
+            elif any(k in kern.name for k in PRODUCT_KERNELS):
+                fam = "products"
+            else:
+                fam = "rest"
+            split[fam][0] += kern.duration / 1e3
+            split[fam][1] += 1
+    return split
+
+
+def _raw_kernel_ms(prof) -> tuple[float, int]:
+    """Device ms and launches of every kernel in a profile's raw events
+    (what ``_train_split`` attributes to ops should add up to it)."""
+    import torch
+
+    cuda = torch.autograd.DeviceType.CUDA
+    # the device's spans of the record_function ranges ("train.*") are not kernels
+    ks = [e for e in prof.profiler.kineto_results.events()
+          if e.device_type() == cuda and not e.name().startswith(("Memcpy", "Memset", "train."))]
+    return sum(e.duration_ns() for e in ks) / 1e6, len(ks)
+
+
+def _train_launcher() -> None:
+    """(a) ``repro_torch.launch.train`` with its defaults on the card, 30
+    steps, one injected failure at step 12."""
+    import math
+    import tempfile
+
+    from repro_torch.kernels import ops
+    from repro_torch.launch import train as launch_train
+
+    ops.reset_launch_counts()
+    with tempfile.TemporaryDirectory() as ckpt:
+        res, wall = _wall(lambda: launch_train.main(["--steps", "30", "--fail-at", "12", "--ckpt", ckpt]))
+    counts = ops.launch_counts()
+    losses = [m["loss"] for m in res["log"]]
+    print(f"  (a) launcher: {wall:.2f} s, step {res['step']}, {res['restarts']} restart(s), losses "
+          + ", ".join(f"{x:.4f}" for x in losses) + f"; flash {counts['flash']}, flash_bwd {counts['flash_bwd']} "
+          f"launches")
+    if res["restarts"] != 1 or res["step"] != 30 or not all(math.isfinite(x) for x in losses):
+        _fail(f"train launcher: {res['restarts']} restarts, step {res['step']}, losses {losses}")
+    if not counts["flash"] or not counts["flash_bwd"]:
+        _fail(f"train launcher: flash {counts['flash']}, flash_bwd {counts['flash_bwd']} launches")
+
+
+def _train_full(dev) -> int:
+    """(b) llama3.2-3b at full width and depth: TRAIN_STEPS steps, then
+    TRAIN_ACCUM_STEPS with accum_steps 2.  Returns flash_bwd's launches in
+    the TRAIN_STEPS steps."""
+    import math
+
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.configs import get_config
+    from repro_torch.data import DataConfig, SyntheticLMData, make_host_batch
+    from repro_torch.kernels import ops
+    from repro_torch.models.model import forward, init_params
+    from repro_torch.train import OptimizerConfig, TrainConfig, init_train_state, make_train_step
+    from repro_torch.train.train_step import cross_entropy
+
+    cfg = get_config(TRAIN_ARCH)
+    model = init_params(cfg, seed=0, device=dev)
+    state = init_train_state(model, OptimizerConfig())
+    n_params = sum(p.numel() for p in state["params"].values())
+    data = SyntheticLMData(DataConfig(vocab_size=cfg.vocab_size, seq_len=TRAIN_SEQ, global_batch=TRAIN_BATCH))
+    batches = [make_host_batch(data, i, device=dev) for i in range(TRAIN_STEPS + TRAIN_ACCUM_STEPS + 1)]
+    logits, _ = forward(model, batches[0]["tokens"])
+    ce_forward = cross_entropy(logits, batches[0]["labels"], batches[0]["mask"].float()).item()
+    del logits
+    # a sample of each parameter, to see it move
+    before = {n: p.detach().flatten()[:65536].clone() for n, p in state["params"].items()}
+    step = make_train_step(cfg, TrainConfig(), model)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(dev)
+    ops.reset_launch_counts()
+    walls, rows = [], []
+    for i in range(TRAIN_STEPS):
+        (state, m), wall = _wall(lambda: step(state, batches[i]))
+        walls.append(wall)
+        rows.append({k: float(v) for k, v in m.items()})
+        if not (math.isfinite(rows[-1]["loss"]) and math.isfinite(rows[-1]["grad_norm"])):
+            _fail(f"train: step {i + 1} loss {rows[-1]['loss']}, grad_norm {rows[-1]['grad_norm']}")
+    counts = ops.launch_counts()
+    peak = torch.cuda.max_memory_allocated(dev)
+    total = torch.cuda.get_device_properties(dev).total_memory
+    med = statistics.median(walls[1:])
+    ce_err = abs(rows[0]["ce"] - ce_forward) / abs(ce_forward)
+    print(f"  (b) {TRAIN_ARCH}: {cfg.num_layers} layers, {n_params / 1e9:.3f} B parameters, {cfg.dtype} weights, "
+          f"f32 moments, remat {cfg.remat}; B {TRAIN_BATCH} x T {TRAIN_SEQ}")
+    print(f"      step walls " + ", ".join(f"{w:.4f}" for w in walls) + f" s; median of the last "
+          f"{len(walls) - 1} {med:.4f} s, {TRAIN_BATCH * TRAIN_SEQ / med:.0f} tokens/s; peak memory "
+          f"{peak / 1e9:.2f} GB of {total / 1e9:.2f} GB")
+    print("      losses " + ", ".join(f"{r['loss']:.4f}" for r in rows) + "; grad_norm "
+          + ", ".join(f"{r['grad_norm']:.4f}" for r in rows) + f"; first step's ce {rows[0]['ce']:.6f} against "
+          f"forward's {ce_forward:.6f} (relative {ce_err:.3e}, limit 1e-2)")
+    per_step = {k: counts[k] / TRAIN_STEPS for k in ("flash", "flash_bwd")}
+    print(f"      launches a step: flash {per_step['flash']:.0f}, flash_bwd {per_step['flash_bwd']:.0f}")
+    if ce_err > 1e-2:
+        _fail(f"train: first step's ce {rows[0]['ce']} off forward's {ce_forward} by {ce_err:.3e}")
+    layers = cfg.num_layers
+    if per_step["flash"] != (2 if cfg.remat else 1) * layers or per_step["flash_bwd"] != layers:
+        _fail(f"train: flash {per_step['flash']} and flash_bwd {per_step['flash_bwd']} launches a step")
+    still = [n for n, p in state["params"].items() if torch.equal(p.detach().flatten()[:65536], before[n])]
+    if still:
+        _fail(f"train: {len(still)} parameters did not move ({still[:4]})")
+    del before
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        (state, m), wall = _wall(lambda: step(state, batches[TRAIN_STEPS]))
+    split = _train_split(prof)
+    busy, launched = _raw_kernel_ms(prof)
+    print(f"      profiled step: wall {wall:.4f} s, device busy {busy:.2f} ms ({100 * busy / (1e3 * wall):.1f}%), "
+          f"{launched} kernel launches; by family (of {sum(ms for ms, _ in split.values()):.2f} ms the profiler "
+          f"tied to an op): " + ", ".join(f"{k} {ms:.2f} ms x {n}" for k, (ms, n) in split.items()))
+
+    step2 = make_train_step(cfg, TrainConfig(accum_steps=2), model)
+    walls2, losses2 = [], []
+    for i in range(TRAIN_ACCUM_STEPS):
+        (state, m), wall = _wall(lambda: step2(state, batches[TRAIN_STEPS + 1 + i]))
+        walls2.append(wall)
+        losses2.append((float(m["loss"]), float(m["grad_norm"])))
+        if not all(math.isfinite(x) for x in losses2[-1]):
+            _fail(f"train: accum_steps 2, step {i + 1}: loss and grad_norm {losses2[-1]}")
+    print(f"      accum_steps 2: walls " + ", ".join(f"{w:.4f}" for w in walls2) + " s; (loss, grad_norm) "
+          + ", ".join(f"({a:.4f}, {b:.4f})" for a, b in losses2) + f"; peak memory "
+          f"{torch.cuda.max_memory_allocated(dev) / 1e9:.2f} GB")
+    del state, step, step2, model, batches
+    torch.cuda.empty_cache()
+    return counts["flash_bwd"]
+
+
+def _train_grads(dev) -> None:
+    """(c) the gradients through the kernels against those through the
+    plain attention, at full width on GRAD_LAYERS layers, with float32
+    weights and with bf16 ones (the float32 model holds the bf16 weights)."""
+    import dataclasses
+
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.data import DataConfig, SyntheticLMData, make_host_batch
+    from repro_torch.kernels import flash, flash_bwd, ops
+    from repro_torch.models.model import Transformer, init_params
+    from repro_torch.train import make_loss_fn
+
+    cfg = dataclasses.replace(get_config(TRAIN_ARCH), num_layers=GRAD_LAYERS)
+    data = SyntheticLMData(DataConfig(vocab_size=cfg.vocab_size, seq_len=TRAIN_SEQ, global_batch=TRAIN_BATCH))
+    batch = make_host_batch(data, 0, device=dev)
+
+    def grads(model, c, plain: bool):
+        params = dict(model.named_parameters())
+        for p in params.values():
+            p.requires_grad_(True)
+        before = flash.launches + flash_bwd.launches
+        ctx = _patched(ops, "flash_attention", lambda orig: flash.flash_attention_plain) if plain else \
+            contextlib.nullcontext()
+        with ctx:
+            loss, _ = make_loss_fn(c)(model, batch)
+            g = torch.autograd.grad(loss, list(params.values()))
+        if plain and flash.launches + flash_bwd.launches != before:
+            _fail("train (c): the plain path launched a kernel")
+        return {n: t.float() for n, t in zip(params, g)}
+
+    bf = init_params(cfg, seed=0, device=dev)
+    c32 = dataclasses.replace(cfg, dtype="float32")
+    f32 = Transformer(c32, seed=None, device=dev)
+    f32.load_state_dict({n: t.float() for n, t in bf.state_dict().items()})
+    runs = {}
+    for name, model, c in (("float32", f32, c32), ("bfloat16", bf, cfg)):
+        runs[name] = (grads(model, c, False), grads(model, c, True))
+        del model
+    del f32, bf
+    torch.cuda.empty_cache()
+
+    def dist(a: dict, b: dict) -> dict:
+        return {n: (a[n] - b[n]).abs().max().item() / max(b[n].abs().max().item(), 1e-30) for n in b}
+
+    d32 = dist(*runs["float32"])
+    d16 = dist(*runs["bfloat16"])
+    own = dist(runs["bfloat16"][0], runs["float32"][0])  # the bf16 run's distance from the float32 one
+    worst32 = max(d32, key=d32.get)
+    print(f"  (c) gradients, kernel vs plain attention, {GRAD_LAYERS} of 28 layers at full width, B {TRAIN_BATCH} x "
+          f"T {TRAIN_SEQ}: float32 worst {worst32} {d32[worst32]:.3e} (limit 2e-2)")
+    bad = [n for n in d32 if d32[n] > 2e-2]
+    limits = {n: max(2e-2, 2 * own[n]) for n in d16}
+    worst16 = max(d16, key=lambda n: d16[n] / limits[n])
+    print(f"      bf16 worst {worst16} {d16[worst16]:.3e} (limit {limits[worst16]:.3e}: 2e-2 or twice the bf16 "
+          f"run's distance from the float32 one, {own[worst16]:.3e})")
+    bad += [n for n in d16 if d16[n] > limits[n]]
+    if bad:
+        _fail(f"train (c): gradients off the plain path's beyond the limit: {bad[:4]}")
+
+
+def _bwd_device_ms(call, n: int) -> tuple[float, dict]:
+    """The profiled device time of one flash_bwd call (five device
+    launches): ``n`` calls under the profiler after 64 launches of a fill
+    (the profiler drops the first device events of its window), each
+    kernel's time over the launches kept, summed over the kernels."""
+    import torch
+
+    pad = torch.empty(1, device="cuda")
+
+    def run():
+        for _ in range(64):
+            pad.fill_(0.0)
+        for _ in range(n):
+            call()
+
+    prof = _profile(run)
+    parts = collections.defaultdict(lambda: [0.0, 0])
+    for name, (ms, cnt) in prof["top_all"]:
+        if FLASH_BWD_KERNELS in name:
+            part = parts[re.search(FLASH_BWD_KERNELS + r"_\w+?(?=<|$|\()", name).group(0)]
+            part[0] += ms
+            part[1] += cnt
+    return sum(ms / max(c, 1) * (2 if p.endswith("tiles") else 1) for p, (ms, c) in parts.items()), dict(parts)
+
+
+def _bwd_case(case, seed: int, dev) -> dict:
+    """(d) flash_bwd alone at one shape: against the plain backward in bf16
+    and f32, timed in bf16 (CUDA events, profiled device time) beside the
+    plain backward, SDPA's backward and the bound."""
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch.kernels import flash, flash_bwd
+
+    name, (B, T, H, KV, hd), causal, window, cap = case
+    kw = dict(causal=causal, window=window, softcap=cap)
+    out_row = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        q, k, v, qp, kp = _flash_case_inputs(B, T, T, H, KV, hd, dtype, seed, dev)
+        g = torch.Generator(device=dev).manual_seed(seed + 1)
+        dout = torch.randn(q.shape, generator=g, device=dev).to(dtype)
+        out, lse = flash.flash_attention_lse_cuda(q, k, v, qp, kp, **kw)
+        call = lambda: flash_bwd.flash_bwd_cuda(q, k, v, out, lse, dout, qp, kp, **kw)  # noqa: E731
+        got = call()
+        want = flash_bwd.flash_attention_bwd_plain(q, k, v, out, lse, dout, qp, kp, **kw)
+        torch.cuda.synchronize()
+        errs = [(a.float() - b.float()).abs().max().item() / b.float().abs().max().item() for a, b in zip(got, want)]
+        tol = BWD_TOL[str(dtype)[6:]]
+        line = (f"  {name:8s} {str(dtype)[6:]:8s} B{B} T{T} H{H} KV{KV} hd{hd}: dq, dk, dv off the plain by "
+                + ", ".join(f"{e:.3e}" for e in errs) + f" of max |plain| (limit {tol:g})")
+        if not all(torch.isfinite(t.float()).all() for t in got) or max(errs) > tol:
+            _fail(f"flash_bwd {name} {dtype}: {errs} (limit {tol})")
+        del want
+        if dtype == torch.bfloat16:
+            reps = 5
+            ms = _cuda_ms(call, reps)
+            dev_ms, parts = _bwd_device_ms(call, 10)
+            plain_ms = _cuda_ms(lambda: flash_bwd.flash_attention_bwd_plain(q, k, v, out, lse, dout, qp, kp, **kw), 1)
+            mask = _flash_mask(qp, kp, causal, window)
+            pairs = mask.sum().item() * H
+            nbytes = 2 * (4 * q.numel() + 4 * k.numel()) + 4 * lse.numel() + 4 * (qp.numel() + kp.numel())
+            bound_ms, bound_by = _bound(nbytes, 2.5 * 4 * hd * pairs, BF16_OPS_PER_S)
+            if cap is None:  # SDPA has no softcap
+                qt, kt, vt = (x.transpose(1, 2).detach().requires_grad_() for x in (q, k, v))
+                extra = dict(is_causal=True) if causal and window is None else (
+                    dict(attn_mask=mask[:, None]) if window is not None else {})
+                o = F.scaled_dot_product_attention(qt, kt, vt, enable_gqa=True, **extra)
+                do = dout.transpose(1, 2)
+                lib_ms = _cuda_ms(lambda: torch.autograd.grad(o, (qt, kt, vt), do, retain_graph=True), reps)
+                how = "is_causal" if "is_causal" in extra else "mask" if extra else "no mask"
+                lib_note = f"sdpa backward {lib_ms:.4f} ms ({how})"
+                del o, qt, kt, vt
+            else:
+                lib_ms, lib_note = None, "sdpa backward: null (no softcap)"
+            line += (f"; kernel {ms:.4f} ms, profiled {dev_ms:.4f} ms ("
+                     + ", ".join(f"{n} {t / max(c, 1):.4f} ms x {c}" for n, (t, c) in parts.items())
+                     + f"), plain {plain_ms:.4f} ms, {lib_note}, bound {bound_ms:.4f} ms ({bound_by}; "
+                     f"{2.5 * 4 * hd * pairs:.3e} flop, {nbytes / 1e6:.1f} MB)")
+            out_row = dict(max_abs_err=max(errs), ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
+                           library_ms=lib_ms, device_ms=dev_ms)
+            del mask
+        print(line)
+        del q, k, v, out, lse, dout, got
+    torch.cuda.empty_cache()
+    return out_row
+
+
+def train_phase(dev) -> tuple[dict, int]:
+    """Phase 16: training.  Returns flash_bwd's numbers at llama's shape and
+    its launches in (b)'s steps."""
+    print(f"train phase (a): the launcher, reduced {TRAIN_ARCH}")
+    t0 = time.perf_counter()
+    _train_launcher()
+    print(f"train phase (b): {TRAIN_ARCH} at full width and depth ({time.perf_counter() - t0:.2f} s so far)")
+    launches = _train_full(dev)
+    print(f"train phase (c): gradients through the kernels against the plain path ({time.perf_counter() - t0:.2f} s)")
+    _train_grads(dev)
+    print(f"train phase (d): flash_bwd alone; kernel vs plain bf16 <= 2e-2, f32 <= 1e-4 of max |plain| "
+          f"({time.perf_counter() - t0:.2f} s)")
+    cases = {case[0]: _bwd_case(case, 300 + i, dev) for i, case in enumerate(BWD_CASES)}
+    return cases["llama"], launches
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0, help="seed of the synthetic corpus")
@@ -3221,6 +3598,9 @@ def main() -> int:
     t0 = time.perf_counter()
     frontend_phase(dev)
     print(f"frontend phase: {time.perf_counter() - t0:.2f} s")
+    t0 = time.perf_counter()
+    per_kernel["flash_bwd"], counts["flash_bwd"] = train_phase(dev)
+    print(f"train phase: {time.perf_counter() - t0:.2f} s")
 
     sources = {
         "segmax": ("src/repro_torch/kernels/csrc/segmax.cu", "src/repro/kernels/segmax.py:55"),
@@ -3253,6 +3633,10 @@ def main() -> int:
         "rglru_scan": ("src/repro_torch/kernels/csrc/rglru_scan.cu",
                        "src/repro/models/recurrent.py:214-224 (rglru_block's lax.associative_scan), :210-212 "
                        "(its step at T = 1)"),
+        # no TPU kernel: the reference trains through its attention's XLA path
+        "flash_bwd": ("src/repro_torch/kernels/csrc/flash_bwd.cu",
+                      "src/repro/models/layers.py:213-253 (autodiff of flash_attention's KV-chunk lax.scan; no TPU "
+                      "kernel: USE_FLASH_KERNEL is False, src/repro/models/flags.py:38)"),
     }
     keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     line = {"kernels": [

@@ -42,9 +42,9 @@ NVCC_FLAGS = (
 # agree bit for bit where their arithmetic is the same: the engine's and the
 # scheduler's kernels need that, and so does the MoE combine's rounding
 # after each multiply and each add, and the RG-LRU's multiply then add a
-# step.  flash's inner products and the WKV chunk form (its products on
-# the tensor cores) need no bit exactness (their plain versions sum in
-# other orders) and keep FMA.
+# step.  flash's inner products, forward and backward, and the WKV chunk
+# form (its products on the tensor cores) need no bit exactness (their
+# plain versions sum in other orders) and keep FMA.
 _EXACT = ("-fmad=false",)
 SOURCES = {
     "segmax": _EXACT,
@@ -59,6 +59,7 @@ SOURCES = {
     "moe_combine": _EXACT,
     "rglru_scan": _EXACT,
     "flash": (),
+    "flash_bwd": (),
     "rwkv_wkv": (),
 }
 

@@ -69,101 +69,15 @@
 //
 // All launches are named flash_kernel_*, so one profiler match takes them in.
 
-#include <climits>
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <math.h>
-#include <stdint.h>
+#include "flash_common.cuh"
 
 namespace {
 
-typedef __nv_bfloat16 bf16;
-
-constexpr float kNeg = -1.0e30f;
 constexpr int kBN = 64;         // keys per KV tile of flash_kernel_cores
 constexpr int kSplitRows = 4;   // T * G at most this takes the split path
 constexpr int kCombineThreads = 32 * kSplitRows;
 
-// ---- operand types -------------------------------------------------------
-
-// Shared rows of Q and K in flash_kernel_cores are padded so that the
-// threads of a warp reading one column of 16 or 32 key rows hit distinct
-// banks: an odd stride in 4-byte words (f32: hd + 1; bf16: (hd + 2) / 2).
-template <typename T>
-struct Op;
-
-template <>
-struct Op<float> {
-  static constexpr int kPad = 1;
-  __device__ static float2 load2(const float* p) { return make_float2(p[0], p[1]); }
-  __device__ static float load(const float* p) { return *p; }
-  __device__ static float round(float x) { return x; }
-  __device__ static float store(float x) { return x; }
-};
-
-template <>
-struct Op<bf16> {
-  static constexpr int kPad = 2;
-  __device__ static float2 load2(const bf16* p) {
-    return __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(p));
-  }
-  __device__ static float load(const bf16* p) { return __bfloat162float(*p); }
-  __device__ static float round(float x) { return __bfloat162float(__float2bfloat16(x)); }
-  __device__ static bf16 store(float x) { return __float2bfloat16(x); }
-};
-
-// ---- PTX wrappers ---------------------------------------------------------
-
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-// 16 bytes from global to shared, asynchronously; zeros where !pred.
-__device__ __forceinline__ void cp_async16(void* dst, const void* src, bool pred) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(smem_u32(dst)), "l"(src),
-               "r"(pred ? 16 : 0)
-               : "memory");
-}
-
-__device__ __forceinline__ void cp_async4(void* dst, const void* src, bool pred) {
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(smem_u32(dst)), "l"(src), "r"(pred ? 4 : 0)
-               : "memory");
-}
-
-__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::: "memory"); }
-
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
-}
-
-__device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], const void* p) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(smem_u32(p)));
-}
-
-__device__ __forceinline__ void ldsm_x4_trans(uint32_t (&r)[4], const void* p) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(smem_u32(p)));
-}
-
-// d += a (16 x 16, row) * b (16 x 8, col), bf16 operands, f32 accumulators.
-__device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4], uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, "
-      "{%0, %1, %2, %3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<uint32_t*>(&v);
-}
-
-// ---- tile summaries and liveness ------------------------------------------
+// ---- tile summaries -------------------------------------------------------
 
 // One warp a KV tile of bn slots: (min valid k_pos, max valid k_pos, number
 // of valid slots, 0); slots past S are not counted.
@@ -184,50 +98,6 @@ __global__ void __launch_bounds__(256)
     cnt += __shfl_xor_sync(0xffffffffu, cnt, off);
   }
   if (lane == 0) tiles[(size_t)b * nT + t] = make_int4(kmin, kmax, cnt, 0);
-}
-
-// 0: no (row, key) pair of the block can be valid; 2: every pair is valid;
-// 1: otherwise.  The rule of kernels/flash.py:flash_tile_live.
-__device__ __forceinline__ int tile_state(int4 ts, int bn, int qmin, int qmax, int causal, int window) {
-  if (ts.z == 0) return 0;
-  if (causal && ts.x > qmax) return 0;
-  if (window > 0 && (long long)ts.y <= (long long)qmin - window) return 0;
-  const bool full = ts.z == bn && (!causal || ts.y <= qmin) && (window <= 0 || (long long)ts.x > (long long)qmax - window);
-  return full ? 2 : 1;
-}
-
-// min and max q_pos of rows [r0, r1) (row r is query r / G), in every lane.
-__device__ __forceinline__ void row_bounds(const int* __restrict__ qp, int G, int r0, int r1, int& qmin, int& qmax) {
-  const int lane = threadIdx.x % 32;
-  qmin = INT_MAX, qmax = INT_MIN;
-  for (int t = r0 / G + lane; t <= (r1 - 1) / G; t += 32) qmin = min(qmin, qp[t]), qmax = max(qmax, qp[t]);
-  for (int off = 16; off > 0; off >>= 1) {
-    qmin = min(qmin, __shfl_xor_sync(0xffffffffu, qmin, off));
-    qmax = max(qmax, __shfl_xor_sync(0xffffffffu, qmax, off));
-  }
-}
-
-// The live tiles of [t0, t1), in order, into shared `list` as
-// (tile << 2) | state; returns their number.  Every thread takes part.
-template <int NT>
-__device__ int live_list(const int4* __restrict__ tiles, int t0, int t1, int bn, int qmin, int qmax, int causal,
-                         int window, int* list, int* count) {
-  const int n = t1 - t0;
-  for (int i = threadIdx.x; i < n; i += NT) list[i] = tile_state(tiles[t0 + i], bn, qmin, qmax, causal, window);
-  __syncthreads();
-  if (threadIdx.x < 32) {  // compact in place: a lane writes at or below the slot it read
-    const int lane = threadIdx.x;
-    int cnt = 0;
-    for (int base = 0; base < n; base += 32) {
-      const int st = base + lane < n ? list[base + lane] : 0;
-      const unsigned live = __ballot_sync(0xffffffffu, st != 0);
-      if (st) list[cnt + __popc(live & ((1u << lane) - 1u))] = ((t0 + base + lane) << 2) | st;
-      cnt += __popc(live);
-    }
-    if (lane == 0) *count = cnt;
-  }
-  __syncthreads();
-  return *count;
 }
 
 // Column sums of V over the S slots of one (batch, kv head) into red[0, HD),
@@ -285,8 +155,8 @@ template <int HD, int BM, int BN>
 __global__ void __launch_bounds__(MmaCfg<HD, BM, BN>::NT)
     flash_kernel_mma(const bf16* __restrict__ q, const bf16* __restrict__ k, const bf16* __restrict__ v,
                      const int* __restrict__ q_pos, const int* __restrict__ k_pos, const int4* __restrict__ tiles,
-                     bf16* __restrict__ out, int T_len, int S, int H, int KV, float scale, int causal, int window,
-                     float softcap) {
+                     bf16* __restrict__ out, float* __restrict__ lse, int T_len, int S, int H, int KV, float scale,
+                     int causal, int window, float softcap) {
   using C = MmaCfg<HD, BM, BN>;
   constexpr int NT = C::NT, LD = C::LD, STAGES = C::STAGES;
   constexpr int KS = HD / 16;  // k-steps of Q K^T
@@ -457,6 +327,9 @@ __global__ void __launch_bounds__(MmaCfg<HD, BM, BN>::NT)
   for (int i = 0; i < 2; ++i) {
     l[i] += __shfl_xor_sync(0xffffffffu, l[i], 1);
     l[i] += __shfl_xor_sync(0xffffffffu, l[i], 2);
+    const int gr = gr0 + 8 * i;
+    if (lse != nullptr && lane % 4 == 0 && gr < rows)
+      lse[(size_t)(b * T_len + gr / G) * H + kvh * G + gr % G] = m[i] + logf(l[i]);
   }
   const bool none[2] = {gr0 < rows && m[0] == kNeg, gr0 + 8 < rows && m[1] == kNeg};
   float* red = reinterpret_cast<float*>(Ks);
@@ -539,8 +412,8 @@ template <typename T, int HD, int BM, int RM, int TX>
 __global__ void __launch_bounds__((BM / RM) * TX)
     flash_kernel_cores(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
                        const int* __restrict__ q_pos, const int* __restrict__ k_pos, const int4* __restrict__ tiles,
-                       T* __restrict__ out, float* __restrict__ part, int T_len, int S, int H, int KV, float scale,
-                       int causal, int window, float softcap, int splits) {
+                       T* __restrict__ out, float* __restrict__ part, float* __restrict__ lse, int T_len, int S, int H,
+                       int KV, float scale, int causal, int window, float softcap, int splits) {
   constexpr int TY = BM / RM;
   constexpr int NT = TY * TX;
   constexpr int SC = kBN / TX;            // score columns a thread
@@ -706,6 +579,7 @@ __global__ void __launch_bounds__((BM / RM) * TX)
     if (gr >= rows) continue;
     const int t = gr / G, h = kvh * G + gr % G;
     T* dst = out + ((size_t)(b * T_len + t) * H + h) * HD;
+    if (lse != nullptr && tx == 0) lse[(size_t)(b * T_len + t) * H + h] = m[i] + logf(l[i]);
     const bool none = m[i] == kNeg;
     const float den = none ? (float)S : fmaxf(l[i], 1e-30f);
 #pragma unroll
@@ -726,8 +600,8 @@ __global__ void __launch_bounds__((BM / RM) * TX)
 // valid key in any split (m = -1e30) gets mean V over the S slots.
 template <typename T, int HD>
 __global__ void __launch_bounds__(kCombineThreads)
-    flash_kernel_combine(const float* __restrict__ part, const T* __restrict__ v, T* __restrict__ out, int T_len,
-                         int S, int H, int KV, int splits) {
+    flash_kernel_combine(const float* __restrict__ part, const T* __restrict__ v, T* __restrict__ out,
+                         float* __restrict__ lse, int T_len, int S, int H, int KV, int splits) {
   __shared__ __align__(16) float red[kCombineThreads * 16 / sizeof(T)];
   __shared__ float m_s[kSplitRows], l_s[kSplitRows];
   extern __shared__ float w_s[];
@@ -750,6 +624,10 @@ __global__ void __launch_bounds__(kCombineThreads)
     if (lane == 0) m_s[w] = m, l_s[w] = l;
   }
   __syncthreads();
+  if (lse != nullptr && threadIdx.x < rows) {
+    const int r = threadIdx.x;
+    lse[(size_t)(b * T_len + r / G) * H + kvh * G + r % G] = m_s[r] + logf(l_s[r]);
+  }
   bool none = false;
   for (int r = 0; r < rows; ++r) none = none || m_s[r] == kNeg;
   const size_t row_stride = (size_t)KV * HD;
@@ -776,6 +654,7 @@ struct Args {
   const void *q, *k, *v;
   const int *q_pos, *k_pos;
   void* out;
+  float* lse;
   int B, T, S, H, KV;
   float scale;
   int causal, window;
@@ -815,8 +694,8 @@ cudaError_t launch_mma(const Args& a) {
   const int rows = a.T * (a.H / a.KV);
   kern<<<dim3((rows + BM - 1) / BM, a.B * a.KV), C::NT, smem, a.stream>>>(
       static_cast<const bf16*>(a.q), static_cast<const bf16*>(a.k), static_cast<const bf16*>(a.v), a.q_pos, a.k_pos,
-      reinterpret_cast<const int4*>(a.scratch), static_cast<bf16*>(a.out), a.T, a.S, a.H, a.KV, a.scale, a.causal,
-      a.window, a.softcap);
+      reinterpret_cast<const int4*>(a.scratch), static_cast<bf16*>(a.out), a.lse, a.T, a.S, a.H, a.KV, a.scale,
+      a.causal, a.window, a.softcap);
   return cudaGetLastError();
 }
 
@@ -831,8 +710,8 @@ cudaError_t launch_cores(const Args& a, float* part, int splits) {
   const int rows = a.T * (a.H / a.KV);
   kern<<<dim3((rows + BM - 1) / BM, a.B * a.KV, splits), NT, smem, a.stream>>>(
       static_cast<const T*>(a.q), static_cast<const T*>(a.k), static_cast<const T*>(a.v), a.q_pos, a.k_pos,
-      reinterpret_cast<const int4*>(a.scratch), static_cast<T*>(a.out), part, a.T, a.S, a.H, a.KV, a.scale,
-      a.causal, a.window, a.softcap, splits);
+      reinterpret_cast<const int4*>(a.scratch), static_cast<T*>(a.out), part, part ? nullptr : a.lse, a.T, a.S, a.H,
+      a.KV, a.scale, a.causal, a.window, a.softcap, splits);
   return cudaGetLastError();
 }
 
@@ -852,7 +731,7 @@ cudaError_t launch_split(const Args& a) {
   const size_t smem = sizeof(float) * (size_t)rows * a.splits;  // the weights
   if ((err = allow_smem(combine, smem)) != cudaSuccess) return err;
   combine<<<a.B * a.KV, kCombineThreads, smem, a.stream>>>(part, static_cast<const T*>(a.v), static_cast<T*>(a.out),
-                                                             a.T, a.S, a.H, a.KV, a.splits);
+                                                             a.lse, a.T, a.S, a.H, a.KV, a.splits);
   return cudaGetLastError();
 }
 
@@ -875,21 +754,27 @@ cudaError_t launch_hd(const Args& a, int dtype) {
 }  // namespace
 
 // q (B, T, H, hd), k/v (B, S, KV, hd) in f32 (dtype 0) or bf16 (dtype 1);
-// q_pos (B, T), k_pos (B, S) int32 -> out (B, T, H, hd) in the same type.
+// q_pos (B, T), k_pos (B, S) int32 -> out (B, T, H, hd) in the same type,
+// and, where lse is not null, each row's log-sum-exp m + log(l) of its
+// scaled, softcapped and masked scores, f32 (B, T, H), for the backward
+// (flash_bwd.cu); a null lse leaves every launch as it was without it.
 // scale is hd^-0.5; window <= 0 means none, softcap <= 0 none.  `splits`
 // runs of KV tiles when T * H / KV <= 4 (decode).  `scratch` (16-byte
 // aligned, scratch_bytes long) takes the tile summaries and decode's
 // partials; kernels/flash.py:scratch_bytes gives the size.  Returns
 // cudaGetLastError() of the last launch, or the first failure.
 extern "C" int flash_launch(const void* q, const void* k, const void* v, const int* q_pos, const int* k_pos,
-                            void* out, int B, int T, int S, int H, int KV, int hd, int dtype, float scale, int causal,
-                            int window, float softcap, int splits, void* scratch, size_t scratch_bytes,
+                            void* out, float* lse, int B, int T, int S, int H, int KV, int hd, int dtype, float scale,
+                            int causal, int window, float softcap, int splits, void* scratch, size_t scratch_bytes,
                             cudaStream_t stream) {
   if (B <= 0 || T <= 0) return (int)cudaGetLastError();
   if (KV <= 0 || H % KV != 0 || (dtype != 0 && dtype != 1)) return (int)cudaErrorInvalidValue;
-  if (S <= 0)  // no key slot: the plain version's 0 / max(0, 1e-30)
+  if (S <= 0) {  // no key slot: the plain version's 0 / max(0, 1e-30)
+    if (lse != nullptr && cudaMemsetAsync(lse, 0, sizeof(float) * (size_t)B * T * H, stream) != cudaSuccess)
+      return (int)cudaGetLastError();
     return (int)cudaMemsetAsync(out, 0, (size_t)B * T * H * hd * (dtype == 0 ? 4 : 2), stream);
-  const Args a{q, k, v, q_pos, k_pos, out, B, T, S, H, KV, scale, causal, window, softcap, splits,
+  }
+  const Args a{q, k, v, q_pos, k_pos, out, lse, B, T, S, H, KV, scale, causal, window, softcap, splits,
                static_cast<unsigned char*>(scratch), scratch_bytes, stream};
   switch (hd) {
     case 16:

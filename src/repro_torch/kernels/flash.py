@@ -20,6 +20,10 @@ against the reference and the card tests hold the kernel's pieces against:
 (attention over the live tiles alone), ``flash_decode_partials_plain`` and
 ``flash_combine_plain`` (the splits and their combine).  Nothing on the
 main path calls them when a card is present.
+
+For training, every path also writes each row's log-sum-exp when asked
+(``flash_attention_lse_cuda``; its plain form ``flash_attention_lse_plain``),
+which the backward kernel (``kernels.flash_bwd``) takes.
 """
 
 from __future__ import annotations
@@ -146,9 +150,18 @@ def flash_attention_plain(
     Scores and the PV product take the operands' values in f32 (the
     reference's ``preferred_element_type``); ``p`` is rounded to v's type
     before the PV product, the running sum takes it unrounded."""
-    _, l, acc = _attend(q, k, v, q_pos, k_pos, causal=causal, window=window, softcap=softcap, kv_chunk=kv_chunk)
+    return flash_attention_lse_plain(q, k, v, q_pos, k_pos, causal=causal, window=window, softcap=softcap,
+                                     kv_chunk=kv_chunk)[0]
+
+
+def flash_attention_lse_plain(q, k, v, q_pos, k_pos, *, causal: bool, window: int | None, softcap: float | None,
+                              kv_chunk: int = KV_CHUNK) -> tuple[torch.Tensor, torch.Tensor]:
+    """``flash_attention_plain``'s output and beside it each row's
+    log-sum-exp ``m + log(l)`` of its scaled, softcapped and masked scores
+    (B, T, H) f32, which the backward (``flash_bwd``) takes."""
+    m, l, acc = _attend(q, k, v, q_pos, k_pos, causal=causal, window=window, softcap=softcap, kv_chunk=kv_chunk)
     out = acc / torch.clamp(l, min=1e-30)[..., None]
-    return out.to(q.dtype)
+    return out.to(q.dtype), m + torch.log(l)
 
 
 def flash_tile_live(
@@ -261,15 +274,16 @@ def _launcher():
     if _fn is None:
         fn = build.library("flash").flash_launch
         p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-        fn.argtypes = [p, p, p, p, p, p, i, i, i, i, i, i, i, f, i, i, f, i, p, ctypes.c_size_t, p]
+        fn.argtypes = [p, p, p, p, p, p, p, i, i, i, i, i, i, i, f, i, i, f, i, p, ctypes.c_size_t, p]
         fn.restype = i
         _fn = fn
     return _fn
 
 
-def _launch(q, k, v, q_pos, k_pos, causal, window, softcap, splits):
+def _launch(q, k, v, q_pos, k_pos, causal, window, softcap, splits, lse=None):
     """Check, allocate the output and scratch, launch -> (out, scratch,
-    offset of the partials, splits)."""
+    offset of the partials, splits).  ``lse`` (B, T, H) f32, where given,
+    takes each row's log-sum-exp."""
     global launches
     dev, dt = q.device, q.dtype
     if dt not in _DTYPES:
@@ -296,13 +310,18 @@ def _launch(q, k, v, q_pos, k_pos, causal, window, softcap, splits):
         if dev not in _sms:
             _sms[dev] = torch.cuda.get_device_properties(dev).multi_processor_count
         splits = decode_splits(B, KV, S, _sms[dev])
+    if lse is not None:
+        build.check_arg("lse", lse, torch.float32, 3, dev)
+        if tuple(lse.shape) != (B, T, H):
+            raise ValueError(f"flash: lse {tuple(lse.shape)}, need {(B, T, H)}")
     offset, nbytes = scratch_layout(B, T, S, H, KV, hd, dt, splits)
     out = torch.empty_like(q)
     scratch = torch.empty(nbytes, dtype=torch.uint8, device=dev)
     err = _launcher()(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), q_pos.data_ptr(), k_pos.data_ptr(), out.data_ptr(),
-        B, T, S, H, KV, hd, _DTYPES[dt], hd**-0.5, int(causal), int(window or 0), float(softcap or 0.0), splits,
-        scratch.data_ptr(), nbytes, torch.cuda.current_stream(dev).cuda_stream,
+        None if lse is None else lse.data_ptr(), B, T, S, H, KV, hd, _DTYPES[dt], hd**-0.5, int(causal),
+        int(window or 0), float(softcap or 0.0), splits, scratch.data_ptr(), nbytes,
+        torch.cuda.current_stream(dev).cuda_stream,
     )
     if err != 0:
         raise RuntimeError(f"flash launch failed with CUDA error {err}")
@@ -326,6 +345,15 @@ def flash_attention_cuda(
     (B, T, H, hd) in q's type.  One call counts one launch, whatever the
     number of device launches (2 for prefill, 3 for decode)."""
     return _launch(q, k, v, q_pos, k_pos, causal, window, softcap, None)[0]
+
+
+def flash_attention_lse_cuda(q, k, v, q_pos, k_pos, *, causal: bool, window: int | None,
+                             softcap: float | None) -> tuple[torch.Tensor, torch.Tensor]:
+    """The kernel with each row's log-sum-exp beside its output, as
+    ``flash_attention_lse_plain``: (out (B, T, H, hd), lse (B, T, H) f32).
+    The output is the one ``flash_attention_cuda`` gives, bit for bit."""
+    lse = torch.empty(q.shape[:3], dtype=torch.float32, device=q.device)
+    return _launch(q, k, v, q_pos, k_pos, causal, window, softcap, None, lse)[0], lse
 
 
 def flash_decode_partials_cuda(

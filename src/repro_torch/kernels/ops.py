@@ -5,7 +5,8 @@ tensor goes to the plain PyTorch version.  segmax and wastage serve the
 evaluation engine (wastage runs whole retry ladders), rangemax (with the
 running sums before it) and compaction (with the sweep's fold around it)
 the cluster's placement programs, fitstats the kernels API's regression
-bank (``kernels.api``), flash the language model's attention, scan the
+bank (``kernels.api``), flash the language model's attention (and, when
+autograd records it, ``flash_bwd`` its gradient), scan the
 engine's predict phase (every running sum of it, in the reference's
 order), admission the batched admission controller's decision scan,
 admission_epoch the sharded controller's whole carried epoch,
@@ -25,6 +26,7 @@ from repro_torch.core.allocation import attempt_outcomes_batch
 from repro_torch.core.segmentation import segment_peaks_dynamic
 from repro_torch.kernels import admission, compaction, fitstats, flash, rangemax, scan, segmax, wastage
 from repro_torch.kernels import admission_epoch as epoch
+from repro_torch.kernels import flash_bwd as bwd
 from repro_torch.kernels import moe_combine as combine
 from repro_torch.kernels import moe_dispatch as dispatch
 from repro_torch.kernels import rglru_scan as lru
@@ -139,8 +141,14 @@ def flash_attention(
     softcap: float | None,
 ) -> torch.Tensor:
     """Attention of q (B, T, H, hd) over k, v (B, S, KV, hd) by position:
-    q_pos (B, T), k_pos (B, S) int32, -1 marks empty slots."""
+    q_pos (B, T), k_pos (B, S) int32, -1 marks empty slots.  On the card,
+    where autograd records the call (grad enabled and q, k or v requiring
+    it), through ``flash_bwd.FlashAttention``: the forward kernel with each
+    row's log-sum-exp, its backward the ``flash_bwd`` kernel; on the CPU
+    autograd runs through the plain version."""
     if _route(q):
+        if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad or v.requires_grad):
+            return bwd.FlashAttention.apply(q, k, v, q_pos, k_pos, causal, window, softcap)
         return flash.flash_attention_cuda(q, k, v, q_pos, k_pos, causal=causal, window=window, softcap=softcap)
     return flash.flash_attention_plain(q, k, v, q_pos, k_pos, causal=causal, window=window, softcap=softcap)
 
@@ -221,6 +229,7 @@ _KERNELS = {
     "compaction": compaction,
     "fitstats": fitstats,
     "flash": flash,
+    "flash_bwd": bwd,
     "scan": scan,
     "admission": admission,
     "admission_epoch": epoch,

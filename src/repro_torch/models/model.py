@@ -14,6 +14,9 @@ Entry points:
   * ``forward``     - prefill over T tokens, or T audio frames (optionally
                       building the decode cache, optionally the head on the
                       last position only);
+  * ``forward_train`` - the training pass: the same layers recorded by
+                      autograd, each under ``torch.utils.checkpoint`` where
+                      the config says ``remat``, with the MoE aux loss;
   * ``decode_step`` - one token per sequence against the cache, which it
                       updates in place;
   * ``init_cache``  - an empty cache, one dict per layer: ``{k, v, pos}``
@@ -21,12 +24,15 @@ Entry points:
                       (``{shift, wkv, cm_shift}``, ``{h, conv}``) for an
                       rwkv or rglru layer.
 
-Both passes run under ``torch.inference_mode()``.  A prefill starts every
-recurrent layer from the zero state; a decode step writes each layer's
-new state into the cache's tensors in place, as it writes an attention
-layer's k, v and position.  An MoE layer's aux loss is computed and
-dropped by the passes (training, ROADMAP Queue 1 item 7d, will carry it
-up).
+``forward`` and ``decode_step`` run under ``torch.inference_mode()``, and
+a model's parameters start frozen (``requires_grad`` off; the train state,
+``train.train_step.init_train_state``, turns it on for its model).  A
+prefill starts every recurrent layer from the zero state; a decode step
+writes each layer's new state into the cache's tensors in place, as it
+writes an attention layer's k, v and position.  An MoE layer's aux loss is
+computed by every pass; ``forward`` and ``decode_step`` drop it,
+``forward_train`` returns the sum over the layers, as the reference's
+``_run_blocks`` does.
 
 The modality frontends are the reference's stubs.  ``audio_frames``
 (hubert-xlarge, an encoder): precomputed frame features (B, T,
@@ -42,6 +48,7 @@ from __future__ import annotations
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.device import resolve_device
@@ -287,6 +294,26 @@ def _head(model: Transformer, x: torch.Tensor) -> torch.Tensor:
     return logits
 
 
+def _layers(model: Transformer, x, positions, rows, *, want_cache: bool = False, cache_len: int | None = None,
+            remat: bool = False):
+    """Every layer in order -> (x, the caches a prefill built or None, each
+    layer's aux loss).  ``remat`` runs each layer under
+    ``torch.utils.checkpoint`` (its activations recomputed in the backward,
+    the reference's ``jax.checkpoint(..., nothing_saveable)``)."""
+    caches = [] if want_cache else None
+    auxes = []
+    for block in model.layers:
+        if remat:
+            x, c, aux = checkpoint(apply_layer, block, x, positions, use_reentrant=False, mrope_positions=rows)
+        else:
+            x, c, aux = apply_layer(block, x, positions, want_cache=want_cache, cache_len=cache_len,
+                                    mrope_positions=rows)
+        auxes.append(aux)
+        if want_cache:
+            caches.append(c)
+    return x, caches, auxes
+
+
 @torch.inference_mode()
 def forward(model: Transformer, tokens=None, *, features=None, patch_embeds=None, mrope_positions=None,
             want_cache: bool = False, cache_len: int | None = None, last_only: bool = False):
@@ -302,15 +329,29 @@ def forward(model: Transformer, tokens=None, *, features=None, patch_embeds=None
     x = _embed_inputs(model, tokens, features, patch_embeds)
     B, T = x.shape[:2]
     positions = torch.arange(T, dtype=torch.int32, device=x.device)[None].expand(B, T)
-    rows = _mrope_rows(mrope_positions, x.device)
-    caches = [] if want_cache else None
-    for block in model.layers:
-        x, c, _ = apply_layer(block, x, positions, want_cache=want_cache, cache_len=cache_len, mrope_positions=rows)
-        if want_cache:
-            caches.append(c)
+    x, caches, _ = _layers(model, x, positions, _mrope_rows(mrope_positions, x.device), want_cache=want_cache,
+                           cache_len=cache_len)
     if last_only:
         x = x[:, -1:]
     return _head(model, x), caches
+
+
+def forward_train(model: Transformer, tokens=None, *, features=None, patch_embeds=None, mrope_positions=None):
+    """The training pass over the inputs of ``forward``, recorded by
+    autograd (no inference mode), each layer under
+    ``torch.utils.checkpoint`` where ``cfg.remat`` is set (the full
+    configs; ``reduced()`` clears it).  Returns (logits (B, T, V) f32, aux):
+    aux the sum of the MoE layers' aux losses, an f32 scalar (0 without
+    one)."""
+    x = _embed_inputs(model, tokens, features, patch_embeds)
+    B, T = x.shape[:2]
+    positions = torch.arange(T, dtype=torch.int32, device=x.device)[None].expand(B, T)
+    x, _, auxes = _layers(model, x, positions, _mrope_rows(mrope_positions, x.device), remat=model.cfg.remat)
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    for a in auxes:
+        if torch.is_tensor(a):  # an MoE layer's
+            aux = aux + a
+    return _head(model, x), aux
 
 
 @torch.inference_mode()

@@ -27,7 +27,14 @@ plain version's float32 ones sum the same chunk form in other orders),
 the RG-LRU scan bit for bit, and the reduced recurrent models'
 float32 logits within 1e-4 as the dense ones; the reduced frontend models
 (hubert-xlarge's audio frames, qwen2-vl-72b's patches and M-RoPE rows)
-likewise; a checkpoint of CUDA tensors restores on the card bit for bit."""
+likewise; a checkpoint of CUDA tensors restores on the card bit for bit.
+flash's backward (dq, dk, dv) within 1e-4 (f32) or 2e-2 (bf16) of max
+|plain| of each (the plain version sums in f32 chunk by chunk; bf16
+rounds P and dS as the products' operands), bit for bit from run to run;
+its forward with lse gives the output of the forward without it bit for
+bit, lse within 1e-4 (f32) or 1e-3 (bf16) of the plain one's.  A reduced
+float32 train step on the card within 1e-4 of the CPU's (loss, grad_norm,
+each first moment)."""
 
 import numpy as np
 import pytest
@@ -529,6 +536,162 @@ def test_flash_kernel_refuses_what_it_cannot_take(cuda):
         flash.flash_attention_cuda(q16, q16, q16, torch.zeros((1, 4), dtype=torch.int32, device=cuda),
                                    torch.zeros((1, 4), dtype=torch.int32, device=cuda),
                                    causal=True, window=None, softcap=None)
+
+
+# (B, T, H, KV, hd, causal, window, softcap): the CPU tests' masks and
+# groups (G 1, 3 and 8; hd 16 and 64; T a multiple of no tile, one past the
+# plain version's 1,024 chunk), and the full configs' head dims 80, 128 and
+# 256 at their models' masks
+BWD_CARD_CASES = [
+    (2, 70, 4, 4, 16, True, None, None),
+    (2, 70, 6, 2, 16, True, 32, 50.0),
+    (1, 133, 8, 1, 64, False, None, None),
+    (2, 257, 6, 2, 64, True, 100, None),
+    (1, 1100, 8, 8, 64, True, None, None),
+    (1, 300, 16, 16, 80, False, None, None),
+    (2, 200, 24, 8, 128, True, None, None),
+    (1, 150, 16, 8, 256, True, 96, 50.0),
+]
+BWD_TOL = {torch.float32: 1e-4, torch.bfloat16: 2e-2}  # of max |plain| per output
+
+
+def _bwd_inputs(case, dtype, dev):
+    B, T, H, KV, hd, causal, window, cap = case
+    rng = np.random.default_rng(B * 31 + T + hd)
+    q, k, v, dout = (torch.from_numpy(rng.normal(0, 1, s)).to(dev, dtype)
+                     for s in ((B, T, H, hd), (B, T, KV, hd), (B, T, KV, hd), (B, T, H, hd)))
+    pos = torch.arange(T, dtype=torch.int32, device=dev)[None].expand(B, T).contiguous()
+    return q, k, v, dout, pos, dict(causal=causal, window=window, softcap=cap)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("case", BWD_CARD_CASES, ids=lambda c: "-".join(map(str, c)))
+def test_flash_bwd_kernel_matches_plain_on_card(cuda, dtype, case):
+    """The backward kernel against flash_attention_bwd_plain on the same
+    out and lse (the plain forward's), each of dq, dk and dv within the
+    type's tolerance of max |plain|; two launches bit for bit alike (no
+    atomics)."""
+    from repro_torch.kernels import flash_bwd
+
+    q, k, v, dout, pos, kw = _bwd_inputs(case, dtype, cuda)
+    out, lse = flash.flash_attention_lse_plain(q, k, v, pos, pos, **kw)
+    before = flash_bwd.launches
+    got = flash_bwd.flash_bwd_cuda(q, k, v, out, lse, dout, pos, pos, **kw)
+    again = flash_bwd.flash_bwd_cuda(q, k, v, out, lse, dout, pos, pos, **kw)
+    assert flash_bwd.launches == before + 2
+    want = flash_bwd.flash_attention_bwd_plain(q, k, v, out, lse, dout, pos, pos, **kw)
+    torch.cuda.synchronize()
+    for name, g, a, w in zip(("dq", "dk", "dv"), got, again, want):
+        assert g.dtype == dtype and g.shape == w.shape and torch.equal(g, a), name
+        err = (g.float() - w.float()).abs().max().item() / w.float().abs().max().item()
+        assert err <= BWD_TOL[dtype], (name, err)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("case", FLASH_CARD_CASES, ids=lambda c: "-".join(map(str, c)))
+def test_flash_lse_leaves_the_output_as_it_was_on_card(cuda, dtype, case):
+    """The forward with lse gives the output of the forward without it, bit
+    for bit, on every path (prefill, decode's splits, rows without a valid
+    key), and on rows with a valid key an lse within 1e-4 (f32) or 1e-3
+    (bf16) of the plain one's."""
+    q, k, v, qp, kp, kw = _flash_inputs(case, dtype, cuda)
+    plain_out = flash.flash_attention_cuda(q, k, v, qp, kp, **kw)
+    out, lse = flash.flash_attention_lse_cuda(q, k, v, qp, kp, **kw)
+    _, want = flash.flash_attention_lse_plain(q, k, v, qp, kp, **kw)
+    torch.cuda.synchronize()
+    assert torch.equal(out, plain_out)
+    live = want > flash.NEG_INF / 2
+    tol = 1e-4 if dtype == torch.float32 else 1e-3
+    torch.testing.assert_close(lse[live], want[live], atol=tol, rtol=tol)
+
+
+def test_flash_gradient_is_the_kernels_on_card(cuda):
+    """Autograd through ops.flash_attention on the card: one forward launch
+    (with lse) and one flash_bwd launch, the gradients those of the plain
+    version's autograd within the f32 gate; under inference mode no
+    autograd function is recorded."""
+    from repro_torch.kernels import flash_bwd
+
+    q, k, v, dout, pos, kw = _bwd_inputs(BWD_CARD_CASES[1], torch.float32, cuda)
+    leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+    ops.reset_launch_counts()
+    out = ops.flash_attention(*leaves, pos, pos, **kw)
+    grads = torch.autograd.grad(out, leaves, dout)
+    assert ops.launch_counts()["flash"] == 1 and ops.launch_counts()["flash_bwd"] == 1
+    plain = [t.clone().requires_grad_() for t in (q, k, v)]
+    want = torch.autograd.grad(flash.flash_attention_plain(*plain, pos, pos, **kw), plain, dout)
+    for g, w in zip(grads, want):
+        assert (g - w).abs().max().item() <= 1e-4 * w.abs().max().item()
+    with torch.inference_mode():
+        assert ops.flash_attention(*leaves, pos, pos, **kw).grad_fn is None
+    assert flash_bwd.launches == 1
+
+
+@pytest.mark.parametrize("remat", [False, True])
+@pytest.mark.parametrize("head_dim", [16, 128])  # reduced()'s own, and llama3.2-3b's
+def test_reduced_train_step_on_card_matches_cpu_run(cuda, head_dim, remat):
+    """One train step of reduced llama3.2-3b in float32 on the card (flash
+    and flash_bwd, once a layer each, twice flash under remat) against the
+    same step on the CPU (the plain version under autograd): loss,
+    grad_norm and lr within 1e-4, each first moment (0.1 x the clipped
+    gradient) within 1e-4 of its leaf's max |mu|."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.data import DataConfig, SyntheticLMData
+    from repro_torch.models.model import init_params
+    from repro_torch.train import TrainConfig, init_train_state, make_train_step
+
+    cfg = dataclasses.replace(get_config("llama3.2-3b").reduced(), dtype="float32", head_dim=head_dim, remat=remat)
+    batch = SyntheticLMData(DataConfig(vocab_size=cfg.vocab_size, seq_len=70, global_batch=2)).batch(0)
+    runs = {}
+    for dev in ("cpu", cuda):
+        model = init_params(cfg, seed=3, device="cpu").to(dev)
+        state = init_train_state(model)
+        step = make_train_step(cfg, TrainConfig(), model)
+        ops.reset_launch_counts()
+        state, m = step(state, {k: torch.from_numpy(v).to(dev) for k, v in batch.items()})
+        runs[str(dev)] = (state, m, ops.launch_counts())
+    (cpu_state, cpu_m, cpu_n), (state, m, n) = runs["cpu"], runs[str(cuda)]
+    assert cpu_n["flash"] == cpu_n["flash_bwd"] == 0
+    assert n["flash"] == (2 if remat else 1) * cfg.num_layers and n["flash_bwd"] == cfg.num_layers
+    for key in ("loss", "grad_norm", "lr"):
+        assert abs(m[key].item() - cpu_m[key].item()) <= 1e-4 * abs(cpu_m[key].item()), key
+    for name, mu in state["opt"]["mu"].items():
+        want = cpu_state["opt"]["mu"][name]
+        assert (mu.cpu() - want).abs().max().item() <= 1e-4 * want.abs().max().item(), name
+
+
+@pytest.mark.parametrize("name", ["qwen3-moe-235b-a22b", "rwkv6-1.6b", "recurrentgemma-2b"])
+def test_train_step_on_card_refuses_layers_without_backward_kernels(cuda, name):
+    """Training an MoE or recurrent config on the card needs backward
+    kernels the port does not have yet: ``make_train_step`` raises before
+    any step, naming them."""
+    from repro_torch.configs import get_config
+    from repro_torch.models.model import init_params
+    from repro_torch.train import TrainConfig, init_train_state, make_train_step
+
+    cfg = get_config(name).reduced()
+    model = init_params(cfg, device=cuda)
+    init_train_state(model)
+    missing = {"qwen3-moe-235b-a22b": "moe_combine, moe_dispatch", "rwkv6-1.6b": "rwkv_wkv",
+               "recurrentgemma-2b": "rglru_scan"}[name]
+    with pytest.raises(NotImplementedError, match=missing):
+        make_train_step(cfg, TrainConfig(), model)
+
+
+def test_launcher_trains_on_card_with_its_defaults(cuda, tmp_path):
+    """``python -m repro_torch.launch.train`` with its defaults (reduced
+    llama3.2-3b, B 8 x T 128) on the card, 12 steps, one injected failure:
+    one restart, step 12, every attention forward and backward a kernel."""
+    from repro_torch.launch import train as launch_train
+
+    ops.reset_launch_counts()
+    res = launch_train.main(["--steps", "12", "--fail-at", "5", "--ckpt", str(tmp_path)])
+    assert res["restarts"] == 1 and res["step"] == 12
+    assert all(np.isfinite(m["loss"]) for m in res["log"])
+    counts = ops.launch_counts()
+    assert counts["flash"] > 0 and counts["flash_bwd"] == counts["flash"]
 
 
 @pytest.mark.parametrize("head_dim", [16, 64])  # reduced()'s own, and a full config's

@@ -18,6 +18,7 @@ from repro_torch.core.ksegments import KSegmentsConfig
 from repro_torch.device import resolve_device
 from repro_torch.kernels import build, ops
 from repro_torch.launch import serve as launch_serve
+from repro_torch.launch import train as launch_train
 from repro_torch.models.model import Transformer, init_cache, init_params
 from repro_torch.serve.engine import greedy_generate, make_decode_step, make_prefill_step
 from repro_torch.sim import traces
@@ -148,6 +149,28 @@ def test_serving_entry_points_need_cuda_unless_asked_for_cpu(name):
     fn(device="cpu")
 
 
+@pytest.mark.parametrize("name", ["Trainer", "launch.train"])
+def test_training_entry_points_need_cuda_unless_asked_for_cpu(name, tmp_path):
+    """The trainer and the training launcher raise without a card by
+    default and run when the caller passes ``device="cpu"``."""
+    from repro_torch.data import DataConfig
+    from repro_torch.train import Trainer, TrainerConfig
+
+    _no_cuda()
+    cfg = get_config("llama3.2-3b").reduced()
+    data_cfg = DataConfig(vocab_size=cfg.vocab_size, seq_len=16, global_batch=2)
+    tc = TrainerConfig(steps=2, checkpoint_dir=str(tmp_path / "ckpt"))
+    fn = {
+        "Trainer": lambda **kw: Trainer(cfg, data_cfg, trainer_cfg=tc, **kw).run(),
+        "launch.train": lambda device=None: launch_train.main(
+            ["--steps", "2", "--seq-len", "16", "--global-batch", "2", "--ckpt", str(tmp_path / "launch")]
+            + (["--device", device] if device else [])),
+    }[name]
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        fn()
+    fn(device="cpu")
+
+
 def test_adaptive_k_needs_cuda_unless_asked_for_cpu():
     """The tuner replays on the card by default; ``device="cpu"`` runs it here."""
     _no_cuda()
@@ -188,14 +211,16 @@ def test_every_kernel_source_is_built():
         src = (build.CSRC / f"{name}.cu").read_text()
         assert f'extern "C" int {name}_launch(' in src
         # names the TPU kernel it replaces; scan, admission, admission_epoch,
-        # moe_dispatch, moe_combine, rwkv_wkv and rglru_scan, which have
-        # none, the reference's running sums, its admission scan, its carried
-        # admission program, its MoE layer's dispatch and combine and its
-        # recurrent mixers' recurrences
+        # moe_dispatch, moe_combine, rwkv_wkv, rglru_scan and flash_bwd,
+        # which have none, the reference's running sums, its admission scan,
+        # its carried admission program, its MoE layer's dispatch and
+        # combine, its recurrent mixers' recurrences and the autodiff of its
+        # attention's XLA path
         no_tpu_kernel = {"scan": "repro/sim/jax_sim.py", "admission": "repro/sim/device_timeline.py",
                          "admission_epoch": "repro/sim/device_timeline.py",
                          "moe_dispatch": "repro/models/layers.py", "moe_combine": "repro/models/layers.py",
-                         "rwkv_wkv": "repro/models/recurrent.py", "rglru_scan": "repro/models/recurrent.py"}
+                         "rwkv_wkv": "repro/models/recurrent.py", "rglru_scan": "repro/models/recurrent.py",
+                         "flash_bwd": "repro/models/layers.py"}
         assert f"repro/kernels/{name}.py" in src or (
             name in no_tpu_kernel and "No TPU kernel" in src and no_tpu_kernel[name] in src
         )
