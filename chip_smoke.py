@@ -3422,10 +3422,11 @@ def _train_grads(dev) -> None:
 
 
 def _bwd_device_ms(call, n: int) -> tuple[float, dict]:
-    """The profiled device time of one flash_bwd call (five device
-    launches): ``n`` calls under the profiler after 64 launches of a fill
-    (the profiler drops the first device events of its window), each
-    kernel's time over the launches kept, summed over the kernels."""
+    """The profiled device time of one flash_bwd call (six device launches:
+    the two tile summaries, D, E, dK/dV, dQ): ``n`` calls under the
+    profiler after 64 launches of a fill (the profiler drops the first
+    device events of its window), each kernel's mean over the launches
+    kept times its launches a call, summed over the kernels."""
     import torch
 
     pad = torch.empty(1, device="cuda")
@@ -3443,7 +3444,25 @@ def _bwd_device_ms(call, n: int) -> tuple[float, dict]:
             part = parts[re.search(FLASH_BWD_KERNELS + r"_\w+?(?=<|$|\()", name).group(0)]
             part[0] += ms
             part[1] += cnt
-    return sum(ms / max(c, 1) * (2 if p.endswith("tiles") else 1) for p, (ms, c) in parts.items()), dict(parts)
+    a_call = {FLASH_BWD_KERNELS + "_tiles": 2}
+    return sum(ms / max(c, 1) * a_call.get(p, 1) for p, (ms, c) in parts.items()), dict(parts)
+
+
+def _sdpa_bwd_ms(q, k, v, dout, mask, causal: bool, window, reps: int) -> tuple[float, str]:
+    """SDPA's backward on the same inputs (``torch.autograd.grad`` of an
+    SDPA output, ``enable_gqa``; ``is_causal`` where the mask is causal
+    alone, else the boolean mask): the yardstick, used nowhere in the port.
+    -> (ms back to back, how the mask was given)."""
+    import torch
+    import torch.nn.functional as F
+
+    qt, kt, vt = (x.transpose(1, 2).detach().requires_grad_() for x in (q, k, v))
+    extra = dict(is_causal=True) if causal and window is None else (
+        dict(attn_mask=mask[:, None]) if window is not None else {})
+    o = F.scaled_dot_product_attention(qt, kt, vt, enable_gqa=True, **extra)
+    do = dout.transpose(1, 2)
+    ms = _cuda_ms(lambda: torch.autograd.grad(o, (qt, kt, vt), do, retain_graph=True), reps)
+    return ms, "is_causal" if "is_causal" in extra else "mask" if extra else "no mask"
 
 
 def _bwd_case(case, seed: int, dev) -> dict:
@@ -3451,7 +3470,6 @@ def _bwd_case(case, seed: int, dev) -> dict:
     and f32, timed in bf16 (CUDA events, profiled device time) beside the
     plain backward, SDPA's backward and the bound."""
     import torch
-    import torch.nn.functional as F
 
     from repro_torch.kernels import flash, flash_bwd
 
@@ -3484,15 +3502,8 @@ def _bwd_case(case, seed: int, dev) -> dict:
             nbytes = 2 * (4 * q.numel() + 4 * k.numel()) + 4 * lse.numel() + 4 * (qp.numel() + kp.numel())
             bound_ms, bound_by = _bound(nbytes, 2.5 * 4 * hd * pairs, BF16_OPS_PER_S)
             if cap is None:  # SDPA has no softcap
-                qt, kt, vt = (x.transpose(1, 2).detach().requires_grad_() for x in (q, k, v))
-                extra = dict(is_causal=True) if causal and window is None else (
-                    dict(attn_mask=mask[:, None]) if window is not None else {})
-                o = F.scaled_dot_product_attention(qt, kt, vt, enable_gqa=True, **extra)
-                do = dout.transpose(1, 2)
-                lib_ms = _cuda_ms(lambda: torch.autograd.grad(o, (qt, kt, vt), do, retain_graph=True), reps)
-                how = "is_causal" if "is_causal" in extra else "mask" if extra else "no mask"
+                lib_ms, how = _sdpa_bwd_ms(q, k, v, dout, mask, causal, window, reps)
                 lib_note = f"sdpa backward {lib_ms:.4f} ms ({how})"
-                del o, qt, kt, vt
             else:
                 lib_ms, lib_note = None, "sdpa backward: null (no softcap)"
             line += (f"; kernel {ms:.4f} ms, profiled {dev_ms:.4f} ms ("

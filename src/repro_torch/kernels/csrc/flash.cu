@@ -329,7 +329,7 @@ __global__ void __launch_bounds__(MmaCfg<HD, BM, BN>::NT)
     l[i] += __shfl_xor_sync(0xffffffffu, l[i], 2);
     const int gr = gr0 + 8 * i;
     if (lse != nullptr && lane % 4 == 0 && gr < rows)
-      lse[(size_t)(b * T_len + gr / G) * H + kvh * G + gr % G] = m[i] + logf(l[i]);
+      lse[(size_t)(b * T_len + gr / G) * H + kvh * G + gr % G] = row_lse(m[i], l[i]);
   }
   const bool none[2] = {gr0 < rows && m[0] == kNeg, gr0 + 8 < rows && m[1] == kNeg};
   float* red = reinterpret_cast<float*>(Ks);
@@ -579,7 +579,7 @@ __global__ void __launch_bounds__((BM / RM) * TX)
     if (gr >= rows) continue;
     const int t = gr / G, h = kvh * G + gr % G;
     T* dst = out + ((size_t)(b * T_len + t) * H + h) * HD;
-    if (lse != nullptr && tx == 0) lse[(size_t)(b * T_len + t) * H + h] = m[i] + logf(l[i]);
+    if (lse != nullptr && tx == 0) lse[(size_t)(b * T_len + t) * H + h] = row_lse(m[i], l[i]);
     const bool none = m[i] == kNeg;
     const float den = none ? (float)S : fmaxf(l[i], 1e-30f);
 #pragma unroll
@@ -626,7 +626,7 @@ __global__ void __launch_bounds__(kCombineThreads)
   __syncthreads();
   if (lse != nullptr && threadIdx.x < rows) {
     const int r = threadIdx.x;
-    lse[(size_t)(b * T_len + r / G) * H + kvh * G + r % G] = m_s[r] + logf(l_s[r]);
+    lse[(size_t)(b * T_len + r / G) * H + kvh * G + r % G] = row_lse(m_s[r], l_s[r]);
   }
   bool none = false;
   for (int r = 0; r < rows; ++r) none = none || m_s[r] == kNeg;
@@ -756,8 +756,9 @@ cudaError_t launch_hd(const Args& a, int dtype) {
 // q (B, T, H, hd), k/v (B, S, KV, hd) in f32 (dtype 0) or bf16 (dtype 1);
 // q_pos (B, T), k_pos (B, S) int32 -> out (B, T, H, hd) in the same type,
 // and, where lse is not null, each row's log-sum-exp m + log(l) of its
-// scaled, softcapped and masked scores, f32 (B, T, H), for the backward
-// (flash_bwd.cu); a null lse leaves every launch as it was without it.
+// scaled, softcapped and masked scores, f32 (B, T, H), +inf for a row with
+// no valid key, for the backward (flash_bwd.cu); a null lse leaves every
+// launch as it was without it (S <= 0 leaves lse as it is).
 // scale is hd^-0.5; window <= 0 means none, softcap <= 0 none.  `splits`
 // runs of KV tiles when T * H / KV <= 4 (decode).  `scratch` (16-byte
 // aligned, scratch_bytes long) takes the tile summaries and decode's
@@ -769,11 +770,8 @@ extern "C" int flash_launch(const void* q, const void* k, const void* v, const i
                             cudaStream_t stream) {
   if (B <= 0 || T <= 0) return (int)cudaGetLastError();
   if (KV <= 0 || H % KV != 0 || (dtype != 0 && dtype != 1)) return (int)cudaErrorInvalidValue;
-  if (S <= 0) {  // no key slot: the plain version's 0 / max(0, 1e-30)
-    if (lse != nullptr && cudaMemsetAsync(lse, 0, sizeof(float) * (size_t)B * T * H, stream) != cudaSuccess)
-      return (int)cudaGetLastError();
+  if (S <= 0)  // no key slot: the plain version's 0 / max(0, 1e-30)
     return (int)cudaMemsetAsync(out, 0, (size_t)B * T * H * hd * (dtype == 0 ? 4 : 2), stream);
-  }
   const Args a{q, k, v, q_pos, k_pos, out, lse, B, T, S, H, KV, scale, causal, window, softcap, splits,
                static_cast<unsigned char*>(scratch), scratch_bytes, stream};
   switch (hd) {

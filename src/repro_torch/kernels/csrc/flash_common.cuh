@@ -5,7 +5,9 @@
 //   * the PTX wrappers: cp.async copies, ldmatrix, and the tensor cores'
 //     mma.sync.m16n8k16 with bf16 operands and f32 accumulators, whose C
 //     fragment (m16n8) is the A fragment (m16n8k16) in pairs, so scores go
-//     from accumulators to A operands in registers (pack_bf16);
+//     from accumulators to A operands in registers (pack_bf16; flash_bwd.cu's
+//     wgmma accumulators likewise);
+//   * a row's log-sum-exp for the backward (row_lse);
 //   * the tile-skipping rule (kernels/flash.py:flash_tile_live): a tile's
 //     state from its summary (min, max and count of its valid k_pos) and the
 //     rows' q_pos bounds, and the list of live tiles.
@@ -23,6 +25,11 @@ namespace {
 typedef __nv_bfloat16 bf16;
 
 constexpr float kNeg = -1.0e30f;
+
+// A row's log-sum-exp from its running max and sum; +inf for a row with no
+// valid key (m = -1e30), so that the backward's exp(s - lse) is 0 at every
+// slot of it (kernels/flash.py:LSE_EMPTY).
+__device__ __forceinline__ float row_lse(float m, float l) { return m == kNeg ? INFINITY : m + logf(l); }
 
 // ---- operand types -------------------------------------------------------
 

@@ -39,6 +39,7 @@ launches = 0  # calls that launched the kernels, since the last ops.reset_launch
 
 HEAD_DIMS = (16, 64, 80, 128, 256)  # every attention head_dim in configs/, and reduced()'s 16
 NEG_INF = -1.0e30  # masked scores, as the reference (not -inf)
+LSE_EMPTY = float("inf")  # the log-sum-exp written for a row with no valid key
 KV_CHUNK = 1024
 SPLIT_ROWS = 4  # T * G at most this takes decode's split path
 CORES_TILE = 64  # keys per KV tile of the CUDA-core kernel, decode's splits included
@@ -158,10 +159,12 @@ def flash_attention_lse_plain(q, k, v, q_pos, k_pos, *, causal: bool, window: in
                               kv_chunk: int = KV_CHUNK) -> tuple[torch.Tensor, torch.Tensor]:
     """``flash_attention_plain``'s output and beside it each row's
     log-sum-exp ``m + log(l)`` of its scaled, softcapped and masked scores
-    (B, T, H) f32, which the backward (``flash_bwd``) takes."""
+    (B, T, H) f32, which the backward (``flash_bwd``) takes.  A row with no
+    valid key gets ``LSE_EMPTY`` (+inf), so that the backward's ``exp(s -
+    lse)`` is 0 at every slot of it, skipped or not."""
     m, l, acc = _attend(q, k, v, q_pos, k_pos, causal=causal, window=window, softcap=softcap, kv_chunk=kv_chunk)
     out = acc / torch.clamp(l, min=1e-30)[..., None]
-    return out.to(q.dtype), m + torch.log(l)
+    return out.to(q.dtype), torch.where(m == NEG_INF, LSE_EMPTY, m + torch.log(l))
 
 
 def flash_tile_live(
@@ -351,8 +354,10 @@ def flash_attention_lse_cuda(q, k, v, q_pos, k_pos, *, causal: bool, window: int
                              softcap: float | None) -> tuple[torch.Tensor, torch.Tensor]:
     """The kernel with each row's log-sum-exp beside its output, as
     ``flash_attention_lse_plain``: (out (B, T, H, hd), lse (B, T, H) f32).
-    The output is the one ``flash_attention_cuda`` gives, bit for bit."""
-    lse = torch.empty(q.shape[:3], dtype=torch.float32, device=q.device)
+    The output is the one ``flash_attention_cuda`` gives, bit for bit.
+    Without key slots every row's lse is ``LSE_EMPTY``."""
+    lse = torch.full(q.shape[:3], LSE_EMPTY, device=q.device) if k.shape[1] == 0 else \
+        torch.empty(q.shape[:3], dtype=torch.float32, device=q.device)
     return _launch(q, k, v, q_pos, k_pos, causal, window, softcap, None, lse)[0], lse
 
 

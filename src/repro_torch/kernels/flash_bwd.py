@@ -10,9 +10,10 @@ forward's output and the log-sum-exp of each of its rows
 (``flash.flash_attention_lse_cuda``); on the CPU autograd runs through
 ``flash.flash_attention_plain``.
 
-The backward is specified on rows with at least one valid key: every row of
-a training pass has one, since each position sees its own key (causal or
-not, within any window of at least 1).
+A row with no valid key (no training row: each position sees its own key)
+gets the gradient of the forward's mean of V over the S slots: the
+forward writes ``flash.LSE_EMPTY`` as its lse, the backward's P is 0 there,
+and each slot's dV takes the row's dO / S.
 """
 
 from __future__ import annotations
@@ -26,6 +27,8 @@ from repro_torch.kernels import build, flash
 launches = 0  # calls that launched the kernels, since the last ops.reset_launch_counts()
 
 CORE_TILE = 32  # f32: rows and keys a tile, both kernels
+TILE = 64  # bf16: queries a row tile of the dK/dV kernel; the dQ kernel's key tiles are 128 keys, 32 at hd 256
+PAD_ROWS = 128  # the D and lse copies' rows: T rounded up to this
 _fn = None
 
 
@@ -55,7 +58,10 @@ def flash_attention_bwd_plain(
     ``D = rowsum(dout * out)``, ``dV = P^T dO``, ``dS = P (dO V^T - D)``
     (times ``1 - tanh^2`` of the capped argument under softcap), ``dQ =
     scale dS K``, ``dK = scale dS^T Q``, dK and dV summed over each kv
-    head's G query heads."""
+    head's G query heads.  A row with no valid key (lse ``LSE_EMPTY``) has
+    P = 0 at every slot; the forward gave it the mean of V over the S
+    slots, so its dO / S goes to every slot's dV: ``dV += E / S`` with E
+    the sum of dO over the group's empty rows, and nothing to dQ or dK."""
     B, T, H, hd = q.shape
     S, KV = k.shape[1], k.shape[2]
     G = H // KV
@@ -87,22 +93,30 @@ def flash_attention_bwd_plain(
         C = kx.shape[1]
         dvs.append(torch.einsum("bthc,bthd->bchd", p, dof).view(B, C, KV, G, hd).sum(3))
         dks.append((torch.einsum("bthc,bthd->bchd", ds, qf) * scale).view(B, C, KV, G, hd).sum(3))
-    return dq.to(q.dtype), torch.cat(dks, 1).to(k.dtype), torch.cat(dvs, 1).to(v.dtype)
+    empty = (lse == flash.LSE_EMPTY)[..., None]  # (B, T, H, 1)
+    esum = torch.where(empty, dof, 0.0).view(B, T, KV, G, hd).sum((1, 3))  # (B, KV, hd)
+    dv = torch.cat(dvs, 1) + esum[:, None] / S
+    return dq.to(q.dtype), torch.cat(dks, 1).to(k.dtype), dv.to(v.dtype)
 
 
 def scratch_layout(B: int, T: int, S: int, H: int, KV: int, hd: int, dtype: torch.dtype) -> int:
-    """Bytes of the scratch ``flash_bwd_launch`` takes: the summaries (16
-    bytes each, from a 16-byte boundary) of each batch row's key tiles of
-    the dQ kernel and row tiles of the dK/dV kernel, then D (B, T, H) f32.
-    The tiles are ``csrc/flash_bwd.cu:launch_mma``'s (bf16: 64 keys, 32 at
-    hd 256; 32 rows) or ``launch_cores``' (f32: 32 and 32)."""
-    kt = CORE_TILE if dtype == torch.float32 else (32 if hd == 256 else 64)
-    rt = CORE_TILE
+    """Bytes of the scratch ``flash_bwd_launch`` takes
+    (``csrc/flash_bwd.cu:carve``), each piece from a 256-byte boundary: the
+    summaries (16 bytes each) of each batch row's key tiles and row tiles,
+    D and the lse copy (B, H, Tp) f32 with Tp = T rounded up to
+    ``PAD_ROWS``, the q_pos copy (B, Tp), the k_pos copy (B, S rounded up
+    to a key tile), E (B, KV, hd) f32.  Tiles: bf16 128 keys (32 at hd 256)
+    and 64 queries of one head; f32 32 keys and 32 rows of the G heads
+    packed."""
+    kt = CORE_TILE if dtype == torch.float32 else (TILE // 2 if hd == 256 else 2 * TILE)
+    n_rt = -(-(T * (H // KV)) // CORE_TILE) if dtype == torch.float32 else -(-T // TILE)
+    sp, tp = -(-S // kt) * kt, -(-T // PAD_ROWS) * PAD_ROWS
 
-    def a16(x):
-        return -(-x // 16) * 16
+    def a256(x):
+        return -(-x // 256) * 256
 
-    return a16(B * -(-S // kt) * 16) + a16(B * -(-(T * (H // KV)) // rt) * 16) + 4 * B * T * H
+    return (a256(B * (sp // kt) * 16) + a256(B * n_rt * 16) + 2 * a256(4 * B * H * tp) + a256(4 * B * tp)
+            + a256(4 * B * sp) + a256(4 * B * KV * hd))
 
 
 def _launcher():
@@ -133,7 +147,8 @@ def flash_bwd_cuda(
     """The kernel: arguments and results as ``flash_attention_bwd_plain``'s,
     every tensor contiguous on one card, q, k, v, out and dout in f32 or
     bf16 alike, lse f32, positions int32.  One call counts one launch,
-    whatever the number of device launches (five)."""
+    whatever the number of device launches (six: two tile summaries, D, E,
+    dK/dV, dQ)."""
     global launches
     dev, dt = q.device, q.dtype
     if dt not in flash._DTYPES:
@@ -155,8 +170,8 @@ def flash_bwd_cuda(
         raise ValueError(f"flash_bwd: shapes q {tuple(q.shape)}, k {tuple(k.shape)}, v {tuple(v.shape)}, "
                          f"out {tuple(out.shape)}, dout {tuple(dout.shape)}, lse {tuple(lse.shape)}, "
                          f"q_pos {tuple(q_pos.shape)}, k_pos {tuple(k_pos.shape)}")
-    if any(t.data_ptr() % 16 for t in (q, k, v, dout)):
-        raise ValueError("flash_bwd: q, k, v and dout must start on a 16-byte boundary")
+    if any(t.data_ptr() % 16 for t in (q, k, v, out, dout)):
+        raise ValueError("flash_bwd: q, k, v, out and dout must start on a 16-byte boundary")
     dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
     nbytes = scratch_layout(B, T, S, H, KV, hd, dt)
     scratch = torch.empty(nbytes, dtype=torch.uint8, device=dev)
@@ -167,7 +182,8 @@ def flash_bwd_cuda(
         scratch.data_ptr(), nbytes, torch.cuda.current_stream(dev).cuda_stream,
     )
     if err != 0:
-        raise RuntimeError(f"flash_bwd launch failed with CUDA error {err}")
+        raise RuntimeError(f"flash_bwd launch failed with CUDA error {err}"
+                           + (" (no TMA tensor map for these operands)" if err == 801 else ""))
     launches += 1
     return dq, dk, dv
 

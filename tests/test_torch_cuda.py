@@ -538,10 +538,14 @@ def test_flash_kernel_refuses_what_it_cannot_take(cuda):
                                    causal=True, window=None, softcap=None)
 
 
-# (B, T, H, KV, hd, causal, window, softcap): the CPU tests' masks and
-# groups (G 1, 3 and 8; hd 16 and 64; T a multiple of no tile, one past the
-# plain version's 1,024 chunk), and the full configs' head dims 80, 128 and
-# 256 at their models' masks
+# (B, T, H, KV, hd, causal, window, softcap[, positions]): the CPU tests'
+# masks and groups (G 1, 3 and 8; hd 16 and 64; T a multiple of no tile, one
+# past the plain version's 1,024 chunk), the full configs' head dims 80, 128
+# and 256 at their models' masks, a T a multiple of neither 64 nor 128 at
+# G = 3, hd 80 and 256 with windows across the tiles' edges, padded k_pos =
+# -1 slots, and rows with no valid key.  positions: arange by default,
+# "padded" (every slot n % 7 == 3 at -1), "empty" (keys at n + 50 and
+# padded: the first 50 queries see no key)
 BWD_CARD_CASES = [
     (2, 70, 4, 4, 16, True, None, None),
     (2, 70, 6, 2, 16, True, 32, 50.0),
@@ -551,17 +555,28 @@ BWD_CARD_CASES = [
     (1, 300, 16, 16, 80, False, None, None),
     (2, 200, 24, 8, 128, True, None, None),
     (1, 150, 16, 8, 256, True, 96, 50.0),
+    (2, 333, 24, 8, 128, True, None, None),
+    (1, 300, 16, 16, 80, True, 100, None),
+    (1, 333, 16, 8, 256, True, 100, 50.0),
+    (2, 200, 24, 8, 128, True, None, None, "padded"),
+    (2, 333, 24, 8, 128, True, None, None, "empty"),
+    (1, 150, 16, 8, 256, True, 96, 50.0, "empty"),
+    (2, 70, 6, 2, 16, True, None, None, "empty"),
 ]
 BWD_TOL = {torch.float32: 1e-4, torch.bfloat16: 2e-2}  # of max |plain| per output
 
 
 def _bwd_inputs(case, dtype, dev):
-    B, T, H, KV, hd, causal, window, cap = case
+    B, T, H, KV, hd, causal, window, cap = case[:8]
+    positions = case[8] if len(case) > 8 else None
     rng = np.random.default_rng(B * 31 + T + hd)
     q, k, v, dout = (torch.from_numpy(rng.normal(0, 1, s)).to(dev, dtype)
                      for s in ((B, T, H, hd), (B, T, KV, hd), (B, T, KV, hd), (B, T, H, hd)))
     pos = torch.arange(T, dtype=torch.int32, device=dev)[None].expand(B, T).contiguous()
-    return q, k, v, dout, pos, dict(causal=causal, window=window, softcap=cap)
+    kpos = pos + 50 if positions == "empty" else pos
+    if positions is not None:
+        kpos = torch.where(torch.arange(T, device=dev) % 7 == 3, -1, kpos).to(torch.int32).contiguous()
+    return q, k, v, dout, pos, kpos, dict(causal=causal, window=window, softcap=cap)
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
@@ -573,18 +588,87 @@ def test_flash_bwd_kernel_matches_plain_on_card(cuda, dtype, case):
     atomics)."""
     from repro_torch.kernels import flash_bwd
 
-    q, k, v, dout, pos, kw = _bwd_inputs(case, dtype, cuda)
-    out, lse = flash.flash_attention_lse_plain(q, k, v, pos, pos, **kw)
+    q, k, v, dout, pos, kpos, kw = _bwd_inputs(case, dtype, cuda)
+    out, lse = flash.flash_attention_lse_plain(q, k, v, pos, kpos, **kw)
     before = flash_bwd.launches
-    got = flash_bwd.flash_bwd_cuda(q, k, v, out, lse, dout, pos, pos, **kw)
-    again = flash_bwd.flash_bwd_cuda(q, k, v, out, lse, dout, pos, pos, **kw)
+    got = flash_bwd.flash_bwd_cuda(q, k, v, out, lse, dout, pos, kpos, **kw)
+    again = flash_bwd.flash_bwd_cuda(q, k, v, out, lse, dout, pos, kpos, **kw)
     assert flash_bwd.launches == before + 2
-    want = flash_bwd.flash_attention_bwd_plain(q, k, v, out, lse, dout, pos, pos, **kw)
+    want = flash_bwd.flash_attention_bwd_plain(q, k, v, out, lse, dout, pos, kpos, **kw)
     torch.cuda.synchronize()
     for name, g, a, w in zip(("dq", "dk", "dv"), got, again, want):
         assert g.dtype == dtype and g.shape == w.shape and torch.equal(g, a), name
         err = (g.float() - w.float()).abs().max().item() / w.float().abs().max().item()
         assert err <= BWD_TOL[dtype], (name, err)
+
+
+# Rows with no valid key (the forward gives them mean V over the S slots):
+# the minimal input (row 0, at q_pos 0, sees no key), the same with two
+# padded slots, and a group of three heads over two batch rows, one of
+# which has no valid slot at all.  (B, H, KV, hd, q_pos, k_pos)
+EMPTY_ROW_CASES = {
+    "late-keys": (1, 1, 1, 16, [[0, 5]], [[1, 2, 3, 4]]),
+    "padded": (1, 1, 1, 16, [[0, 5]], [[1, -1, 3, -1]]),
+    "gqa": (2, 3, 1, 16, [[0, 2, 6], [1, 2, 3]], [[2, -1, 4, 5, 6], [-1, -1, -1, -1, -1]]),
+}
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("name", EMPTY_ROW_CASES)
+def test_flash_bwd_kernel_on_rows_with_no_valid_key_on_card(cuda, dtype, name):
+    """The forward kernel's lse is +inf on the rows with no valid key and
+    only there, as the plain one's; the backward kernel on its output
+    against the plain backward, dq, dk and dv within the type's tolerance
+    of max |plain|, dq 0 on the empty rows, bit for bit from run to run."""
+    from repro_torch.kernels import flash_bwd
+
+    B, H, KV, hd, qpos, kpos = EMPTY_ROW_CASES[name]
+    qp = torch.tensor(qpos, dtype=torch.int32, device=cuda)
+    kp = torch.tensor(kpos, dtype=torch.int32, device=cuda)
+    T, S = qp.shape[1], kp.shape[1]
+    rng = np.random.default_rng(0)
+    q, k, v, dout = (torch.from_numpy(rng.normal(0, 1, s)).to(cuda, dtype)
+                     for s in ((B, T, H, hd), (B, S, KV, hd), (B, S, KV, hd), (B, T, H, hd)))
+    kw = dict(causal=True, window=None, softcap=None)
+    out, lse = flash.flash_attention_lse_cuda(q, k, v, qp, kp, **kw)
+    _, want_lse = flash.flash_attention_lse_plain(q, k, v, qp, kp, **kw)
+    empty = torch.isposinf(want_lse)
+    assert empty.any() and torch.equal(torch.isposinf(lse), empty)
+    got = flash_bwd.flash_bwd_cuda(q, k, v, out, lse, dout, qp, kp, **kw)
+    again = flash_bwd.flash_bwd_cuda(q, k, v, out, lse, dout, qp, kp, **kw)
+    want = flash_bwd.flash_attention_bwd_plain(q, k, v, out, lse, dout, qp, kp, **kw)
+    torch.cuda.synchronize()
+    assert (got[0][empty] == 0).all()
+    for name_, g, a, w in zip(("dq", "dk", "dv"), got, again, want):
+        assert torch.equal(g, a), name_
+        err = (g.float() - w.float()).abs().max().item() / w.float().abs().max().item()
+        assert err <= BWD_TOL[dtype], (name_, err)
+
+
+def test_flash_bwd_kernels_run_on_wgmma_on_card(cuda):
+    """The bf16 dK/dV and dQ kernels run their products on wgmma: HGMMA in
+    the SASS of flash_bwd_kernel_dkv_* and flash_bwd_kernel_dq_* at hd 128
+    and 256 (cuobjdump on the built library)."""
+    import os
+    import re
+    import shutil
+    import subprocess
+
+    from repro_torch.kernels import build
+
+    build.library("flash_bwd")
+    tool = shutil.which("cuobjdump") or os.path.join(os.environ.get("CUDA_HOME", "/usr/local/cuda"), "bin",
+                                                      "cuobjdump")
+    sass = subprocess.run([tool, "-sass", str(build.library_path("flash_bwd"))], capture_output=True, text=True,
+                          check=True).stdout
+    found = {}
+    for block in sass.split("Function : ")[1:]:
+        m = re.search(r"flash_bwd_kernel_(dkv|dq)_wgmmaILi(\d+)E", block.split("\n", 1)[0])
+        if m:
+            found[(m.group(1), int(m.group(2)))] = "HGMMA" in block
+    for kernel in ("dkv", "dq"):
+        for hd in (128, 256):
+            assert found.get((kernel, hd)), (kernel, hd, sorted(found))
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
@@ -600,7 +684,8 @@ def test_flash_lse_leaves_the_output_as_it_was_on_card(cuda, dtype, case):
     _, want = flash.flash_attention_lse_plain(q, k, v, qp, kp, **kw)
     torch.cuda.synchronize()
     assert torch.equal(out, plain_out)
-    live = want > flash.NEG_INF / 2
+    assert torch.equal(torch.isposinf(lse), torch.isposinf(want))  # rows with no valid key
+    live = torch.isfinite(want)
     tol = 1e-4 if dtype == torch.float32 else 1e-3
     torch.testing.assert_close(lse[live], want[live], atol=tol, rtol=tol)
 
@@ -612,7 +697,7 @@ def test_flash_gradient_is_the_kernels_on_card(cuda):
     autograd function is recorded."""
     from repro_torch.kernels import flash_bwd
 
-    q, k, v, dout, pos, kw = _bwd_inputs(BWD_CARD_CASES[1], torch.float32, cuda)
+    q, k, v, dout, pos, _, kw = _bwd_inputs(BWD_CARD_CASES[1], torch.float32, cuda)
     leaves = [t.clone().requires_grad_() for t in (q, k, v)]
     ops.reset_launch_counts()
     out = ops.flash_attention(*leaves, pos, pos, **kw)

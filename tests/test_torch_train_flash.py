@@ -113,3 +113,56 @@ def test_plain_lse_is_the_logsumexp_of_the_reference_scores(case):
         ok &= kp > qp - kw["window"]
     want = jax.nn.logsumexp(jnp.where(ok[:, :, None, :], s, ref_layers.NEG_INF), axis=-1)
     assert _rel(lse.numpy(), np.asarray(want)) <= 1e-5
+
+
+# Rows with no valid key: the forward gives them the mean of V over the S
+# slots, so the gradient sends dO / S to every slot's dV (padded k_pos = -1
+# slots included) and nothing to dQ or dK.  (B, H, KV, hd, q_pos, k_pos):
+# the minimal input (row 0, at q_pos 0, sees no key), the same with two
+# padded slots, and a group of three heads over two batch rows, one of
+# which has no valid key at all
+EMPTY_ROW_CASES = {
+    "late-keys": (1, 1, 1, 16, [[0, 5]], [[1, 2, 3, 4]]),
+    "padded": (1, 1, 1, 16, [[0, 5]], [[1, -1, 3, -1]]),
+    "gqa": (2, 3, 1, 16, [[0, 2, 6], [1, 2, 3]], [[2, -1, 4, 5, 6], [-1, -1, -1, -1, -1]]),
+}
+
+
+@pytest.mark.parametrize("name", EMPTY_ROW_CASES)
+def test_plain_backward_on_rows_with_no_valid_key(name):
+    """The plain backward against autograd through ``flash_attention_plain``
+    and ``jax.vjp`` of the reference (which pads nothing at S <= 1,024), f32,
+    causal: with dO on the empty rows alone, dV within 1e-6 of max |dV| and
+    dQ and dK exactly 0 on every side; with dO on every row, each gradient
+    within the f32 tolerance.  lse is +inf on the empty rows and their dQ
+    is 0."""
+    B, H, KV, hd, qpos, kpos = EMPTY_ROW_CASES[name]
+    qp, kp = np.asarray(qpos, np.int32), np.asarray(kpos, np.int32)
+    T, S = qp.shape[1], kp.shape[1]
+    rng = np.random.default_rng(0)
+    arrs = [rng.normal(0, 1, s).astype(np.float32) for s in ((B, T, H, hd), (B, S, KV, hd), (B, S, KV, hd),
+                                                              (B, T, H, hd))]
+    empty = ~((kp[:, None, :] >= 0) & (kp[:, None, :] <= qp[:, :, None])).any(-1)  # (B, T)
+    assert empty.any() and not empty.all()
+    q, k, v = (torch.from_numpy(a) for a in arrs[:3])
+    tqp, tkp = torch.from_numpy(qp), torch.from_numpy(kp)
+    kw = dict(causal=True, window=None, softcap=None)
+    out, lse = flash.flash_attention_lse_plain(q, k, v, tqp, tkp, **kw)
+    assert torch.equal(torch.isposinf(lse), torch.from_numpy(empty)[:, :, None].expand(B, T, H))
+    for only_empty in (True, False):
+        dout_np = arrs[3] * empty[:, :, None, None] if only_empty else arrs[3]
+        dout = torch.from_numpy(np.ascontiguousarray(dout_np))
+        got = flash_bwd.flash_attention_bwd_plain(q, k, v, out, lse, dout, tqp, tkp, **kw)
+        leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+        auto = torch.autograd.grad(flash.flash_attention_plain(*leaves, tqp, tkp, **kw), leaves, dout)
+        _, vjp = jax.vjp(lambda q, k, v: ref_layers.flash_attention(q, k, v, jnp.asarray(qp), jnp.asarray(kp), **kw),
+                         *(jnp.asarray(a) for a in arrs[:3]))
+        ref = [np.asarray(g) for g in vjp(jnp.asarray(dout_np))]
+        assert (got[0][torch.from_numpy(empty)] == 0).all()
+        if only_empty:
+            for g in (*got[:2], *auto[:2], *ref[:2]):
+                assert not np.asarray(g).any()
+            assert _rel(got[2].numpy(), auto[2].numpy()) <= 1e-6 and _rel(got[2].numpy(), ref[2]) <= 1e-6
+        else:
+            for g, a, r in zip(got, auto, ref):
+                assert _rel(g.numpy(), a.numpy()) <= TOL["float32"] and _rel(g.numpy(), r) <= TOL["float32"]
