@@ -242,7 +242,28 @@ Phases, each of which fails the run on a wrong result:
    events and profiled device time) beside the plain backward, SDPA's
    backward (a yardstick only; none under softcap) and the bound (2.5
    times the forward's 4 hd flops a valid pair at the bf16 rate, or the
-   bytes, whichever is larger).
+   bytes, whichever is larger); (e) qwen3-moe-235b-a22b at full width
+   (d_model 4,096, 64/4 heads of 128, 128 experts top-8, expert d_ff
+   1,536, vocab 151,936, capacity 1.25, remat), depth cut to 1 of 94
+   layers (3.733 B parameters: two layers with their moments do not fit
+   beside the activations), on (b)'s batch shape: a warm-up and three
+   timed steps (walls, tokens/s, peak memory), loss and grad_norm finite,
+   the first step's ce within 1e-2 of ``forward``'s, every parameter moved
+   with a nonzero first moment (the router and the three expert tensors
+   among them), launches a step and layer flash 2, flash_bwd 1,
+   moe_dispatch 2, moe_combine 3 (two forwards and the dispatch's
+   backward) and moe_combine_bwd 1, one profiled step split as (b)'s with
+   the MoE kernels' forward and backward apart; (f) ``layers.moe``'s
+   gradients (dx, router, wi, wg, wo) through the kernels against those
+   through the plain dispatch and combine, at full width on x (2, 4,096,
+   4,096) with a random cotangent and 0.01 on aux, as (c) (the forward
+   is bit for bit on both paths, so their routes agree; the plain path
+   launches no MoE kernel); (g) ``moe_combine_bwd`` and the dispatch's
+   backward (a combine launch with unit weights) alone at phase 13's
+   three shapes: d_out_buf and dxf bit for bit against the plain versions
+   and from run to run, dw within one bf16 ulp, timed beside the bound,
+   the plain versions and the yardsticks (``index_copy_`` of the weighted
+   rows for the slot part; no single call also gives dw).
 
 Prints the card's name and power limit, a ``{"kernels": [...]}`` line, and
 as its last line ``{"ok": true, "device": {...}}``.  Exits non-zero without
@@ -2242,7 +2263,8 @@ MOE_CASES = (
     ("qwen3-moe decode", 2, 8, 128, 1, 4096, 3.0),
     ("grok-1 widths", 8192, 2, 8, 2561, 6144, 2.0),
 )
-MOE_DEVICE_KERNELS = {"moe_dispatch": ("dispatch_kernel",), "moe_combine": ("combine_kernel",)}
+MOE_DEVICE_KERNELS = {"moe_dispatch": ("dispatch_kernel",), "moe_combine": ("combine_kernel",),
+                      "moe_combine_bwd": ("combine_bwd_fill_kernel", "combine_bwd_kernel")}
 PRODUCT_KERNELS = ("gemm", "xmma", "nvjet", "cutlass", "splitK")  # cuBLAS's product kernels, by name
 
 
@@ -3192,7 +3214,12 @@ BWD_TOL = {"float32": 1e-4, "bfloat16": 2e-2}  # kernel vs plain, of max |plain|
 
 def _train_split(prof) -> dict[str, list]:
     """A profiled train step's device time by family, [ms, launches]:
-    products (cuBLAS), flash's forward and backward (by kernel name),
+    products (cuBLAS), flash's forward and backward (by kernel name), the
+    MoE kernels' forward (dispatch and combine) and backward
+    (``moe_combine_bwd``'s kernels, and the combine launches of the
+    dispatch's gradient: inside the profiler range
+    ``moe_dispatch.backward``, or its autograd node's op, to whichever
+    the profiler ties them),
     cross-entropy (the kernels launched inside ``train.cross_entropy`` and
     by the backward of the autograd nodes made there, matched by sequence
     number), the optimizer (inside ``train.optimizer``) and the rest.  A
@@ -3207,8 +3234,8 @@ def _train_split(prof) -> dict[str, list]:
 
     ce_seq = {e.sequence_nr for e in events
               if e.sequence_nr >= 0 and any(a.name == "train.cross_entropy" for a in chain(e))}
-    split = {k: [0.0, 0] for k in ("products", "flash forward", "flash backward", "cross-entropy", "optimizer",
-                                   "rest")}
+    split = {k: [0.0, 0] for k in ("products", "flash forward", "flash backward", "moe kernels", "moe backward",
+                                   "cross-entropy", "optimizer", "rest")}
     for e in events:
         # an event may list the kernels its children list too: count each at the innermost
         inner = collections.Counter((k.name, k.duration) for c in e.cpu_children for k in c.kernels)
@@ -3223,6 +3250,12 @@ def _train_split(prof) -> dict[str, list]:
                 fam = "flash backward"
             elif FLASH_KERNELS in kern.name:
                 fam = "flash forward"
+            elif any(k in kern.name for k in MOE_DEVICE_KERNELS["moe_combine_bwd"]) or (
+                    "combine_kernel" in kern.name and any(a == "moe_dispatch.backward" or "MoEDispatchBackward" in a
+                                                          for a in names)):
+                fam = "moe backward"
+            elif "dispatch_kernel" in kern.name or "combine_kernel" in kern.name:
+                fam = "moe kernels"
             elif "train.optimizer" in names:
                 fam = "optimizer"
             elif "train.cross_entropy" in names or any(
@@ -3519,9 +3552,273 @@ def _bwd_case(case, seed: int, dev) -> dict:
     return out_row
 
 
-def train_phase(dev) -> tuple[dict, int]:
+MOE_TRAIN_LAYERS = 1  # of 94: one layer is 3.733 B parameters with the embedding and head (~44.8 GB at 12 bytes
+# each: bf16 weights and gradients, f32 moments), two are 6.221 B (~74.7 GB) before the activations
+MOE_TRAIN_STEPS = 4  # the first is the warm-up
+MOE_GRAD_AUX = 0.01  # the aux loss's cotangent in (f): the train step's MOE_AUX_COEF
+
+
+def _moe_train(dev) -> int:
+    """(e) qwen3-moe-235b-a22b at full width, MOE_TRAIN_LAYERS of 94 layers:
+    MOE_TRAIN_STEPS steps and a profiled one.  Returns moe_combine_bwd's
+    launches in the MOE_TRAIN_STEPS steps."""
+    import dataclasses
+    import math
+
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.configs import get_config
+    from repro_torch.data import DataConfig, SyntheticLMData, make_host_batch
+    from repro_torch.kernels import ops
+    from repro_torch.models.model import forward, init_params
+    from repro_torch.train import OptimizerConfig, TrainConfig, init_train_state, make_train_step
+    from repro_torch.train.train_step import cross_entropy
+
+    whole = get_config(MOE_ARCH)
+    cfg = dataclasses.replace(whole, num_layers=MOE_TRAIN_LAYERS)
+    torch.cuda.empty_cache()
+    model, init_s = _wall(lambda: init_params(cfg, seed=0, device=dev))
+    state = init_train_state(model, OptimizerConfig())
+    n_params = sum(p.numel() for p in state["params"].values())
+    data = SyntheticLMData(DataConfig(vocab_size=cfg.vocab_size, seq_len=TRAIN_SEQ, global_batch=TRAIN_BATCH))
+    batches = [make_host_batch(data, i, device=dev) for i in range(MOE_TRAIN_STEPS + 1)]
+    logits, _ = forward(model, batches[0]["tokens"])
+    ce_forward = cross_entropy(logits, batches[0]["labels"], batches[0]["mask"].float()).item()
+    del logits
+    # a sample of each parameter (of every expert, for the expert tensors), to see it move
+    def sample(p):
+        return p.detach()[:, :2].flatten() if p.dim() == 3 else p.detach().flatten()[:65536]
+
+    before = {n: sample(p).clone() for n, p in state["params"].items()}
+    step = make_train_step(cfg, TrainConfig(), model)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(dev)
+    ops.reset_launch_counts()
+    walls, rows = [], []
+    for i in range(MOE_TRAIN_STEPS):
+        (state, m), wall = _wall(lambda: step(state, batches[i]))
+        walls.append(wall)
+        rows.append({k: float(v) for k, v in m.items()})
+        if not (math.isfinite(rows[-1]["loss"]) and math.isfinite(rows[-1]["grad_norm"])):
+            _fail(f"moe train: step {i + 1} loss {rows[-1]['loss']}, grad_norm {rows[-1]['grad_norm']}")
+    counts = ops.launch_counts()
+    peak = torch.cuda.max_memory_allocated(dev)
+    total = torch.cuda.get_device_properties(dev).total_memory
+    med = statistics.median(walls[1:])
+    ce_err = abs(rows[0]["ce"] - ce_forward) / abs(ce_forward)
+    print(f"  (e) {cfg.name} at full width (d_model {cfg.d_model}, {cfg.num_heads}/{cfg.num_kv_heads} heads of "
+          f"{cfg.head_dim}, {cfg.num_experts} experts top-{cfg.experts_per_token}, expert d_ff {cfg.moe_d_ff}, vocab "
+          f"{cfg.vocab_size}, capacity {cfg.capacity_factor}), depth cut to {MOE_TRAIN_LAYERS} of {whole.num_layers} "
+          f"layers: {n_params / 1e9:.3f} B parameters, {cfg.dtype} weights, f32 moments, remat {cfg.remat}; B "
+          f"{TRAIN_BATCH} x T {TRAIN_SEQ}; init {init_s:.2f} s")
+    print(f"      step walls " + ", ".join(f"{w:.4f}" for w in walls) + f" s; median of the last "
+          f"{len(walls) - 1} {med:.4f} s, {TRAIN_BATCH * TRAIN_SEQ / med:.0f} tokens/s; peak memory "
+          f"{peak / 1e9:.2f} GB of {total / 1e9:.2f} GB")
+    print("      losses " + ", ".join(f"{r['loss']:.4f}" for r in rows) + "; aux " + ", ".join(
+        f"{r['aux']:.4f}" for r in rows) + "; grad_norm " + ", ".join(f"{r['grad_norm']:.4f}" for r in rows)
+          + f"; first step's ce {rows[0]['ce']:.6f} against forward's {ce_forward:.6f} (relative {ce_err:.3e}, "
+          f"limit 1e-2)")
+    names = ("flash", "flash_bwd", "moe_dispatch", "moe_combine", "moe_combine_bwd")
+    per_step = {k: counts[k] / MOE_TRAIN_STEPS for k in names}
+    # a layer under remat: two forwards and a backward; the dispatch's
+    # backward is a combine launch
+    want = {"flash": 2, "flash_bwd": 1, "moe_dispatch": 2, "moe_combine": 3, "moe_combine_bwd": 1}
+    if not cfg.remat:
+        want.update(flash=1, moe_dispatch=1, moe_combine=2)
+    print("      launches a step: " + ", ".join(f"{k} {per_step[k]:.0f}" for k in names) + " (a layer: "
+          + ", ".join(f"{k} {v}" for k, v in want.items()) + ")")
+    if ce_err > 1e-2:
+        _fail(f"moe train: first step's ce {rows[0]['ce']} off forward's {ce_forward} by {ce_err:.3e}")
+    if any(per_step[k] != want[k] * MOE_TRAIN_LAYERS for k in names):
+        _fail(f"moe train: launches a step {per_step}, want {want} a layer")
+    still = [n for n, p in state["params"].items() if torch.equal(sample(p), before[n])]
+    no_grad = [n for n, mu in state["opt"]["mu"].items() if not mu.any()]
+    moe_leaves = [n for n in state["params"] if ".moe." in n]
+    print(f"      every parameter moved and has a nonzero first moment ({len(state['params'])} leaves; the MoE "
+          f"layer's {', '.join(n.rsplit('.', 1)[1] for n in moe_leaves)} among them)")
+    if still or no_grad or len(moe_leaves) != 4 * MOE_TRAIN_LAYERS:
+        _fail(f"moe train: parameters that did not move {still[:4]}, with no gradient {no_grad[:4]}, MoE leaves "
+              f"{moe_leaves}")
+    del before
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        (state, m), wall = _wall(lambda: step(state, batches[MOE_TRAIN_STEPS]))
+    split = _train_split(prof)
+    busy, launched = _raw_kernel_ms(prof)
+    print(f"      profiled step: wall {wall:.4f} s, device busy {busy:.2f} ms ({100 * busy / (1e3 * wall):.1f}%), "
+          f"{launched} kernel launches; by family (of {sum(ms for ms, _ in split.values()):.2f} ms the profiler "
+          f"tied to an op): " + ", ".join(f"{k} {ms:.2f} ms x {n}" for k, (ms, n) in split.items()))
+    del state, step, model, batches, prof
+    torch.cuda.empty_cache()
+    return counts["moe_combine_bwd"]
+
+
+def _moe_grads(dev) -> None:
+    """(f) the MoE layer's gradients through the kernels against those
+    through the plain dispatch and combine, at full width: ``layers.moe``
+    on x (TRAIN_BATCH, TRAIN_SEQ, d_model) with a random cotangent on out
+    and MOE_GRAD_AUX on aux, in float32 and bf16."""
+    import dataclasses
+
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import moe_combine, moe_combine_bwd, moe_dispatch, ops
+    from repro_torch.models import layers as L
+
+    cfg = get_config(MOE_ARCH)
+    c32 = dataclasses.replace(cfg, dtype="float32")
+    gen = torch.Generator(device=dev).manual_seed(0)
+    p16 = L.init_moe(cfg, gen, dev)
+    x = torch.randn((TRAIN_BATCH, TRAIN_SEQ, cfg.d_model), generator=gen, device=dev)
+    cot = torch.randn(x.shape, generator=gen, device=dev)
+
+    def launches():
+        return moe_dispatch.launches + moe_combine.launches + moe_combine_bwd.launches
+
+    def grads(p: dict, c, plain: bool) -> dict:
+        for t in p.values():
+            t.requires_grad_(True)
+        xr = x.detach().to(L.cdtype(c)).requires_grad_()
+        before = launches()
+        ctx = contextlib.ExitStack()
+        if plain:
+            ctx.enter_context(_patched(ops, "moe_dispatch", lambda orig: moe_dispatch.moe_dispatch_plain))
+            ctx.enter_context(_patched(ops, "moe_combine", lambda orig: moe_combine.moe_combine_plain))
+        with ctx:
+            out, aux = L.moe(p, xr, c)
+            g = torch.autograd.grad((out, aux), [xr, *p.values()],
+                                    (cot.to(out.dtype), torch.tensor(MOE_GRAD_AUX, device=dev)))
+        if (launches() == before) != plain:
+            _fail(f"moe train (f): the {'plain' if plain else 'kernel'} path launched {launches() - before} MoE "
+                  f"kernels")
+        for t in p.values():
+            t.requires_grad_(False)
+        return {"dx": g[0].float(), **{n: gi.float() for n, gi in zip(p, g[1:])}}
+
+    def dist(a: dict, b: dict) -> dict:
+        return {n: (a[n] - b[n]).abs().max().item() / max(b[n].abs().max().item(), 1e-30) for n in b}
+
+    p32 = {n: t.float() for n, t in p16.items()}
+    k32 = grads(p32, c32, False)
+    d32 = dist(k32, grads(p32, c32, True))
+    del p32
+    torch.cuda.empty_cache()
+    k16 = grads(p16, cfg, False)
+    d16 = dist(k16, grads(p16, cfg, True))
+    own = dist(k16, k32)  # the bf16 run's distance from the float32 one
+    del p16, k16, k32
+    torch.cuda.empty_cache()
+    worst32 = max(d32, key=d32.get)
+    print(f"  (f) gradients of layers.moe, kernels vs plain dispatch and combine, at full width, x ({TRAIN_BATCH}, "
+          f"{TRAIN_SEQ}, {cfg.d_model}), capacity {cfg.capacity_factor}: float32 worst {worst32} {d32[worst32]:.3e} "
+          f"(limit 2e-2): " + ", ".join(f"{n} {v:.3e}" for n, v in d32.items()))
+    limits = {n: max(2e-2, 2 * own[n]) for n in d16}
+    worst16 = max(d16, key=lambda n: d16[n] / limits[n])
+    print(f"      bf16 worst {worst16} {d16[worst16]:.3e} (limit {limits[worst16]:.3e}: 2e-2 or twice the bf16 run's "
+          f"distance from the float32 one, {own[worst16]:.3e}): " + ", ".join(f"{n} {v:.3e}" for n, v in d16.items()))
+    bad = [n for n in d32 if d32[n] > 2e-2] + [n for n in d16 if d16[n] > limits[n]]
+    if bad:
+        _fail(f"moe train (f): gradients off the plain path's beyond the limit: {bad}")
+
+
+def _bf16_ulp(x):
+    """The spacing of bf16 values at |x| (x float32)."""
+    import torch
+
+    return torch.ldexp(torch.ones_like(x), (torch.frexp(x.abs()).exponent - 8).to(torch.int32))
+
+
+def _moe_bwd_case(name: str, N: int, k: int, E: int, C: int, D: int, skew: float, dev) -> dict:
+    """(g) the combine's backward kernel and the dispatch's (a combine
+    launch with unit weights) at one of MOE_CASES' shapes, bf16: d_out_buf
+    and dxf bit for bit against the plain versions and from run to run, dw
+    within one bf16 ulp, timed beside the bounds, the plain versions and
+    the yardsticks."""
+    import torch
+
+    from repro_torch.kernels import moe_combine_bwd, moe_dispatch
+
+    g = torch.Generator(device=dev).manual_seed(N + E)
+    logits = torch.randn((N, E), generator=g, device=dev) - skew * torch.arange(E, device=dev) / E
+    top = torch.sort(torch.softmax(logits, -1), dim=-1, descending=True, stable=True)
+    ids = top.indices[:, :k].to(torch.int32).contiguous()
+    w = (top.values[:, :k] / top.values[:, :k].sum(-1, keepdim=True)).contiguous()
+    x = torch.randn((N, D), generator=g, device=dev).to(torch.bfloat16)
+    _, pos = moe_dispatch.moe_dispatch_cuda(x, ids, E, C)
+    del x
+    out_buf = torch.randn((E, C, D), generator=g, device=dev).to(torch.bfloat16)
+    dbuf = torch.randn((E, C, D), generator=g, device=dev).to(torch.bfloat16)
+    dout = torch.randn((N, D), generator=g, device=dev).to(torch.bfloat16)
+    call = lambda: moe_combine_bwd.moe_combine_bwd_cuda(dout, out_buf, ids, pos, w)  # noqa: E731
+    dcall = lambda: moe_dispatch.moe_dispatch_bwd_cuda(dbuf, ids, pos)  # noqa: E731
+    (d_buf, dw), again = call(), call()
+    dxf, dxf2 = dcall(), dcall()
+    want_buf, want_dw = moe_combine_bwd.moe_combine_bwd_plain(dout, out_buf, ids, pos, w)
+    want_dxf = moe_dispatch.moe_dispatch_bwd_plain(dbuf, ids, pos)
+    torch.cuda.synchronize()
+    bits = lambda t: t.view(torch.int16)  # noqa: E731
+    kept = (pos >= 0) & (pos < C)
+    n_kept = int(kept.sum())
+    if not (torch.equal(bits(d_buf), bits(want_buf)) and torch.equal(bits(again[0]), bits(d_buf))
+            and torch.equal(again[1], dw)):
+        _fail(f"moe_combine_bwd {name}: d_out_buf off its plain version or dw off its first run")
+    dw_err = (dw - want_dw).abs().max().item()
+    if (dw[~kept] != 0).any() or not ((dw - want_dw).abs() <= _bf16_ulp(want_dw)).all():
+        _fail(f"moe_combine_bwd {name}: dw off its plain version by {dw_err:.3e} (limit one bf16 ulp)")
+    if not (torch.equal(bits(dxf), bits(want_dxf)) and torch.equal(bits(dxf2), bits(dxf))):
+        _fail(f"moe dispatch backward {name}: dxf off its plain version or its first run")
+    del want_buf, want_dxf, again, dxf2
+    reps = 20 if N > 64 else 200
+    prof_calls = max(reps, 64)  # the profiler drops a window's first ~20 device events
+    # yardstick of the slot part: index_copy_ of the weighted rows into a
+    # zeroed (E C, D) buffer, the zeroing and the multiply not timed
+    tok = torch.arange(N, device=dev)[:, None].expand(N, k)[kept]
+    slot = (ids.long() * C + pos.long())[kept]
+    weighted = dout[tok] * w[kept].to(torch.bfloat16)[:, None]
+    target = torch.zeros((E * C, D), dtype=torch.bfloat16, device=dev)
+    lib = lambda: target.index_copy_(0, slot, weighted)  # noqa: E731
+    lib()
+    if not torch.equal(bits(target.view(E, C, D)), bits(d_buf)):
+        _fail(f"moe_combine_bwd {name}: the index_copy_ yardstick computes another d_out_buf")
+    lib_ms = min(_cuda_ms(lib, reps) for _ in range(3))
+    # bytes: d_out_buf written, dout and the kept rows of out_buf read, ids,
+    # pos and w read, dw written; operations: two products and an add an
+    # element of a kept row
+    nbytes = 2 * (d_buf.numel() + dout.numel() + n_kept * D) + 4 * 4 * ids.numel()
+    bound_ms, bound_by = _bound(nbytes, 3 * n_kept * D)
+    ms = min(_cuda_ms(call, reps) for _ in range(3))
+    parts = {n: _device_ms(call, n, prof_calls) for n in MOE_DEVICE_KERNELS["moe_combine_bwd"]}
+    plain_ms = _cuda_ms(lambda: moe_combine_bwd.moe_combine_bwd_plain(dout, out_buf, ids, pos, w), max(reps // 4, 3))
+    # the dispatch's backward: the kept rows of dbuf read, dxf written;
+    # yardstick: index_add_ of those rows (another order, with atomics)
+    dbytes = 2 * (n_kept * D + dxf.numel()) + 4 * 3 * ids.numel()
+    dbound_ms, dbound_by = _bound(dbytes, n_kept * D)
+    base = torch.zeros((N, D), dtype=torch.bfloat16, device=dev)
+    rows = dbuf.view(E * C, D)[slot].contiguous()
+    dlib_ms = _cuda_ms(lambda: torch.index_add(base, 0, tok, rows), reps)
+    d_ms = min(_cuda_ms(dcall, reps) for _ in range(3))
+    d_dev = _device_ms(dcall, "combine_kernel", prof_calls)
+    d_plain = _cuda_ms(lambda: moe_dispatch.moe_dispatch_bwd_plain(dbuf, ids, pos), max(reps // 4, 3))
+    print(f"  (g) {name:17s} N {N} k {k} E {E} C {C} D {D} bf16: {N * k - n_kept} of {N * k} assignments dropped; "
+          f"d_out_buf and dxf bit for bit, dw within one bf16 ulp (max |d| {dw_err:.3e})")
+    print(f"      moe_combine_bwd {ms:.4f} ms (device " + ", ".join(f"{n} {t:.4f}" for n, t in parts.items())
+          + f"), plain {plain_ms:.4f}, bound {bound_ms:.4f} ({bound_by}, {nbytes / 1e6:.1f} MB), {bound_ms / ms:.0%} "
+          f"of it; index_copy_ of the weighted rows {lib_ms:.4f} (the slot part alone; no single call also gives dw)")
+    print(f"      dispatch backward (combine_kernel, w = 1) {d_ms:.4f} ms (device {d_dev:.4f}), plain {d_plain:.4f}, "
+          f"bound {dbound_ms:.4f} ({dbound_by}, {dbytes / 1e6:.1f} MB), {dbound_ms / d_ms:.0%} of it; index_add_ "
+          f"of the kept rows {dlib_ms:.4f}")
+    del d_buf, dw, dxf, out_buf, dbuf, dout, target, weighted, rows, base
+    torch.cuda.empty_cache()
+    return dict(max_abs_err=dw_err, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by, library_ms=None,
+                device_ms=sum(parts.values()))
+
+
+def train_phase(dev) -> tuple[dict[str, dict], dict[str, int]]:
     """Phase 16: training.  Returns flash_bwd's numbers at llama's shape and
-    its launches in (b)'s steps."""
+    moe_combine_bwd's at qwen3-moe's, and their launches in (b)'s and (e)'s
+    steps."""
     print(f"train phase (a): the launcher, reduced {TRAIN_ARCH}")
     t0 = time.perf_counter()
     _train_launcher()
@@ -3532,7 +3829,15 @@ def train_phase(dev) -> tuple[dict, int]:
     print(f"train phase (d): flash_bwd alone; kernel vs plain bf16 <= 2e-2, f32 <= 1e-4 of max |plain| "
           f"({time.perf_counter() - t0:.2f} s)")
     cases = {case[0]: _bwd_case(case, 300 + i, dev) for i, case in enumerate(BWD_CASES)}
-    return cases["llama"], launches
+    print(f"train phase (e): {MOE_ARCH} at full width ({time.perf_counter() - t0:.2f} s)")
+    moe_launches = _moe_train(dev)
+    print(f"train phase (f): the MoE layer's gradients through the kernels against the plain path "
+          f"({time.perf_counter() - t0:.2f} s)")
+    _moe_grads(dev)
+    print(f"train phase (g): the MoE backward kernels alone ({time.perf_counter() - t0:.2f} s)")
+    moe_cases = [_moe_bwd_case(*case, dev) for case in MOE_CASES]
+    return ({"flash_bwd": cases["llama"], "moe_combine_bwd": moe_cases[0]},
+            {"flash_bwd": launches, "moe_combine_bwd": moe_launches})
 
 
 def main() -> int:
@@ -3610,7 +3915,9 @@ def main() -> int:
     frontend_phase(dev)
     print(f"frontend phase: {time.perf_counter() - t0:.2f} s")
     t0 = time.perf_counter()
-    per_kernel["flash_bwd"], counts["flash_bwd"] = train_phase(dev)
+    train_kernels, train_counts = train_phase(dev)
+    per_kernel.update(train_kernels)
+    counts.update(train_counts)
     print(f"train phase: {time.perf_counter() - t0:.2f} s")
 
     sources = {
@@ -3644,6 +3951,10 @@ def main() -> int:
         "rglru_scan": ("src/repro_torch/kernels/csrc/rglru_scan.cu",
                        "src/repro/models/recurrent.py:214-224 (rglru_block's lax.associative_scan), :210-212 "
                        "(its step at T = 1)"),
+        # no TPU kernel: the reference's MoE combine's gradient, left to JAX's autodiff and XLA
+        "moe_combine_bwd": ("src/repro_torch/kernels/csrc/moe_combine_bwd.cu",
+                            "src/repro/models/layers.py:565-566 (autodiff of moe's weighted gather and scatter-add; "
+                            "_moe_dispatch_compute :450-451)"),
         # no TPU kernel: the reference trains through its attention's XLA path
         "flash_bwd": ("src/repro_torch/kernels/csrc/flash_bwd.cu",
                       "src/repro/models/layers.py:213-253 (autodiff of flash_attention's KV-chunk lax.scan; no TPU "

@@ -41,8 +41,8 @@ NVCC_FLAGS = (
 # PyTorch's elementwise ops round them, so a kernel and its plain version
 # agree bit for bit where their arithmetic is the same: the engine's and the
 # scheduler's kernels need that, and so does the MoE combine's rounding
-# after each multiply and each add, and the RG-LRU's multiply then add a
-# step.  flash's inner products, forward and backward, and the WKV chunk
+# after each multiply and each add (and its backward's weighted rows), and
+# the RG-LRU's multiply then add a step.  flash's inner products, forward and backward, and the WKV chunk
 # form (its products on the tensor cores) need no bit exactness (their
 # plain versions sum in other orders) and keep FMA.
 _EXACT = ("-fmad=false",)
@@ -57,6 +57,7 @@ SOURCES = {
     "admission_epoch": _EXACT,
     "moe_dispatch": _EXACT,
     "moe_combine": _EXACT,
+    "moe_combine_bwd": _EXACT,
     "rglru_scan": _EXACT,
     "flash": (),
     "flash_bwd": (),

@@ -10,9 +10,12 @@ autograd records it, ``flash_bwd`` its gradient), scan the
 engine's predict phase (every running sum of it, in the reference's
 order), admission the batched admission controller's decision scan,
 admission_epoch the sharded controller's whole carried epoch,
-moe_dispatch and moe_combine the routed experts of an MoE layer,
-rwkv_wkv the WKV recurrence of an rwkv layer's time mix and rglru_scan the
-affine recurrence of an rglru layer.  Rows of
+moe_dispatch and moe_combine the routed experts of an MoE layer (and,
+when autograd records them, ``moe_combine_bwd`` and a combine launch their
+gradients), rwkv_wkv the WKV recurrence of an rwkv layer's time mix and
+rglru_scan the affine recurrence of an rglru layer.  A kernel without a
+backward refuses a CUDA call that autograd would record, so no gradient is
+cut silently.  Rows of
 segmax and wastage index series: row r reads ``y[series[r]]``, so rows
 that share a series (the methods of one execution, the k values of a
 sweep) never copy it on the card.
@@ -28,9 +31,24 @@ from repro_torch.kernels import admission, compaction, fitstats, flash, rangemax
 from repro_torch.kernels import admission_epoch as epoch
 from repro_torch.kernels import flash_bwd as bwd
 from repro_torch.kernels import moe_combine as combine
+from repro_torch.kernels import moe_combine_bwd as combine_bwd
 from repro_torch.kernels import moe_dispatch as dispatch
 from repro_torch.kernels import rglru_scan as lru
 from repro_torch.kernels import rwkv_wkv as wkv
+
+
+def _recorded(*ts: torch.Tensor) -> bool:
+    """True where autograd records a call on these inputs: grad enabled and
+    one of them requiring it."""
+    return torch.is_grad_enabled() and any(t.requires_grad for t in ts)
+
+
+def _no_backward(name: str, *ts: torch.Tensor) -> None:
+    """Raise for a CUDA call of a kernel without a backward that autograd
+    would record: its output would carry no gradient."""
+    if _recorded(*ts):
+        raise NotImplementedError(f"{name}: the kernel has no backward on the card yet (ROADMAP Queue 1 item "
+                                  f"7(d3)); call it under torch.no_grad() or torch.inference_mode()")
 
 
 def _route(y: torch.Tensor) -> bool:
@@ -147,7 +165,7 @@ def flash_attention(
     row's log-sum-exp, its backward the ``flash_bwd`` kernel; on the CPU
     autograd runs through the plain version."""
     if _route(q):
-        if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad or v.requires_grad):
+        if _recorded(q, k, v):
             return bwd.FlashAttention.apply(q, k, v, q_pos, k_pos, causal, window, softcap)
         return flash.flash_attention_cuda(q, k, v, q_pos, k_pos, causal=causal, window=window, softcap=softcap)
     return flash.flash_attention_plain(q, k, v, q_pos, k_pos, causal=causal, window=window, softcap=softcap)
@@ -188,8 +206,11 @@ def admission_epoch(base0, tl_t, tl_d, tl_c, slot_fold, rel_codes, starts, ends,
 def moe_dispatch(xf: torch.Tensor, ids: torch.Tensor, E: int, C: int) -> tuple[torch.Tensor, torch.Tensor]:
     """Rows xf (N, D) into the expert buffer by ids (N, k) int32 -> (buf (E,
     C, D), pos (N, k) int32), as ``moe_dispatch.moe_dispatch_plain``: one
-    launch on the card."""
+    launch on the card; where autograd records the call, through
+    ``moe_dispatch.MoEDispatch`` (its backward one combine launch)."""
     if _route(xf):
+        if _recorded(xf):
+            return dispatch.MoEDispatch.apply(xf, ids, E, C)
         return dispatch.moe_dispatch_cuda(xf, ids, E, C)
     return dispatch.moe_dispatch_plain(xf, ids, E, C)
 
@@ -197,8 +218,12 @@ def moe_dispatch(xf: torch.Tensor, ids: torch.Tensor, E: int, C: int) -> tuple[t
 def moe_combine(out_buf: torch.Tensor, ids: torch.Tensor, pos: torch.Tensor, weights: torch.Tensor) -> torch.Tensor:
     """The experts' rows out_buf (E, C, D) weighted back into their tokens
     -> (N, D), as ``moe_combine.moe_combine_plain``: one launch on the
-    card."""
+    card; where autograd records the call, through
+    ``moe_combine_bwd.MoECombine`` (its backward the ``moe_combine_bwd``
+    kernel)."""
     if _route(out_buf):
+        if _recorded(out_buf, weights):
+            return combine_bwd.MoECombine.apply(out_buf, ids, pos, weights)
         return combine.moe_combine_cuda(out_buf, ids, pos, weights)
     return combine.moe_combine_plain(out_buf, ids, pos, weights)
 
@@ -207,8 +232,10 @@ def rwkv_wkv(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor, logw: torch.Tens
              S0: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
     """The WKV recurrence of RWKV-6 heads: r, k, v, logw (B, T, H, 64) f32,
     u (H, 64), S0 (B, H, 64, 64) f32 -> (o (B, T, H, 64), S), as
-    ``rwkv_wkv.wkv_plain``: one launch on the card, any T."""
+    ``rwkv_wkv.wkv_plain``: one launch on the card, any T.  A CUDA call
+    that autograd would record raises ``NotImplementedError``."""
     if _route(r):
+        _no_backward("rwkv_wkv", r, k, v, logw, u, S0)
         return wkv.rwkv_wkv_cuda(r, k, v, logw, u, S0)
     return wkv.wkv_plain(r, k, v, logw, u, S0)
 
@@ -216,8 +243,10 @@ def rwkv_wkv(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor, logw: torch.Tens
 def rglru_scan(a: torch.Tensor, b: torch.Tensor, h0: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
     """``h_t = a_t h_{t-1} + b_t`` over a, b (B, T, R) f32 from h0 (B, R) ->
     (h_seq (B, T, R), h_last (B, R)), as ``rglru_scan.rglru_scan_plain``:
-    one launch on the card, bit for bit."""
+    one launch on the card, bit for bit.  A CUDA call that autograd would
+    record raises ``NotImplementedError``."""
     if _route(a):
+        _no_backward("rglru_scan", a, b, h0)
         return lru.rglru_scan_cuda(a, b, h0)
     return lru.rglru_scan_plain(a, b, h0)
 
@@ -235,6 +264,7 @@ _KERNELS = {
     "admission_epoch": epoch,
     "moe_dispatch": dispatch,
     "moe_combine": combine,
+    "moe_combine_bwd": combine_bwd,
     "rwkv_wkv": wkv,
     "rglru_scan": lru,
 }

@@ -13,10 +13,12 @@ the value is the same, and at llama3.2-3b's training shape (B 2 x T 4,096
 x V 128,256) an f32 one-hot would take 4.2 GB.
 
 On the card, training needs a backward kernel for every kernel of the
-model's path; flash has one (``kernels.flash_bwd``), the MoE dispatch and
-combine and the recurrences do not yet, so ``make_train_step`` refuses a
-config with ``moe``, ``rwkv`` or ``rglru`` layers on a CUDA model.  On the
-CPU autograd runs through those layers' plain versions.
+model's path: flash has one (``kernels.flash_bwd``), the MoE combine has
+one (``kernels.moe_combine_bwd``) and the MoE dispatch's gradient is a
+combine launch (``kernels.moe_dispatch.MoEDispatch``); the recurrences
+have none yet, so ``make_train_step`` refuses a config with ``rwkv`` or
+``rglru`` layers on a CUDA model.  On the CPU autograd runs through those
+layers' plain versions.
 """
 
 from __future__ import annotations
@@ -31,7 +33,7 @@ from repro_torch.train.optimizer import OptimizerConfig, apply_updates, decay_fl
 
 MOE_AUX_COEF = 0.01
 # layer kinds whose kernels have no backward on the card yet, and those kernels
-NO_BACKWARD = {"moe": ("moe_dispatch", "moe_combine"), "rwkv": ("rwkv_wkv",), "rglru": ("rglru_scan",)}
+NO_BACKWARD = {"rwkv": ("rwkv_wkv",), "rglru": ("rglru_scan",)}
 
 
 @dataclasses.dataclass(frozen=True)
@@ -98,7 +100,9 @@ def make_train_step(cfg: ModelConfig, train_cfg: TrainConfig, model: Transformer
     the reference), ``grad_norm``, ``lr``, as tensors on the model's device.
 
     Raises ``NotImplementedError`` for a CUDA model of a config with layers
-    whose kernels have no backward on the card."""
+    whose kernels have no backward on the card (``NO_BACKWARD``: the
+    recurrent ones); MoE configs train on the card through the MoE
+    kernels' autograd functions."""
     missing = sorted({k for kind in cfg.layer_kinds for k in NO_BACKWARD.get(kind, ())})
     if model.device.type == "cuda" and missing:
         raise NotImplementedError(f"{cfg.name}: training on the card needs backward kernels for "

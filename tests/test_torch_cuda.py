@@ -34,7 +34,10 @@ rounds P and dS as the products' operands), bit for bit from run to run;
 its forward with lse gives the output of the forward without it bit for
 bit, lse within 1e-4 (f32) or 1e-3 (bf16) of the plain one's.  A reduced
 float32 train step on the card within 1e-4 of the CPU's (loss, grad_norm,
-each first moment)."""
+each first moment), reduced qwen3-moe's too.  The MoE backward: d_out_buf
+and the dispatch's dxf bit for bit, dw within 1e-5 of max |dw| (f32) or one
+bf16 ulp (bf16): it sums each dot product in another order than
+``torch.sum``, then rounds to the dtype."""
 
 import numpy as np
 import pytest
@@ -562,6 +565,7 @@ BWD_CARD_CASES = [
     (2, 333, 24, 8, 128, True, None, None, "empty"),
     (1, 150, 16, 8, 256, True, 96, 50.0, "empty"),
     (2, 70, 6, 2, 16, True, None, None, "empty"),
+    (2, 200, 64, 4, 128, True, None, None),  # qwen3-moe's heads, G = 16
 ]
 BWD_TOL = {torch.float32: 1e-4, torch.bfloat16: 2e-2}  # of max |plain| per output
 
@@ -747,11 +751,11 @@ def test_reduced_train_step_on_card_matches_cpu_run(cuda, head_dim, remat):
         assert (mu.cpu() - want).abs().max().item() <= 1e-4 * want.abs().max().item(), name
 
 
-@pytest.mark.parametrize("name", ["qwen3-moe-235b-a22b", "rwkv6-1.6b", "recurrentgemma-2b"])
+@pytest.mark.parametrize("name", ["rwkv6-1.6b", "recurrentgemma-2b"])
 def test_train_step_on_card_refuses_layers_without_backward_kernels(cuda, name):
-    """Training an MoE or recurrent config on the card needs backward
-    kernels the port does not have yet: ``make_train_step`` raises before
-    any step, naming them."""
+    """Training a recurrent config on the card needs backward kernels the
+    port does not have yet: ``make_train_step`` raises before any step,
+    naming them."""
     from repro_torch.configs import get_config
     from repro_torch.models.model import init_params
     from repro_torch.train import TrainConfig, init_train_state, make_train_step
@@ -759,8 +763,7 @@ def test_train_step_on_card_refuses_layers_without_backward_kernels(cuda, name):
     cfg = get_config(name).reduced()
     model = init_params(cfg, device=cuda)
     init_train_state(model)
-    missing = {"qwen3-moe-235b-a22b": "moe_combine, moe_dispatch", "rwkv6-1.6b": "rwkv_wkv",
-               "recurrentgemma-2b": "rglru_scan"}[name]
+    missing = {"rwkv6-1.6b": "rwkv_wkv", "recurrentgemma-2b": "rglru_scan"}[name]
     with pytest.raises(NotImplementedError, match=missing):
         make_train_step(cfg, TrainConfig(), model)
 
@@ -1828,6 +1831,186 @@ def test_launcher_serves_an_moe_model_on_card(cuda):
     assert counts["flash"] > 0 and counts["moe_dispatch"] > 0 and counts["moe_combine"] == counts["moe_dispatch"]
 
 
+def _bf16_ulp(x: torch.Tensor) -> torch.Tensor:
+    """The spacing of bf16 values at |x| (x float32)."""
+    return torch.ldexp(torch.ones_like(x), (torch.frexp(x.abs()).exponent - 8).to(torch.int32))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("case", MOE_CARD_CASES, ids=lambda c: "-".join(map(str, c)))
+def test_moe_backward_kernels_match_plain_on_card(cuda, dtype, case):
+    """The combine's backward kernel and the dispatch's (a combine launch
+    with unit weights) against their plain versions on the dispatch's pos:
+    d_out_buf and dxf bit for bit, dw within 1e-5 of max |dw| (f32) or one
+    bf16 ulp (bf16), a dropped assignment's dw 0; each bit for bit on a
+    second launch; dw alone the same bits."""
+    from repro_torch.kernels import moe_combine_bwd
+
+    N, k, E, C, D, skew, offset = case
+    ids = (_moe_ids(N, k, E + offset, skew, seed=N + E) - offset).to(cuda)
+    g = torch.Generator(device=cuda).manual_seed(1)
+    x = torch.randn((N, D), generator=g, device=cuda).to(dtype)
+    _, pos = moe_dispatch.moe_dispatch_cuda(x, ids, E, C)
+    dbuf = torch.randn((E, C, D), generator=g, device=cuda).to(dtype)
+    out_buf = torch.randn((E, C, D), generator=g, device=cuda).to(dtype)
+    w = torch.rand((N, k), generator=g, device=cuda)
+    w = w / w.sum(-1, keepdim=True)
+    dout = torch.randn((N, D), generator=g, device=cuda).to(dtype)
+    before = (moe_combine.launches, moe_combine_bwd.launches)
+    dxf = moe_dispatch.moe_dispatch_bwd_cuda(dbuf, ids, pos)
+    dxf2 = moe_dispatch.moe_dispatch_bwd_cuda(dbuf, ids, pos)
+    d_buf, dw = moe_combine_bwd.moe_combine_bwd_cuda(dout, out_buf, ids, pos, w)
+    d_buf2, dw2 = moe_combine_bwd.moe_combine_bwd_cuda(dout, out_buf, ids, pos, w)
+    none, dw_only = moe_combine_bwd.moe_combine_bwd_cuda(dout, out_buf, ids, pos, w, need_buf=False)
+    buf_only, none2 = moe_combine_bwd.moe_combine_bwd_cuda(dout, out_buf, ids, pos, w, need_w=False)
+    assert (moe_combine.launches, moe_combine_bwd.launches) == (before[0] + 2, before[1] + 4)
+    want_dxf = moe_dispatch.moe_dispatch_bwd_plain(dbuf, ids, pos)
+    want_buf, want_dw = moe_combine_bwd.moe_combine_bwd_plain(dout, out_buf, ids, pos, w)
+    torch.cuda.synchronize()
+    assert none is None and none2 is None
+    assert torch.equal(_bits(dxf), _bits(want_dxf)) and torch.equal(_bits(dxf2), _bits(dxf))
+    assert torch.equal(_bits(d_buf), _bits(want_buf)) and torch.equal(_bits(d_buf2), _bits(d_buf))
+    assert torch.equal(_bits(buf_only), _bits(d_buf))
+    assert torch.equal(dw2, dw) and torch.equal(dw_only, dw)
+    kept = (pos >= 0) & (pos < C)
+    assert (dw[~kept] == 0).all()
+    if dtype == torch.float32:
+        assert (dw - want_dw).abs().max().item() <= 1e-5 * want_dw.abs().max().item()
+    else:
+        assert ((dw - want_dw).abs() <= _bf16_ulp(want_dw)).all()
+
+
+def test_moe_combine_bwd_takes_unaligned_rows_on_card(cuda):
+    """Row bases off 16 bytes take the one-element loads and stores."""
+    from repro_torch.kernels import moe_combine_bwd
+
+    N, k, E, C, D = 64, 2, 4, 30, 64
+    ids = _moe_ids(N, k, E, 2.0, seed=1).to(cuda)
+    _, pos = moe_dispatch.moe_dispatch_plain(torch.zeros((N, 1), device=cuda), ids, E, C)
+    ob = torch.randn(E * C * D + 1, device=cuda).to(torch.bfloat16)[1:].view(E, C, D)
+    dout = torch.randn(N * D + 1, device=cuda).to(torch.bfloat16)[1:].view(N, D)
+    w = torch.full((N, k), 0.5, device=cuda)
+    d_buf, dw = moe_combine_bwd.moe_combine_bwd_cuda(dout, ob, ids, pos, w)
+    want_buf, want_dw = moe_combine_bwd.moe_combine_bwd_plain(dout, ob, ids, pos, w)
+    assert torch.equal(_bits(d_buf), _bits(want_buf))
+    assert ((dw - want_dw).abs() <= _bf16_ulp(want_dw)).all()
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_moe_gradients_are_the_kernels_on_card(cuda, dtype):
+    """Autograd through ops.moe_dispatch and ops.moe_combine on the card
+    (``MoEDispatch``, ``MoECombine``): one dispatch, two combine (the
+    forward's and the dispatch's backward's) and one combine_bwd launch,
+    the gradients those of autograd through the plain versions on the CPU
+    (dxf and d_out_buf bit for bit, dw within the kernel test's
+    tolerance); pos not differentiable; under inference mode nothing is
+    recorded."""
+    from repro_torch.kernels import moe_combine_bwd
+
+    N, k, E, C, D = 300, 4, 16, 60, 96
+    ids = _moe_ids(N, k, E, 3.0, seed=5).to(cuda)
+    g = torch.Generator(device=cuda).manual_seed(2)
+    x = torch.randn((N, D), generator=g, device=cuda).to(dtype)
+    ob = torch.randn((E, C, D), generator=g, device=cuda).to(dtype)
+    w = torch.rand((N, k), generator=g, device=cuda)
+    dbuf = torch.randn((E, C, D), generator=g, device=cuda).to(dtype)
+    dout = torch.randn((N, D), generator=g, device=cuda).to(dtype)
+    leaves = [t.clone().requires_grad_() for t in (x, ob, w)]
+    ops.reset_launch_counts()
+    buf, pos = ops.moe_dispatch(leaves[0], ids, E, C)
+    out = ops.moe_combine(leaves[1], ids, pos, leaves[2])
+    assert not pos.requires_grad and buf.grad_fn is not None and out.grad_fn is not None
+    grads = torch.autograd.grad((buf, out), leaves, (dbuf, dout))
+    counts = ops.launch_counts()
+    assert (counts["moe_dispatch"], counts["moe_combine"], counts["moe_combine_bwd"]) == (1, 2, 1)
+    # the plain versions' autograd on the CPU, which adds in index order
+    # (on the card index_add_ and index_put_ add with atomics)
+    plain = [t.cpu().requires_grad_() for t in (x, ob, w)]
+    pbuf, ppos = moe_dispatch.moe_dispatch_plain(plain[0], ids.cpu(), E, C)
+    pout = moe_combine.moe_combine_plain(plain[1], ids.cpu(), ppos, plain[2])
+    want = torch.autograd.grad((pbuf, pout), plain, (dbuf.cpu(), dout.cpu()))
+    grads = [g.cpu() for g in grads]
+    assert torch.equal(pos.cpu(), ppos)
+    assert torch.equal(_bits(grads[0]), _bits(want[0])) and torch.equal(_bits(grads[1]), _bits(want[1]))
+    if dtype == torch.float32:
+        assert (grads[2] - want[2]).abs().max().item() <= 1e-5 * want[2].abs().max().item()
+    else:
+        assert ((grads[2] - want[2]).abs() <= _bf16_ulp(want[2])).all()
+    with torch.inference_mode():
+        assert ops.moe_combine(leaves[1], ids, pos, leaves[2]).grad_fn is None
+        assert ops.moe_dispatch(leaves[0], ids, E, C)[0].grad_fn is None
+    assert moe_combine_bwd.launches == 1
+
+
+@pytest.mark.parametrize("remat", [False, True])
+@pytest.mark.parametrize("name", ["qwen3-moe-235b-a22b", "grok-1-314b"])
+def test_reduced_moe_train_step_on_card_matches_cpu_run(cuda, name, remat, monkeypatch):
+    """One train step of a reduced MoE config in float32 on the card against
+    the same step on the CPU: loss, grad_norm and lr within 1e-4, each
+    first moment within 1e-4 of its leaf's max |mu|.  Launches a layer:
+    flash 1 and flash_bwd 1, moe_dispatch 1, moe_combine 2 (the forward's
+    and the dispatch's backward), moe_combine_bwd 1; under remat the
+    recomputed forward adds a flash, a dispatch and a combine, and its
+    dispatch gives the first pass's pos."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.data import DataConfig, SyntheticLMData
+    from repro_torch.models.model import init_params
+    from repro_torch.train import TrainConfig, init_train_state, make_train_step
+
+    cfg = dataclasses.replace(get_config(name).reduced(), dtype="float32", remat=remat)
+    batch = SyntheticLMData(DataConfig(vocab_size=cfg.vocab_size, seq_len=70, global_batch=2)).batch(0)
+    seen = []
+    dispatch = moe_dispatch.moe_dispatch_cuda
+
+    def recording(xf, ids, E, C):
+        buf, pos = dispatch(xf, ids, E, C)
+        seen.append(pos.clone())
+        return buf, pos
+
+    monkeypatch.setattr(moe_dispatch, "moe_dispatch_cuda", recording)
+    runs = {}
+    for dev in ("cpu", cuda):
+        model = init_params(cfg, seed=3, device="cpu").to(dev)
+        state = init_train_state(model)
+        step = make_train_step(cfg, TrainConfig(), model)
+        ops.reset_launch_counts()
+        state, m = step(state, {k: torch.from_numpy(v).to(dev) for k, v in batch.items()})
+        runs[str(dev)] = (state, m, ops.launch_counts())
+    (cpu_state, cpu_m, cpu_n), (state, m, n) = runs["cpu"], runs[str(cuda)]
+    assert not any(cpu_n.values())
+    L = cfg.num_layers
+    f = 2 if remat else 1
+    assert (n["flash"], n["flash_bwd"]) == (f * L, L)
+    assert (n["moe_dispatch"], n["moe_combine"], n["moe_combine_bwd"]) == (f * L, (f + 1) * L, L)
+    assert len(seen) == f * L
+    if remat:  # the backward recomputes the layers last to first
+        for i in range(L):
+            assert torch.equal(seen[i], seen[2 * L - 1 - i]), i
+    for key in ("loss", "grad_norm", "lr"):
+        assert abs(m[key].item() - cpu_m[key].item()) <= 1e-4 * abs(cpu_m[key].item()), key
+    for name, mu in state["opt"]["mu"].items():
+        want = cpu_state["opt"]["mu"][name]
+        assert (mu.cpu() - want).abs().max().item() <= 1e-4 * want.abs().max().item(), name
+
+
+def test_launcher_trains_an_moe_model_on_card(cuda, tmp_path):
+    """``python -m repro_torch.launch.train --arch qwen3-moe-235b-a22b``
+    (reduced) on the card, 12 steps, one injected failure: one restart,
+    step 12, the MoE layers' forward and backward kernels launched."""
+    from repro_torch.launch import train as launch_train
+
+    ops.reset_launch_counts()
+    res = launch_train.main(["--arch", "qwen3-moe-235b-a22b", "--steps", "12", "--fail-at", "5", "--ckpt",
+                             str(tmp_path)])
+    assert res["restarts"] == 1 and res["step"] == 12
+    assert all(np.isfinite(m["loss"]) for m in res["log"])
+    counts = ops.launch_counts()
+    assert counts["flash_bwd"] > 0 and counts["moe_combine_bwd"] == counts["flash_bwd"]
+    assert counts["moe_dispatch"] == counts["flash"] and counts["moe_combine"] == counts["flash"] + counts["flash_bwd"]
+
+
 # ---------------------------------------------------------------------------
 # the recurrent mixers: WKV and RG-LRU
 # ---------------------------------------------------------------------------
@@ -2000,6 +2183,35 @@ def test_reduced_recurrent_model_on_card_matches_cpu_run(cuda, name, monkeypatch
     got = greedy_generate(card, cfg, tokens[:, :12], steps=6)
     want = greedy_generate(cpu, cfg, tokens[:, :12], steps=6, device="cpu")
     assert torch.equal(got.cpu(), want)
+
+
+@pytest.mark.parametrize("name", ["rwkv6-1.6b", "recurrentgemma-2b"])
+def test_recurrent_kernels_refuse_autograd_on_card(cuda, name):
+    """The recurrences have no backward kernel yet: on the card a call that
+    autograd would record raises ``NotImplementedError`` (the loss of a
+    trainable model, and the kernel's own call), and no gradient is cut
+    silently; under inference mode and no_grad the model serves as before."""
+    from repro_torch.configs import get_config
+    from repro_torch.models.model import forward, init_params
+    from repro_torch.train import init_train_state, make_loss_fn
+
+    cfg = get_config(name).reduced()
+    kernel = "rwkv_wkv" if name.startswith("rwkv") else "rglru_scan"
+    model = init_params(cfg, seed=0, device=cuda)
+    init_train_state(model)
+    tokens = torch.from_numpy(np.random.default_rng(1).integers(0, cfg.vocab_size, (2, 33)).astype(np.int32))
+    batch = {"tokens": tokens.to(cuda), "labels": tokens.to(cuda)}
+    with pytest.raises(NotImplementedError, match=kernel):
+        make_loss_fn(cfg)(model, batch)
+    ops.reset_launch_counts()
+    logits, _ = forward(model, tokens.to(cuda))
+    assert torch.isfinite(logits).all() and ops.launch_counts()[kernel] > 0
+    a = torch.rand((1, 5, 64), device=cuda).requires_grad_()
+    with pytest.raises(NotImplementedError, match="rglru_scan"):
+        ops.rglru_scan(a, torch.rand((1, 5, 64), device=cuda), torch.zeros((1, 64), device=cuda))
+    with torch.no_grad():
+        h, _ = ops.rglru_scan(a, torch.rand((1, 5, 64), device=cuda), torch.zeros((1, 64), device=cuda))
+    assert h.grad_fn is None
 
 
 @pytest.mark.parametrize("name", ["rwkv6-1.6b", "recurrentgemma-2b"])

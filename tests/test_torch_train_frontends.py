@@ -2,8 +2,9 @@
 modality frontends (hubert-xlarge's audio frames, non-causal;
 qwen2-vl-72b's patch embeddings and M-RoPE rows), and the MoE loss, on the
 CPU at ``reduced()`` sizes.  Tolerances as ``test_torch_train_grads``;
-the MoE loss's ce, aux and total within 1e-5 relative, at capacity factor
-8.0 (the reference's MoE tests'), where no assignment is dropped."""
+the MoE loss's ce, aux and total within 1e-5 relative and every gradient
+leaf within 1e-4 of its max |g|, at capacity factor 8.0 (the reference's
+MoE tests') and at the configs' 1.25."""
 
 import numpy as np
 import pytest
@@ -38,8 +39,13 @@ def test_frontend_loss_and_gradients_match_reference(name):
         assert not grads["embed"].any() and grads["frontend_proj"].any()
 
 
-def test_moe_loss_matches_reference():
-    rcfg, params, cfg, model = pair("qwen3-moe-235b-a22b", capacity_factor=8.0)
+@pytest.mark.parametrize("capacity", [8.0, 1.25])
+@pytest.mark.parametrize("name", ["qwen3-moe-235b-a22b", "grok-1-314b"])
+def test_moe_loss_matches_reference(name, capacity):
+    """The loss, ce and aux, and every gradient leaf (the router's and the
+    experts' included), at the reference MoE tests' 8.0 and at the
+    configs' 1.25."""
+    rcfg, params, cfg, model = pair(name, capacity_factor=capacity)
     batch = lm_batch(cfg)
     rloss, rmetrics, _ = ref_value_and_grads(rcfg, params, batch)
     loss, metrics, _ = port_value_and_grads(cfg, model, batch)
@@ -47,3 +53,5 @@ def test_moe_loss_matches_reference():
     for got, want in ((loss, rloss), (metrics["ce"], rmetrics["ce"]), (metrics["aux"], rmetrics["aux"])):
         assert abs(got - want) <= 1e-5 * abs(want), (got, want)
     assert abs(loss - (metrics["ce"] + 0.01 * metrics["aux"])) <= 1e-6 * loss
+    _, grads = check(cfg, model, rcfg, params, batch)
+    assert all(grads[n].any() for n in grads if ".moe." in n)
