@@ -6,8 +6,9 @@
 Phases, each of which fails the run on a wrong result:
 
 1. build the segmax, wastage, rangemax, compaction, fitstats, scan,
-   admission, admission_epoch, moe_dispatch, moe_combine, rglru_scan, flash,
-   flash_bwd and rwkv_wkv kernels from
+   admission, admission_epoch, moe_dispatch, moe_combine, moe_combine_bwd,
+   rglru_scan, rglru_scan_bwd, flash, flash_bwd, rwkv_wkv and rwkv_wkv_bwd
+   kernels from
    ``src/repro_torch/kernels/csrc`` (one ``nvcc`` per source, in parallel);
 2. hold segmax and wastage against their plain PyTorch versions on the
    card, at the shapes of the largest bucket of the grid (peaks and fail
@@ -263,7 +264,22 @@ Phases, each of which fails the run on a wrong result:
    three shapes: d_out_buf and dxf bit for bit against the plain versions
    and from run to run, dw within one bf16 ulp, timed beside the bound,
    the plain versions and the yardsticks (``index_copy_`` of the weighted
-   rows for the slot part; no single call also gives dw).
+   rows for the slot part; no single call also gives dw); (h) rwkv6-1.6b
+   and (i) recurrentgemma-2b at full width and depth (remat) on (b)'s
+   batch shape, each as (e): a warm-up and three timed steps, the same
+   gates, launches a step rwkv6 48 rwkv_wkv and 24 rwkv_wkv_bwd,
+   recurrentgemma 36 rglru_scan, 18 rglru_scan_bwd, 16 flash and 8
+   flash_bwd, one profiled step split as (b)'s with the recurrent kernels'
+   forward and backward apart; (j) both models' gradients through the
+   recurrent kernels against those through the plain recurrences
+   (``ops.rwkv_wkv`` / ``ops.rglru_scan`` patched), at full width on 2
+   (rwkv6) and 3 (recurrentgemma: two rglru layers and a local one) layers,
+   as (c); (k) ``rwkv_wkv_bwd`` and ``rglru_scan_bwd`` alone at phase 14's
+   shapes (each model's own, the other's widths, B 3 x T 1,000, decode's
+   T 1): the RG-LRU's bit for bit, the WKV's within 1e-4 of each output's
+   max |plain|, both bit for bit from run to run, timed (CUDA events and
+   profiled device time) beside the bound and the plain version (no single
+   PyTorch call runs a reverse linear recurrence).
 
 Prints the card's name and power limit, a ``{"kernels": [...]}`` line, and
 as its last line ``{"ok": true, "device": {...}}``.  Exits non-zero without
@@ -3215,7 +3231,8 @@ BWD_TOL = {"float32": 1e-4, "bfloat16": 2e-2}  # kernel vs plain, of max |plain|
 def _train_split(prof) -> dict[str, list]:
     """A profiled train step's device time by family, [ms, launches]:
     products (cuBLAS), flash's forward and backward (by kernel name), the
-    MoE kernels' forward (dispatch and combine) and backward
+    recurrent kernels' forward (WKV, RG-LRU) and backward (by kernel name),
+    the MoE kernels' forward (dispatch and combine) and backward
     (``moe_combine_bwd``'s kernels, and the combine launches of the
     dispatch's gradient: inside the profiler range
     ``moe_dispatch.backward``, or its autograd node's op, to whichever
@@ -3235,7 +3252,7 @@ def _train_split(prof) -> dict[str, list]:
     ce_seq = {e.sequence_nr for e in events
               if e.sequence_nr >= 0 and any(a.name == "train.cross_entropy" for a in chain(e))}
     split = {k: [0.0, 0] for k in ("products", "flash forward", "flash backward", "moe kernels", "moe backward",
-                                   "cross-entropy", "optimizer", "rest")}
+                                   "recurrent forward", "recurrent backward", "cross-entropy", "optimizer", "rest")}
     for e in events:
         # an event may list the kernels its children list too: count each at the innermost
         inner = collections.Counter((k.name, k.duration) for c in e.cpu_children for k in c.kernels)
@@ -3246,7 +3263,11 @@ def _train_split(prof) -> dict[str, list]:
             if kern.name.startswith(("train.", "Memcpy", "Memset")):  # a range's device span, copies
                 continue
             names = [a.name for a in chain(e)]
-            if FLASH_BWD_KERNELS in kern.name:
+            if any(k in kern.name for k in REC_BWD_KERNELS):
+                fam = "recurrent backward"
+            elif any(k in kern.name for k in RECURRENT_KERNELS.values()):
+                fam = "recurrent forward"
+            elif FLASH_BWD_KERNELS in kern.name:
                 fam = "flash backward"
             elif FLASH_KERNELS in kern.name:
                 fam = "flash forward"
@@ -3815,9 +3836,242 @@ def _moe_bwd_case(name: str, N: int, k: int, E: int, C: int, D: int, skew: float
                 device_ms=sum(parts.values()))
 
 
+REC_TRAIN_STEPS = 4  # the first is the warm-up
+REC_GRAD_LAYERS = {"rwkv6-1.6b": 2, "recurrentgemma-2b": 3}  # (j): two rwkv layers; two rglru and a local one
+# device kernels of the recurrences' backward, by name: the WKV's three
+# launches (checkpoint sweeps, chunks, du) and the RG-LRU's one
+REC_BWD_KERNELS = {"wkv_bwd_ckpt_kernel": "rwkv_wkv_bwd", "wkv_bwd_chunk_kernel": "rwkv_wkv_bwd",
+                   "wkv_bwd_du_kernel": "rwkv_wkv_bwd", "rglru_bwd_kernel": "rglru_scan_bwd"}
+REC_BWD_NO_LIBRARY = "no single PyTorch call runs a reverse linear recurrence"
+
+
+def _rec_kernel(arch: str) -> str:
+    return "rwkv_wkv" if arch.startswith("rwkv") else "rglru_scan"
+
+
+def _rec_train(arch: str, dev) -> dict[str, int]:
+    """(h) rwkv6-1.6b and (i) recurrentgemma-2b at full width and depth on
+    B TRAIN_BATCH x T TRAIN_SEQ: REC_TRAIN_STEPS steps and a profiled one.
+    Returns the launches of the REC_TRAIN_STEPS steps, by kernel."""
+    import math
+
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.configs import get_config
+    from repro_torch.data import DataConfig, SyntheticLMData, make_host_batch
+    from repro_torch.kernels import ops
+    from repro_torch.models.model import forward, init_params
+    from repro_torch.train import OptimizerConfig, TrainConfig, init_train_state, make_train_step
+    from repro_torch.train.train_step import cross_entropy
+
+    cfg = get_config(arch)
+    torch.cuda.empty_cache()
+    model, init_s = _wall(lambda: init_params(cfg, seed=0, device=dev))
+    state = init_train_state(model, OptimizerConfig())
+    n_params = sum(p.numel() for p in state["params"].values())
+    data = SyntheticLMData(DataConfig(vocab_size=cfg.vocab_size, seq_len=TRAIN_SEQ, global_batch=TRAIN_BATCH))
+    batches = [make_host_batch(data, i, device=dev) for i in range(REC_TRAIN_STEPS + 1)]
+    with torch.no_grad():
+        logits, _ = forward(model, batches[0]["tokens"])
+        ce_forward = cross_entropy(logits, batches[0]["labels"], batches[0]["mask"].float()).item()
+    del logits
+    before = {n: p.detach().flatten()[:65536].clone() for n, p in state["params"].items()}
+    step = make_train_step(cfg, TrainConfig(), model)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(dev)
+    ops.reset_launch_counts()
+    walls, rows = [], []
+    for i in range(REC_TRAIN_STEPS):
+        (state, m), wall = _wall(lambda: step(state, batches[i]))
+        walls.append(wall)
+        rows.append({k: float(v) for k, v in m.items()})
+        if not (math.isfinite(rows[-1]["loss"]) and math.isfinite(rows[-1]["grad_norm"])):
+            _fail(f"{arch} train: step {i + 1} loss {rows[-1]['loss']}, grad_norm {rows[-1]['grad_norm']}")
+    counts = ops.launch_counts()
+    peak = torch.cuda.max_memory_allocated(dev)
+    total = torch.cuda.get_device_properties(dev).total_memory
+    med = statistics.median(walls[1:])
+    ce_err = abs(rows[0]["ce"] - ce_forward) / abs(ce_forward)
+    tag = "(h)" if arch.startswith("rwkv") else "(i)"
+    print(f"  {tag} {arch} uncut ({cfg.num_layers} layers: {', '.join(sorted(set(cfg.layer_kinds)))}; d_model "
+          f"{cfg.d_model}, vocab {cfg.vocab_size}): {n_params / 1e9:.3f} B parameters, {cfg.dtype} weights, f32 "
+          f"moments, remat {cfg.remat}; B {TRAIN_BATCH} x T {TRAIN_SEQ}; init {init_s:.2f} s")
+    print(f"      step walls " + ", ".join(f"{w:.4f}" for w in walls) + f" s; median of the last "
+          f"{len(walls) - 1} {med:.4f} s, {TRAIN_BATCH * TRAIN_SEQ / med:.0f} tokens/s; peak memory "
+          f"{peak / 1e9:.2f} GB of {total / 1e9:.2f} GB")
+    print("      losses " + ", ".join(f"{r['loss']:.4f}" for r in rows) + "; grad_norm "
+          + ", ".join(f"{r['grad_norm']:.4f}" for r in rows) + f"; first step's ce {rows[0]['ce']:.6f} against "
+          f"forward's {ce_forward:.6f} (relative {ce_err:.3e}, limit 1e-2)")
+    kernel = _rec_kernel(arch)
+    n_rec = sum(k in ("rwkv", "rglru") for k in cfg.layer_kinds)
+    n_att = cfg.num_layers - n_rec
+    f = 2 if cfg.remat else 1  # under remat a layer's forward runs twice
+    want = {kernel: f * n_rec, kernel + "_bwd": n_rec, "flash": f * n_att, "flash_bwd": n_att}
+    per_step = {k: counts[k] / REC_TRAIN_STEPS for k in want}
+    print("      launches a step: " + ", ".join(f"{k} {per_step[k]:.0f}" for k in want) + " (want "
+          + ", ".join(f"{k} {v}" for k, v in want.items()) + ")")
+    if ce_err > 1e-2:
+        _fail(f"{arch} train: first step's ce {rows[0]['ce']} off forward's {ce_forward} by {ce_err:.3e}")
+    if any(per_step[k] != v for k, v in want.items()):
+        _fail(f"{arch} train: launches a step {per_step}, want {want}")
+    still = [n for n, p in state["params"].items() if torch.equal(p.detach().flatten()[:65536], before[n])]
+    no_grad = [n for n, mu in state["opt"]["mu"].items() if not mu.any()]
+    print(f"      every parameter moved and has a nonzero first moment ({len(state['params'])} leaves)")
+    if still or no_grad:
+        _fail(f"{arch} train: parameters that did not move {still[:4]}, with no gradient {no_grad[:4]}")
+    del before
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        (state, m), wall = _wall(lambda: step(state, batches[REC_TRAIN_STEPS]))
+    split = _train_split(prof)
+    busy, launched = _raw_kernel_ms(prof)
+    print(f"      profiled step: wall {wall:.4f} s, device busy {busy:.2f} ms ({100 * busy / (1e3 * wall):.1f}%), "
+          f"{launched} kernel launches; by family (of {sum(ms for ms, _ in split.values()):.2f} ms the profiler "
+          f"tied to an op): " + ", ".join(f"{k} {ms:.2f} ms x {n}" for k, (ms, n) in split.items()))
+    del state, step, model, batches, prof
+    torch.cuda.empty_cache()
+    return {k: counts[k] for k in want}
+
+
+def _rec_grads(arch: str, dev) -> None:
+    """(j) a recurrent model's gradients through the recurrent kernels
+    against those through the plain recurrences, at full width on
+    REC_GRAD_LAYERS layers, float32 and bf16 weights (the float32 model
+    holds the bf16 weights), as (c)."""
+    import dataclasses
+
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.data import DataConfig, SyntheticLMData, make_host_batch
+    from repro_torch.kernels import ops, rglru_scan, rglru_scan_bwd, rwkv_wkv, rwkv_wkv_bwd
+    from repro_torch.models.model import Transformer, init_params
+    from repro_torch.train import make_loss_fn
+
+    cfg = dataclasses.replace(get_config(arch), num_layers=REC_GRAD_LAYERS[arch])
+    data = SyntheticLMData(DataConfig(vocab_size=cfg.vocab_size, seq_len=TRAIN_SEQ, global_batch=TRAIN_BATCH))
+    batch = make_host_batch(data, 0, device=dev)
+    kernel = _rec_kernel(arch)
+    plain_fn = rwkv_wkv.wkv_plain if kernel == "rwkv_wkv" else rglru_scan.rglru_scan_plain
+
+    def launches():
+        return rwkv_wkv.launches + rwkv_wkv_bwd.launches + rglru_scan.launches + rglru_scan_bwd.launches
+
+    def grads(model, c, plain: bool):
+        params = dict(model.named_parameters())
+        for p in params.values():
+            p.requires_grad_(True)
+        before = launches()
+        ctx = _patched(ops, kernel, lambda orig: plain_fn) if plain else contextlib.nullcontext()
+        with ctx:
+            loss, _ = make_loss_fn(c)(model, batch)
+            g = torch.autograd.grad(loss, list(params.values()))
+        if (launches() == before) != plain:
+            _fail(f"{arch} train (j): the {'plain' if plain else 'kernel'} path launched {launches() - before} "
+                  f"recurrent kernels")
+        return {n: t.float() for n, t in zip(params, g)}
+
+    bf = init_params(cfg, seed=0, device=dev)
+    c32 = dataclasses.replace(cfg, dtype="float32")
+    f32 = Transformer(c32, seed=None, device=dev)
+    f32.load_state_dict({n: t.float() for n, t in bf.state_dict().items()})
+    runs = {}
+    for name, model, c in (("float32", f32, c32), ("bfloat16", bf, cfg)):
+        runs[name] = (grads(model, c, False), grads(model, c, True))
+        del model
+    del f32, bf
+    torch.cuda.empty_cache()
+
+    def dist(a: dict, b: dict) -> dict:
+        return {n: (a[n] - b[n]).abs().max().item() / max(b[n].abs().max().item(), 1e-30) for n in b}
+
+    d32 = dist(*runs["float32"])
+    d16 = dist(*runs["bfloat16"])
+    own = dist(runs["bfloat16"][0], runs["float32"][0])  # the bf16 run's distance from the float32 one
+    worst32 = max(d32, key=d32.get)
+    print(f"  (j) {arch} gradients, {kernel} kernels vs the plain recurrence, {cfg.num_layers} layers "
+          f"({', '.join(cfg.layer_kinds)}) at full width, B {TRAIN_BATCH} x T {TRAIN_SEQ}: float32 worst {worst32} "
+          f"{d32[worst32]:.3e} (limit 2e-2)")
+    limits = {n: max(2e-2, 2 * own[n]) for n in d16}
+    worst16 = max(d16, key=lambda n: d16[n] / limits[n])
+    print(f"      bf16 worst {worst16} {d16[worst16]:.3e} (limit {limits[worst16]:.3e}: 2e-2 or twice the bf16 "
+          f"run's distance from the float32 one, {own[worst16]:.3e})")
+    bad = [n for n in d32 if d32[n] > 2e-2] + [n for n in d16 if d16[n] > limits[n]]
+    if bad:
+        _fail(f"{arch} train (j): gradients off the plain path's beyond the limit: {bad[:4]}")
+    del runs
+    torch.cuda.empty_cache()
+
+
+def _rec_bwd_case(kernel: str, name: str, B: int, T: int, W: int, stateful: bool, dev) -> dict:
+    """(k) a recurrence's backward kernel alone at one of phase 14's shapes
+    (W heads for the WKV, channels for the RG-LRU), against its plain
+    version on the same inputs (RG-LRU bit for bit, WKV within WKV_TOL of
+    each output's max |plain|) and against its own second run (bit for
+    bit), timed back to back and profiled beside the bound and the plain
+    version's time."""
+    import torch
+
+    from repro_torch.kernels import rglru_scan, rglru_scan_bwd, rwkv_wkv_bwd
+
+    g = torch.Generator(device=dev).manual_seed(B * T + W + 1)
+    if kernel == "rwkv_wkv_bwd":
+        args, _, _ = _wkv_args(B, T, W, stateful, dev)
+        grads = (torch.randn(args[0].shape, generator=g, device=dev), torch.randn(args[5].shape, generator=g,
+                                                                                   device=dev))
+        call = lambda: rwkv_wkv_bwd.rwkv_wkv_bwd_cuda(*args, *grads)  # noqa: E731
+        plain = lambda: rwkv_wkv_bwd.wkv_bwd_plain(*args, *grads)  # noqa: E731
+        r, S0, u = args[0], args[5], args[4]
+        # bytes: r, k, v, logw, do read and dr, dk, dv, dlogw written once;
+        # S0, dS read and dS0 written; u read and du written.  operations:
+        # the token form's 14 a state element and token (the state and
+        # state-gradient updates 3 each, four dot products 2 each)
+        nbytes = 4 * (9 * r.numel() + 3 * S0.numel() + 2 * u.numel())
+        nops = 14 * r.numel() * 64
+        exact = False
+    else:
+        (a, b, h0), _, _ = _rglru_args(B, T, W, stateful, dev)
+        h_seq, _ = rglru_scan.rglru_scan_cuda(a, b, h0)
+        dh_seq, dh_last = torch.randn(a.shape, generator=g, device=dev), torch.randn(h0.shape, generator=g, device=dev)
+        call = lambda: rglru_scan_bwd.rglru_scan_bwd_cuda(a, h0, h_seq, dh_seq, dh_last)  # noqa: E731
+        plain = lambda: rglru_scan_bwd.rglru_scan_bwd_plain(a, h0, h_seq, dh_seq, dh_last)  # noqa: E731
+        # bytes: a, h_seq, dh_seq read and da, db written once; h0, dh_last
+        # read and dh0 written.  operations: an add and two multiplies a step
+        nbytes = 4 * (5 * a.numel() + 3 * h0.numel())
+        nops = 3 * a.numel()
+        exact = True
+    got, again = call(), call()
+    want = plain()
+    torch.cuda.synchronize()
+    errs = [(x - w).abs().max().item() / max(w.abs().max().item(), 1e-30) for x, w in zip(got, want)]
+    if not all(torch.equal(x, y) for x, y in zip(got, again)):
+        _fail(f"{kernel} {name}: two runs differ")
+    if exact and not all(torch.equal(x, w) for x, w in zip(got, want)):
+        _fail(f"{kernel} {name}: differs from its plain version (of max |plain| {errs})")
+    if not exact and (max(errs) > WKV_TOL or not all(torch.isfinite(x).all() for x in got)):
+        _fail(f"{kernel} {name}: off its plain version by {errs} of max |plain| (limit {WKV_TOL})")
+    del got, again, want
+    reps = 20 if nbytes > 1e8 else 200
+    ms = _cuda_ms(call, reps)
+    parts = {n: _device_ms(call, n, 64) for n, k in REC_BWD_KERNELS.items() if k == kernel}
+    plain_ms = _cuda_ms(plain, 1)
+    bound_ms, bound_by = _bound(nbytes, nops)
+    device_ms = sum(parts.values())
+    print(f"  (k) {kernel} {name:26s} {'bit for bit' if exact else 'max |d| ' + ', '.join(f'{e:.2e}' for e in errs) + ' of max |plain|'}, "
+          f"the same from run to run; {ms:.4f} ms (device {device_ms:.4f}: "
+          + ", ".join(f"{n} {t:.4f}" for n, t in parts.items()) + f"), plain {plain_ms:.3f}, bound {bound_ms:.5f} "
+          f"({bound_by}: {nbytes / 1e6:.1f} MB, {nops / 1e9:.3f} GFLOP), {100 * bound_ms / device_ms:.1f}% of it; "
+          f"library null: {REC_BWD_NO_LIBRARY}")
+    torch.cuda.empty_cache()
+    return dict(max_abs_err=max(errs), ms=ms, device_ms=device_ms, plain_ms=plain_ms, bound_ms=bound_ms,
+                bound_by=bound_by, library_ms=None)
+
+
 def train_phase(dev) -> tuple[dict[str, dict], dict[str, int]]:
-    """Phase 16: training.  Returns flash_bwd's numbers at llama's shape and
-    moe_combine_bwd's at qwen3-moe's, and their launches in (b)'s and (e)'s
+    """Phase 16: training.  Returns flash_bwd's numbers at llama's shape,
+    moe_combine_bwd's at qwen3-moe's and the recurrent backwards' at their
+    models' own, and their launches in (b)'s, (e)'s, (h)'s and (i)'s
     steps."""
     print(f"train phase (a): the launcher, reduced {TRAIN_ARCH}")
     t0 = time.perf_counter()
@@ -3836,8 +4090,23 @@ def train_phase(dev) -> tuple[dict[str, dict], dict[str, int]]:
     _moe_grads(dev)
     print(f"train phase (g): the MoE backward kernels alone ({time.perf_counter() - t0:.2f} s)")
     moe_cases = [_moe_bwd_case(*case, dev) for case in MOE_CASES]
-    return ({"flash_bwd": cases["llama"], "moe_combine_bwd": moe_cases[0]},
-            {"flash_bwd": launches, "moe_combine_bwd": moe_launches})
+    rec_launches = {}
+    for arch in RECURRENT_ARCHS:
+        print(f"train phase ({'h' if arch.startswith('rwkv') else 'i'}): {arch} at full width and depth "
+              f"({time.perf_counter() - t0:.2f} s)")
+        rec_launches.update(_rec_train(arch, dev))
+    print(f"train phase (j): the recurrent models' gradients through the kernels against the plain path "
+          f"({time.perf_counter() - t0:.2f} s)")
+    for arch in RECURRENT_ARCHS:
+        _rec_grads(arch, dev)
+    print(f"train phase (k): the recurrent backward kernels alone; WKV <= {WKV_TOL:g} of max |plain|, RG-LRU bit "
+          f"for bit ({time.perf_counter() - t0:.2f} s)")
+    wkv = [_rec_bwd_case("rwkv_wkv_bwd", *case, dev) for case in WKV_CASES]
+    lru = [_rec_bwd_case("rglru_scan_bwd", *case, dev) for case in RGLRU_CASES]
+    return ({"flash_bwd": cases["llama"], "moe_combine_bwd": moe_cases[0], "rwkv_wkv_bwd": wkv[0],
+             "rglru_scan_bwd": lru[0]},
+            {"flash_bwd": launches, "moe_combine_bwd": moe_launches,
+             **{k: rec_launches[k] for k in ("rwkv_wkv_bwd", "rglru_scan_bwd")}})
 
 
 def main() -> int:
@@ -3955,6 +4224,13 @@ def main() -> int:
         "moe_combine_bwd": ("src/repro_torch/kernels/csrc/moe_combine_bwd.cu",
                             "src/repro/models/layers.py:565-566 (autodiff of moe's weighted gather and scatter-add; "
                             "_moe_dispatch_compute :450-451)"),
+        # no TPU kernel: the reference's recurrences' gradients, left to JAX's autodiff and XLA
+        "rwkv_wkv_bwd": ("src/repro_torch/kernels/csrc/rwkv_wkv_bwd.cu",
+                         "src/repro/models/recurrent.py:105-126 (autodiff of rwkv_time_mix's lax.scan of "
+                         "chunk_step), :87-93 (its step at T = 1)"),
+        "rglru_scan_bwd": ("src/repro_torch/kernels/csrc/rglru_scan_bwd.cu",
+                           "src/repro/models/recurrent.py:214-224 (autodiff of rglru_block's "
+                           "lax.associative_scan)"),
         # no TPU kernel: the reference trains through its attention's XLA path
         "flash_bwd": ("src/repro_torch/kernels/csrc/flash_bwd.cu",
                       "src/repro/models/layers.py:213-253 (autodiff of flash_attention's KV-chunk lax.scan; no TPU "

@@ -42,9 +42,11 @@ NVCC_FLAGS = (
 # agree bit for bit where their arithmetic is the same: the engine's and the
 # scheduler's kernels need that, and so does the MoE combine's rounding
 # after each multiply and each add (and its backward's weighted rows), and
-# the RG-LRU's multiply then add a step.  flash's inner products, forward and backward, and the WKV chunk
-# form (its products on the tensor cores) need no bit exactness (their
-# plain versions sum in other orders) and keep FMA.
+# the RG-LRU's multiply then add a step, forward and backward (its backward's
+# add, then its two multiplies).  flash's inner products, forward and
+# backward, the WKV chunk form (its products on the tensor cores) and the WKV
+# backward (its state updates and sums) need no bit exactness (their plain
+# versions sum in other orders) and keep FMA.
 _EXACT = ("-fmad=false",)
 SOURCES = {
     "segmax": _EXACT,
@@ -59,9 +61,11 @@ SOURCES = {
     "moe_combine": _EXACT,
     "moe_combine_bwd": _EXACT,
     "rglru_scan": _EXACT,
+    "rglru_scan_bwd": _EXACT,
     "flash": (),
     "flash_bwd": (),
     "rwkv_wkv": (),
+    "rwkv_wkv_bwd": (),
 }
 
 _lock = threading.Lock()

@@ -13,9 +13,9 @@ admission_epoch the sharded controller's whole carried epoch,
 moe_dispatch and moe_combine the routed experts of an MoE layer (and,
 when autograd records them, ``moe_combine_bwd`` and a combine launch their
 gradients), rwkv_wkv the WKV recurrence of an rwkv layer's time mix and
-rglru_scan the affine recurrence of an rglru layer.  A kernel without a
-backward refuses a CUDA call that autograd would record, so no gradient is
-cut silently.  Rows of
+rglru_scan the affine recurrence of an rglru layer (and, when autograd
+records them, ``rwkv_wkv_bwd`` and ``rglru_scan_bwd`` their gradients).
+Rows of
 segmax and wastage index series: row r reads ``y[series[r]]``, so rows
 that share a series (the methods of one execution, the k values of a
 sweep) never copy it on the card.
@@ -34,21 +34,15 @@ from repro_torch.kernels import moe_combine as combine
 from repro_torch.kernels import moe_combine_bwd as combine_bwd
 from repro_torch.kernels import moe_dispatch as dispatch
 from repro_torch.kernels import rglru_scan as lru
+from repro_torch.kernels import rglru_scan_bwd as lru_bwd
 from repro_torch.kernels import rwkv_wkv as wkv
+from repro_torch.kernels import rwkv_wkv_bwd as wkv_bwd
 
 
 def _recorded(*ts: torch.Tensor) -> bool:
     """True where autograd records a call on these inputs: grad enabled and
     one of them requiring it."""
     return torch.is_grad_enabled() and any(t.requires_grad for t in ts)
-
-
-def _no_backward(name: str, *ts: torch.Tensor) -> None:
-    """Raise for a CUDA call of a kernel without a backward that autograd
-    would record: its output would carry no gradient."""
-    if _recorded(*ts):
-        raise NotImplementedError(f"{name}: the kernel has no backward on the card yet (ROADMAP Queue 1 item "
-                                  f"7(d3)); call it under torch.no_grad() or torch.inference_mode()")
 
 
 def _route(y: torch.Tensor) -> bool:
@@ -232,10 +226,12 @@ def rwkv_wkv(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor, logw: torch.Tens
              S0: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
     """The WKV recurrence of RWKV-6 heads: r, k, v, logw (B, T, H, 64) f32,
     u (H, 64), S0 (B, H, 64, 64) f32 -> (o (B, T, H, 64), S), as
-    ``rwkv_wkv.wkv_plain``: one launch on the card, any T.  A CUDA call
-    that autograd would record raises ``NotImplementedError``."""
+    ``rwkv_wkv.wkv_plain``: one launch on the card, any T; where autograd
+    records the call, through ``rwkv_wkv_bwd.RWKVWKV`` (its backward the
+    ``rwkv_wkv_bwd`` kernel)."""
     if _route(r):
-        _no_backward("rwkv_wkv", r, k, v, logw, u, S0)
+        if _recorded(r, k, v, logw, u, S0):
+            return wkv_bwd.RWKVWKV.apply(r, k, v, logw, u, S0)
         return wkv.rwkv_wkv_cuda(r, k, v, logw, u, S0)
     return wkv.wkv_plain(r, k, v, logw, u, S0)
 
@@ -243,10 +239,12 @@ def rwkv_wkv(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor, logw: torch.Tens
 def rglru_scan(a: torch.Tensor, b: torch.Tensor, h0: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
     """``h_t = a_t h_{t-1} + b_t`` over a, b (B, T, R) f32 from h0 (B, R) ->
     (h_seq (B, T, R), h_last (B, R)), as ``rglru_scan.rglru_scan_plain``:
-    one launch on the card, bit for bit.  A CUDA call that autograd would
-    record raises ``NotImplementedError``."""
+    one launch on the card, bit for bit; where autograd records the call,
+    through ``rglru_scan_bwd.RGLRUScan`` (its backward the
+    ``rglru_scan_bwd`` kernel, bit for bit)."""
     if _route(a):
-        _no_backward("rglru_scan", a, b, h0)
+        if _recorded(a, b, h0):
+            return lru_bwd.RGLRUScan.apply(a, b, h0)
         return lru.rglru_scan_cuda(a, b, h0)
     return lru.rglru_scan_plain(a, b, h0)
 
@@ -266,7 +264,9 @@ _KERNELS = {
     "moe_combine": combine,
     "moe_combine_bwd": combine_bwd,
     "rwkv_wkv": wkv,
+    "rwkv_wkv_bwd": wkv_bwd,
     "rglru_scan": lru,
+    "rglru_scan_bwd": lru_bwd,
 }
 
 

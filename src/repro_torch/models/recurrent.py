@@ -15,7 +15,9 @@ chunk form over chunks of ``RWKV_CHUNK``, its single step at T = 1) and the
 recurrence in token order (``rglru_scan.rglru_scan_plain``, which differs
 from the reference's ``associative_scan`` tree by float32 rounding).  The
 log-decay is clamped to [``LOGW_MIN``, ``LOGW_MAX``] as the reference
-clamps it for its chunk form.
+clamps it for its chunk form.  Both recurrences carry gradients on the card
+too: where autograd records a call, ``ops`` runs it through an autograd
+function whose backward is a kernel (``rwkv_wkv_bwd``, ``rglru_scan_bwd``).
 """
 
 from __future__ import annotations

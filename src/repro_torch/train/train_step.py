@@ -12,13 +12,12 @@ one-hot contraction (which keeps vocab-sharded logits local on a mesh):
 the value is the same, and at llama3.2-3b's training shape (B 2 x T 4,096
 x V 128,256) an f32 one-hot would take 4.2 GB.
 
-On the card, training needs a backward kernel for every kernel of the
-model's path: flash has one (``kernels.flash_bwd``), the MoE combine has
-one (``kernels.moe_combine_bwd``) and the MoE dispatch's gradient is a
-combine launch (``kernels.moe_dispatch.MoEDispatch``); the recurrences
-have none yet, so ``make_train_step`` refuses a config with ``rwkv`` or
-``rglru`` layers on a CUDA model.  On the CPU autograd runs through those
-layers' plain versions.
+On the card every kernel of the model's path has a backward kernel, so
+every config trains there: flash (``kernels.flash_bwd``), the MoE combine
+(``kernels.moe_combine_bwd``; the MoE dispatch's gradient is a combine
+launch, ``kernels.moe_dispatch.MoEDispatch``), the WKV recurrence
+(``kernels.rwkv_wkv_bwd``) and the RG-LRU's (``kernels.rglru_scan_bwd``).
+On the CPU autograd runs through the plain versions.
 """
 
 from __future__ import annotations
@@ -32,8 +31,6 @@ from repro_torch.models.model import Transformer, forward_train
 from repro_torch.train.optimizer import OptimizerConfig, apply_updates, decay_flags, init_opt_state
 
 MOE_AUX_COEF = 0.01
-# layer kinds whose kernels have no backward on the card yet, and those kernels
-NO_BACKWARD = {"rwkv": ("rwkv_wkv",), "rglru": ("rglru_scan",)}
 
 
 @dataclasses.dataclass(frozen=True)
@@ -97,16 +94,7 @@ def make_train_step(cfg: ModelConfig, train_cfg: TrainConfig, model: Transformer
     ``init_train_state(model)``'s state: the gradient of the loss (summed in
     f32 over ``accum_steps`` microbatches and divided by their number), then
     AdamW.  Metrics: ``loss``, ``ce``, ``aux`` (0 under accumulation, as in
-    the reference), ``grad_norm``, ``lr``, as tensors on the model's device.
-
-    Raises ``NotImplementedError`` for a CUDA model of a config with layers
-    whose kernels have no backward on the card (``NO_BACKWARD``: the
-    recurrent ones); MoE configs train on the card through the MoE
-    kernels' autograd functions."""
-    missing = sorted({k for kind in cfg.layer_kinds for k in NO_BACKWARD.get(kind, ())})
-    if model.device.type == "cuda" and missing:
-        raise NotImplementedError(f"{cfg.name}: training on the card needs backward kernels for "
-                                  f"{', '.join(missing)}, which are not written yet")
+    the reference), ``grad_norm``, ``lr``, as tensors on the model's device."""
     loss_fn = make_loss_fn(cfg)
     accum = train_cfg.accum_steps
     decay = decay_flags(cfg, dict(model.named_parameters()))

@@ -34,10 +34,13 @@ rounds P and dS as the products' operands), bit for bit from run to run;
 its forward with lse gives the output of the forward without it bit for
 bit, lse within 1e-4 (f32) or 1e-3 (bf16) of the plain one's.  A reduced
 float32 train step on the card within 1e-4 of the CPU's (loss, grad_norm,
-each first moment), reduced qwen3-moe's too.  The MoE backward: d_out_buf
+each first moment), reduced qwen3-moe's, rwkv6's and recurrentgemma's too.  The MoE backward: d_out_buf
 and the dispatch's dxf bit for bit, dw within 1e-5 of max |dw| (f32) or one
 bf16 ulp (bf16): it sums each dot product in another order than
-``torch.sum``, then rounds to the dtype."""
+``torch.sum``, then rounds to the dtype.  The recurrences' backward: the
+RG-LRU's bit for bit, the WKV's within 1e-4 of each gradient's max |plain|
+(the token form's sums in other orders), both bit for bit from run to
+run."""
 
 import numpy as np
 import pytest
@@ -751,21 +754,46 @@ def test_reduced_train_step_on_card_matches_cpu_run(cuda, head_dim, remat):
         assert (mu.cpu() - want).abs().max().item() <= 1e-4 * want.abs().max().item(), name
 
 
+@pytest.mark.parametrize("remat", [False, True])
 @pytest.mark.parametrize("name", ["rwkv6-1.6b", "recurrentgemma-2b"])
-def test_train_step_on_card_refuses_layers_without_backward_kernels(cuda, name):
-    """Training a recurrent config on the card needs backward kernels the
-    port does not have yet: ``make_train_step`` raises before any step,
-    naming them."""
+def test_reduced_recurrent_train_step_on_card_matches_cpu_run(cuda, name, remat):
+    """One train step of a reduced recurrent config (d_model 128: two RWKV
+    heads) in float32 on the card against the same step on the CPU (the
+    plain versions under autograd): loss, grad_norm and lr within 1e-4,
+    each first moment within 1e-4 of its leaf's max |mu|.  Launches a
+    recurrent layer: the forward kernel once (twice under remat) and its
+    backward kernel once; recurrentgemma's local layers flash and
+    flash_bwd likewise."""
+    import dataclasses
+
     from repro_torch.configs import get_config
+    from repro_torch.data import DataConfig, SyntheticLMData
     from repro_torch.models.model import init_params
     from repro_torch.train import TrainConfig, init_train_state, make_train_step
 
-    cfg = get_config(name).reduced()
-    model = init_params(cfg, device=cuda)
-    init_train_state(model)
-    missing = {"rwkv6-1.6b": "rwkv_wkv", "recurrentgemma-2b": "rglru_scan"}[name]
-    with pytest.raises(NotImplementedError, match=missing):
-        make_train_step(cfg, TrainConfig(), model)
+    cfg = dataclasses.replace(get_config(name).reduced(), dtype="float32", d_model=128, remat=remat)
+    batch = SyntheticLMData(DataConfig(vocab_size=cfg.vocab_size, seq_len=70, global_batch=2)).batch(0)
+    runs = {}
+    for dev in ("cpu", cuda):
+        model = init_params(cfg, seed=3, device="cpu").to(dev)
+        state = init_train_state(model)
+        step = make_train_step(cfg, TrainConfig(), model)
+        ops.reset_launch_counts()
+        state, m = step(state, {k: torch.from_numpy(v).to(dev) for k, v in batch.items()})
+        runs[str(dev)] = (state, m, ops.launch_counts())
+    (cpu_state, cpu_m, cpu_n), (state, m, n) = runs["cpu"], runs[str(cuda)]
+    assert not any(cpu_n.values())
+    f = 2 if remat else 1
+    kernel = "rwkv_wkv" if name.startswith("rwkv") else "rglru_scan"
+    n_rec = sum(k in ("rwkv", "rglru") for k in cfg.layer_kinds)
+    n_att = cfg.num_layers - n_rec
+    assert (n[kernel], n[kernel + "_bwd"]) == (f * n_rec, n_rec)
+    assert (n["flash"], n["flash_bwd"]) == (f * n_att, n_att)
+    for key in ("loss", "grad_norm", "lr"):
+        assert abs(m[key].item() - cpu_m[key].item()) <= 1e-4 * abs(cpu_m[key].item()), key
+    for leaf, mu in state["opt"]["mu"].items():
+        want = cpu_state["opt"]["mu"][leaf]
+        assert (mu.cpu() - want).abs().max().item() <= 1e-4 * want.abs().max().item(), leaf
 
 
 def test_launcher_trains_on_card_with_its_defaults(cuda, tmp_path):
@@ -2185,33 +2213,134 @@ def test_reduced_recurrent_model_on_card_matches_cpu_run(cuda, name, monkeypatch
     assert torch.equal(got.cpu(), want)
 
 
-@pytest.mark.parametrize("name", ["rwkv6-1.6b", "recurrentgemma-2b"])
-def test_recurrent_kernels_refuse_autograd_on_card(cuda, name):
-    """The recurrences have no backward kernel yet: on the card a call that
-    autograd would record raises ``NotImplementedError`` (the loss of a
-    trainable model, and the kernel's own call), and no gradient is cut
-    silently; under inference mode and no_grad the model serves as before."""
-    from repro_torch.configs import get_config
-    from repro_torch.models.model import forward, init_params
-    from repro_torch.train import init_train_state, make_loss_fn
+def _unaligned(x: torch.Tensor) -> torch.Tensor:
+    """``x`` as a view 4 bytes past a 16-byte boundary."""
+    flat = torch.zeros(x.numel() + 1, dtype=x.dtype, device=x.device)
+    flat[1:] = x.flatten()
+    view = flat[1:].view(x.shape)
+    assert view.data_ptr() % 16 == 4
+    return view
 
-    cfg = get_config(name).reduced()
-    kernel = "rwkv_wkv" if name.startswith("rwkv") else "rglru_scan"
-    model = init_params(cfg, seed=0, device=cuda)
-    init_train_state(model)
-    tokens = torch.from_numpy(np.random.default_rng(1).integers(0, cfg.vocab_size, (2, 33)).astype(np.int32))
-    batch = {"tokens": tokens.to(cuda), "labels": tokens.to(cuda)}
-    with pytest.raises(NotImplementedError, match=kernel):
-        make_loss_fn(cfg)(model, batch)
+
+def _wkv_bwd_args(B: int, T: int, H: int, seed: int, dev):
+    """``wkv_inputs`` and N(0, 1) gradients do and dS, on ``dev``."""
+    rng = np.random.default_rng(seed + 1)
+    do = rng.standard_normal((B, T, H, 64)).astype(np.float32)
+    dS = rng.standard_normal((B, H, 64, 64)).astype(np.float32)
+    return [torch.from_numpy(a).to(dev) for a in (*wkv_inputs(B, T, H, seed), do, dS)]
+
+
+WKV_BWD_CASES = [(3, 37, 2), (3, 1, 2), (2, 64, 2), (2, 65, 2), (1, 200, 3), (2, 129, 3), (2, 16, 32), (3, 1000, 2)]
+
+
+@pytest.mark.parametrize("unaligned", [False, True])
+@pytest.mark.parametrize("B,T,H", WKV_BWD_CASES, ids=lambda c: str(c))
+def test_wkv_bwd_kernel_matches_plain_on_card(cuda, B, T, H, unaligned):
+    """Each of (dr, dk, dv, dlogw, du, dS0) within 1e-4 of its max |plain|
+    (the token form's sums in other orders, the state updates fused, dlogw
+    through the chunk identity), at ragged T, T = 1, a nonzero S0 and dS;
+    r and do as views off 16 bytes; bit for bit from run to run."""
+    from repro_torch.kernels import rwkv_wkv_bwd
+
+    args = _wkv_bwd_args(B, T, H, seed=B * T + H, dev=cuda)
+    call = [_unaligned(a) if unaligned and i in (0, 6) else a for i, a in enumerate(args)]
+    before = rwkv_wkv_bwd.launches
+    got = rwkv_wkv_bwd.rwkv_wkv_bwd_cuda(*call)
+    again = rwkv_wkv_bwd.rwkv_wkv_bwd_cuda(*call)
+    assert rwkv_wkv_bwd.launches == before + 2
+    want = rwkv_wkv_bwd.wkv_bwd_plain(*args)
+    torch.cuda.synchronize()
+    for name, g, g2, w in zip(("dr", "dk", "dv", "dlogw", "du", "dS0"), got, again, want):
+        assert g.shape == w.shape and torch.isfinite(g).all(), name
+        assert torch.equal(g, g2), name
+        assert (g - w).abs().max().item() <= WKV_TOL * w.abs().max().item(), name
+
+
+def test_wkv_bwd_kernel_writes_only_what_is_asked_on_card(cuda):
+    from repro_torch.kernels import rwkv_wkv_bwd
+
+    args = _wkv_bwd_args(2, 70, 2, seed=3, dev=cuda)
+    full = rwkv_wkv_bwd.rwkv_wkv_bwd_cuda(*args)
+    need = (True, False, True, True, False, False)
+    part = rwkv_wkv_bwd.rwkv_wkv_bwd_cuda(*args, need=need)
+    for n, g, f in zip(need, part, full):
+        assert (g is None) if not n else torch.equal(g, f)
+
+
+@pytest.mark.parametrize("B,T,R", [(3, 37, 70), (3, 1, 70), (2, 300, 2560), (1, 4096, 33), (3, 1000, 2560),
+                                   (2, 129, 96), (1, 2, 2560), (2, 17, 4)])
+def test_rglru_scan_bwd_kernel_matches_plain_on_card(cuda, B, T, R):
+    """da, db and dh0 bit for bit (the same multiplies and adds, each
+    rounded on its own, in the same order), at ragged T and R (R not a
+    multiple of 4: the 4-byte copies), and from run to run."""
+    from repro_torch.kernels import rglru_scan_bwd
+
+    a, b, h0 = (torch.from_numpy(x).to(cuda) for x in rglru_inputs(B, T, R, seed=T + R))
+    h_seq, h_last = rglru_scan.rglru_scan_cuda(a, b, h0)
+    rng = np.random.default_rng(T * R)
+    dh_seq = torch.from_numpy(rng.standard_normal((B, T, R)).astype(np.float32)).to(cuda)
+    dh_last = torch.from_numpy(rng.standard_normal((B, R)).astype(np.float32)).to(cuda)
+    before = rglru_scan_bwd.launches
+    got = rglru_scan_bwd.rglru_scan_bwd_cuda(a, h0, h_seq, dh_seq, dh_last)
+    again = rglru_scan_bwd.rglru_scan_bwd_cuda(a, h0, h_seq, dh_seq, dh_last)
+    assert rglru_scan_bwd.launches == before + 2
+    want = rglru_scan_bwd.rglru_scan_bwd_plain(a, h0, h_seq, dh_seq, dh_last)
+    torch.cuda.synchronize()
+    for g, g2, w in zip(got, again, want):
+        assert torch.equal(g, w) and torch.equal(g, g2)
+
+
+@pytest.mark.parametrize("R", [2560, 70])
+def test_rglru_scan_bwd_kernel_takes_unaligned_rows_on_card(cuda, R):
+    """a, h0, h_seq and dh_seq views 4 bytes past a 16-byte boundary: the
+    kernel's 4-byte copies, bit for bit; only what is asked is written."""
+    from repro_torch.kernels import rglru_scan_bwd
+
+    a, b, h0 = (torch.from_numpy(x).to(cuda) for x in rglru_inputs(2, 333, R, seed=R))
+    h_seq, _ = rglru_scan.rglru_scan_cuda(a, b, h0)
+    rng = np.random.default_rng(R)
+    dh_seq = torch.from_numpy(rng.standard_normal((2, 333, R)).astype(np.float32)).to(cuda)
+    dh_last = torch.from_numpy(rng.standard_normal((2, R)).astype(np.float32)).to(cuda)
+    views = [_unaligned(x) for x in (a, h0, h_seq, dh_seq)]
+    want = rglru_scan_bwd.rglru_scan_bwd_plain(a, h0, h_seq, dh_seq, dh_last)
+    da, db, dh0 = rglru_scan_bwd.rglru_scan_bwd_cuda(*views, dh_last, need_h0=False)
+    torch.cuda.synchronize()
+    assert dh0 is None and torch.equal(da, want[0]) and torch.equal(db, want[1])
+
+
+def test_recurrent_gradients_are_the_kernels_on_card(cuda):
+    """Autograd through ops.rwkv_wkv and ops.rglru_scan on the card: one
+    forward and one backward launch each, the forward's outputs those of
+    the kernel alone bit for bit, the gradients within 1e-4 of the plain
+    versions' autograd (RG-LRU's bit for bit); no plain version is
+    reached; under no_grad nothing is recorded."""
+    from repro_torch.kernels import rglru_scan_bwd, rwkv_wkv_bwd
+
+    args = _wkv_bwd_args(2, 100, 2, seed=5, dev=cuda)
+    leaves = [t.clone().requires_grad_() for t in args[:6]]
     ops.reset_launch_counts()
-    logits, _ = forward(model, tokens.to(cuda))
-    assert torch.isfinite(logits).all() and ops.launch_counts()[kernel] > 0
-    a = torch.rand((1, 5, 64), device=cuda).requires_grad_()
-    with pytest.raises(NotImplementedError, match="rglru_scan"):
-        ops.rglru_scan(a, torch.rand((1, 5, 64), device=cuda), torch.zeros((1, 64), device=cuda))
+    o, S = ops.rwkv_wkv(*leaves)
+    grads = torch.autograd.grad((o, S), leaves, args[6:])
+    counts = ops.launch_counts()
+    assert counts["rwkv_wkv"] == 1 and counts["rwkv_wkv_bwd"] == 1
+    alone = rwkv_wkv.rwkv_wkv_cuda(*args[:6])
+    assert torch.equal(o.detach(), alone[0]) and torch.equal(S.detach(), alone[1])
+    plain = [t.clone().requires_grad_() for t in args[:6]]
+    want = torch.autograd.grad(rwkv_wkv.wkv_plain(*plain), plain, args[6:])
+    for g, w in zip(grads, want):
+        assert (g - w).abs().max().item() <= WKV_TOL * w.abs().max().item()
+
+    a, b, h0 = (torch.from_numpy(x).to(cuda).requires_grad_() for x in rglru_inputs(2, 100, 96, seed=5))
+    dh = torch.randn((2, 100, 96), device=cuda)
+    h_seq, h_last = ops.rglru_scan(a, b, h0)
+    grads = torch.autograd.grad(h_seq, (a, b, h0), dh)
+    assert ops.launch_counts()["rglru_scan"] == 1 and ops.launch_counts()["rglru_scan_bwd"] == 1
+    want = rglru_scan_bwd.rglru_scan_bwd_plain(a.detach(), h0.detach(), h_seq.detach(), dh, torch.zeros_like(h0))
+    for g, w in zip(grads, want):
+        assert torch.equal(g, w)
     with torch.no_grad():
-        h, _ = ops.rglru_scan(a, torch.rand((1, 5, 64), device=cuda), torch.zeros((1, 64), device=cuda))
-    assert h.grad_fn is None
+        assert ops.rglru_scan(a, b, h0)[0].grad_fn is None and ops.rwkv_wkv(*leaves)[0].grad_fn is None
+    assert rglru_scan_bwd.launches == 1 and rwkv_wkv_bwd.launches == 1
 
 
 @pytest.mark.parametrize("name", ["rwkv6-1.6b", "recurrentgemma-2b"])

@@ -211,16 +211,18 @@ def test_every_kernel_source_is_built():
         src = (build.CSRC / f"{name}.cu").read_text()
         assert f'extern "C" int {name}_launch(' in src
         # names the TPU kernel it replaces; scan, admission, admission_epoch,
-        # moe_dispatch, moe_combine, rwkv_wkv, rglru_scan, flash_bwd and
-        # moe_combine_bwd, which have none, the reference's running sums, its
-        # admission scan, its carried admission program, its MoE layer's
-        # dispatch and combine, its recurrent mixers' recurrences and the
-        # autodiff of its attention's XLA path and of its MoE combine
+        # moe_dispatch, moe_combine, rwkv_wkv, rglru_scan, flash_bwd,
+        # moe_combine_bwd, rwkv_wkv_bwd and rglru_scan_bwd, which have none,
+        # the reference's running sums, its admission scan, its carried
+        # admission program, its MoE layer's dispatch and combine, its
+        # recurrent mixers' recurrences and the autodiff of its attention's
+        # XLA path, of its MoE combine and of its recurrences
         no_tpu_kernel = {"scan": "repro/sim/jax_sim.py", "admission": "repro/sim/device_timeline.py",
                          "admission_epoch": "repro/sim/device_timeline.py",
                          "moe_dispatch": "repro/models/layers.py", "moe_combine": "repro/models/layers.py",
                          "rwkv_wkv": "repro/models/recurrent.py", "rglru_scan": "repro/models/recurrent.py",
-                         "flash_bwd": "repro/models/layers.py", "moe_combine_bwd": "repro/models/layers.py"}
+                         "flash_bwd": "repro/models/layers.py", "moe_combine_bwd": "repro/models/layers.py",
+                         "rwkv_wkv_bwd": "repro/models/recurrent.py", "rglru_scan_bwd": "repro/models/recurrent.py"}
         assert f"repro/kernels/{name}.py" in src or (
             name in no_tpu_kernel and "No TPU kernel" in src and no_tpu_kernel[name] in src
         )

@@ -201,33 +201,3 @@ def test_rglru_scan_plain_is_the_recurrence(T):
     b0 = jnp.concatenate([jnp.asarray(h0)[:, None], jnp.asarray(b)], axis=1)
     _, tree = jax.lax.associative_scan(combine, (a0, b0), axis=1)
     assert _rel(np.asarray(tree[:, 1:]), h_seq.numpy()) <= 1e-5
-
-
-@pytest.mark.parametrize("name", ["rwkv6-1.6b", "recurrentgemma-2b"])
-def test_recurrent_kernels_refuse_autograd_on_the_cards_route(name, monkeypatch):
-    """On the card's route (``ops._route`` true; each kernel call its plain
-    version, the recurrences' counted) the recurrences have no backward kernel: the loss of
-    a trainable model raises ``NotImplementedError`` naming the kernel
-    and reaches no kernel call, where it would have returned an output
-    with no gradient; under inference mode the model runs through the
-    kernel calls as before."""
-    from repro_torch.kernels import flash, ops, rglru_scan, rwkv_wkv
-    from repro_torch.models.model import forward, init_params
-    from repro_torch.train import init_train_state, make_loss_fn
-
-    calls = []
-    monkeypatch.setattr(ops, "_route", lambda t: True)
-    monkeypatch.setattr(flash, "flash_attention_cuda", flash.flash_attention_plain)
-    monkeypatch.setattr(flash, "flash_attention_lse_cuda", flash.flash_attention_lse_plain)
-    monkeypatch.setattr(rwkv_wkv, "rwkv_wkv_cuda", lambda *a: calls.append("rwkv_wkv") or wkv_plain(*a))
-    monkeypatch.setattr(rglru_scan, "rglru_scan_cuda", lambda *a: calls.append("rglru_scan") or rglru_scan_plain(*a))
-    cfg = get_config(name).reduced()
-    kernel = "rwkv_wkv" if name.startswith("rwkv") else "rglru_scan"
-    model = init_params(cfg, seed=0, device="cpu")
-    init_train_state(model)
-    tokens = torch.from_numpy(np.random.default_rng(1).integers(0, cfg.vocab_size, (2, 17)).astype(np.int32))
-    with pytest.raises(NotImplementedError, match=kernel):
-        make_loss_fn(cfg)(model, {"tokens": tokens, "labels": tokens})
-    assert kernel not in calls
-    logits, _ = forward(model, tokens)
-    assert torch.isfinite(logits).all() and kernel in calls

@@ -1,5 +1,6 @@
 """The WKV and RG-LRU kernels' device time at ``chip_smoke.WKV_CASES`` and
-``chip_smoke.RGLRU_CASES``.
+``chip_smoke.RGLRU_CASES``, and their backward kernels' at each prefill
+case.
 
     python tools/recurrent_clocks.py                   # this tree's two kernels
     python tools/recurrent_clocks.py --trees OLD NEW   # each tree's kernels, in turns
@@ -11,7 +12,12 @@ make: checked against the plain version (WKV within ``chip_smoke.WKV_TOL``
 of max |o| and of max |S|, RG-LRU bit for bit), the mean over back-to-back
 calls (CUDA events), the profiled device time a call and the device
 launches a call (``chip_smoke._device_ms`` / ``_device_launches``), beside
-the bound.  The third builds the WKV kernel again without its products
+the bound; then ``rwkv_wkv_bwd_cuda`` and ``rglru_scan_bwd_cuda`` (where
+the tree has them) at every prefill case, checked once against their
+plain versions (WKV within ``chip_smoke.WKV_TOL`` of each output's max
+|plain|, RG-LRU bit for bit) and against a second run (bit for bit),
+timed back to back and profiled launch by launch
+(``chip_smoke.REC_BWD_KERNELS``).  The third builds the WKV kernel again without its products
 (``-DWKV_WITHOUT_PRODUCTS``), without its copies and stores of o
 (``-DWKV_WITHOUT_COPIES``) and without both, and times each build beside
 the whole kernel at every prefill case (CUDA events; the parts left out
@@ -57,6 +63,40 @@ def _case(kernel: str, args: tuple, nbytes: float, nops: float) -> dict:
                 share_of_bound=bound_ms / device_ms)
 
 
+def _bwd_case(kernel: str, B: int, T: int, W: int, stateful: bool) -> dict:
+    """A backward kernel at one case: its error against the plain version,
+    whether two runs agree, CUDA-event ms and each launch's profiled ms."""
+    import torch
+
+    import chip_smoke
+    from repro_torch.kernels import rglru_scan, rglru_scan_bwd, rwkv_wkv_bwd
+
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(B * T + W + 1)
+    if kernel == "rwkv_wkv_bwd":
+        args, _, _ = chip_smoke._wkv_args(B, T, W, stateful, dev)
+        grads = (torch.randn(args[0].shape, generator=g, device=dev), torch.randn(args[5].shape, generator=g,
+                                                                                   device=dev))
+        call, plain = (lambda: rwkv_wkv_bwd.rwkv_wkv_bwd_cuda(*args, *grads)), (
+            lambda: rwkv_wkv_bwd.wkv_bwd_plain(*args, *grads))
+    else:
+        (a, b, h0), _, _ = chip_smoke._rglru_args(B, T, W, stateful, dev)
+        h_seq, _ = rglru_scan.rglru_scan_cuda(a, b, h0)
+        grads = (torch.randn(a.shape, generator=g, device=dev), torch.randn(h0.shape, generator=g, device=dev))
+        call, plain = (lambda: rglru_scan_bwd.rglru_scan_bwd_cuda(a, h0, h_seq, *grads)), (
+            lambda: rglru_scan_bwd.rglru_scan_bwd_plain(a, h0, h_seq, *grads))
+    got, again, want = call(), call(), plain()
+    torch.cuda.synchronize()
+    err = [(x - w).abs().max().item() / max(w.abs().max().item(), 1e-30) for x, w in zip(got, want)]
+    same = all(torch.equal(x, y) for x, y in zip(got, again))
+    ok = same and (all(torch.equal(x, w) for x, w in zip(got, want)) if kernel == "rglru_scan_bwd"
+                   else max(err) <= chip_smoke.WKV_TOL)
+    del got, again, want
+    parts = {n: chip_smoke._device_ms(call, n, PROF_CALLS) for n, k in chip_smoke.REC_BWD_KERNELS.items()
+             if k == kernel}
+    return dict(ok=ok, rel_err=err, run_to_run=same, ms=chip_smoke._cuda_ms(call, 20), device_ms=parts)
+
+
 def time_tree() -> dict:
     """This process's ``repro_torch`` kernels at every case."""
     import torch
@@ -71,6 +111,13 @@ def time_tree() -> dict:
         torch.cuda.empty_cache()
     for name, B, T, R, stateful in chip_smoke.RGLRU_CASES:
         out["rglru_scan"][name] = _case("rglru_scan", *chip_smoke._rglru_args(B, T, R, stateful, dev))
+        torch.cuda.empty_cache()
+    try:
+        from repro_torch.kernels import rglru_scan_bwd, rwkv_wkv_bwd  # noqa: F401  (trees before the backwards)
+    except ImportError:
+        return out
+    for kernel, cases in (("rwkv_wkv_bwd", chip_smoke.WKV_CASES), ("rglru_scan_bwd", chip_smoke.RGLRU_CASES)):
+        out[kernel] = {name: _bwd_case(kernel, *case) for name, *case in cases if case[1] > 1}
         torch.cuda.empty_cache()
     return out
 
