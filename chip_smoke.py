@@ -267,7 +267,9 @@ Phases, each of which fails the run on a wrong result:
    rows for the slot part; no single call also gives dw); (h) rwkv6-1.6b
    and (i) recurrentgemma-2b at full width and depth (remat) on (b)'s
    batch shape, each as (e): a warm-up and three timed steps, the same
-   gates, launches a step rwkv6 48 rwkv_wkv and 24 rwkv_wkv_bwd,
+   gates, launches a step rwkv6 48 rwkv_wkv and 24 rwkv_wkv_bwd (each
+   the state pass, the chunks and du's sum on the device; the forward
+   that autograd records writes the backward's checkpoints),
    recurrentgemma 36 rglru_scan, 18 rglru_scan_bwd, 16 flash and 8
    flash_bwd, one profiled step split as (b)'s with the recurrent kernels'
    forward and backward apart; (j) both models' gradients through the
@@ -276,10 +278,12 @@ Phases, each of which fails the run on a wrong result:
    (rwkv6) and 3 (recurrentgemma: two rglru layers and a local one) layers,
    as (c); (k) ``rwkv_wkv_bwd`` and ``rglru_scan_bwd`` alone at phase 14's
    shapes (each model's own, the other's widths, B 3 x T 1,000, decode's
-   T 1): the RG-LRU's bit for bit, the WKV's within 1e-4 of each output's
-   max |plain|, both bit for bit from run to run, timed (CUDA events and
-   profiled device time) beside the bound and the plain version (no single
-   PyTorch call runs a reverse linear recurrence).
+   T 1; the WKV's fed by the forward's checkpoints): the RG-LRU's bit for
+   bit, the WKV's within 1e-4 of each output's max |plain|, both bit for
+   bit from run to run, timed (CUDA events and profiled device time,
+   launch by launch) beside the bound (the WKV's products at TF32's rate)
+   and the plain version (no single PyTorch call runs a reverse linear
+   recurrence).
 
 Prints the card's name and power limit, a ``{"kernels": [...]}`` line, and
 as its last line ``{"ok": true, "device": {...}}``.  Exits non-zero without
@@ -305,6 +309,7 @@ HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory
 F32_OPS_PER_S = 67e12  # H100 SXM float32 outside the tensor cores
 F64_OPS_PER_S = 34e12  # H100 SXM float64 outside the tensor cores
 BF16_OPS_PER_S = 989e12  # H100 SXM bf16 on the tensor cores, dense
+TF32_OPS_PER_S = 495e12  # H100 SXM tf32 on the tensor cores, dense
 CORPUS_SCALE = 1.0  # the paper's corpus: 33 eligible tasks
 FIG8_KS = tuple(range(1, 16))
 GRID_KERNELS = ("segmax", "wastage", "scan")  # the kernels of the engine's paths
@@ -3839,8 +3844,8 @@ def _moe_bwd_case(name: str, N: int, k: int, E: int, C: int, D: int, skew: float
 REC_TRAIN_STEPS = 4  # the first is the warm-up
 REC_GRAD_LAYERS = {"rwkv6-1.6b": 2, "recurrentgemma-2b": 3}  # (j): two rwkv layers; two rglru and a local one
 # device kernels of the recurrences' backward, by name: the WKV's three
-# launches (checkpoint sweeps, chunks, du) and the RG-LRU's one
-REC_BWD_KERNELS = {"wkv_bwd_ckpt_kernel": "rwkv_wkv_bwd", "wkv_bwd_chunk_kernel": "rwkv_wkv_bwd",
+# launches (the reverse state pass, the chunks, du) and the RG-LRU's one
+REC_BWD_KERNELS = {"wkv_bwd_state_kernel": "rwkv_wkv_bwd", "wkv_bwd_chunk_kernel": "rwkv_wkv_bwd",
                    "wkv_bwd_du_kernel": "rwkv_wkv_bwd", "rglru_bwd_kernel": "rglru_scan_bwd"}
 REC_BWD_NO_LIBRARY = "no single PyTorch call runs a reverse linear recurrence"
 
@@ -4010,25 +4015,32 @@ def _rec_bwd_case(kernel: str, name: str, B: int, T: int, W: int, stateful: bool
     version on the same inputs (RG-LRU bit for bit, WKV within WKV_TOL of
     each output's max |plain|) and against its own second run (bit for
     bit), timed back to back and profiled beside the bound and the plain
-    version's time."""
+    version's time.  The WKV's is fed by the forward's checkpoints, as the
+    train step feeds it (the forward that writes them is not timed)."""
     import torch
 
-    from repro_torch.kernels import rglru_scan, rglru_scan_bwd, rwkv_wkv_bwd
+    from repro_torch.kernels import rglru_scan, rglru_scan_bwd, rwkv_wkv, rwkv_wkv_bwd
 
     g = torch.Generator(device=dev).manual_seed(B * T + W + 1)
+    ops_per_s = F32_OPS_PER_S
     if kernel == "rwkv_wkv_bwd":
         args, _, _ = _wkv_args(B, T, W, stateful, dev)
         grads = (torch.randn(args[0].shape, generator=g, device=dev), torch.randn(args[5].shape, generator=g,
                                                                                    device=dev))
-        call = lambda: rwkv_wkv_bwd.rwkv_wkv_bwd_cuda(*args, *grads)  # noqa: E731
+        ckpt = torch.empty(rwkv_wkv.checkpoint_shape(B, T, W), device=dev)
+        rwkv_wkv.rwkv_wkv_cuda(*args, ckpt)
+        call = lambda: rwkv_wkv_bwd.rwkv_wkv_bwd_cuda(*args, *grads, ckpt=ckpt)  # noqa: E731
         plain = lambda: rwkv_wkv_bwd.wkv_bwd_plain(*args, *grads)  # noqa: E731
         r, S0, u = args[0], args[5], args[4]
         # bytes: r, k, v, logw, do read and dr, dk, dv, dlogw written once;
-        # S0, dS read and dS0 written; u read and du written.  operations:
-        # the token form's 14 a state element and token (the state and
-        # state-gradient updates 3 each, four dot products 2 each)
+        # S0, dS read and dS0 written; u read and du written (the kernel
+        # also reads the checkpoints, which the function does not need).
+        # operations: the token form's 14 a state element and token (the
+        # state and state-gradient updates 3 each, four dot products 2
+        # each), at TF32's rate (the products run on the tensor cores)
         nbytes = 4 * (9 * r.numel() + 3 * S0.numel() + 2 * u.numel())
         nops = 14 * r.numel() * 64
+        ops_per_s = TF32_OPS_PER_S
         exact = False
     else:
         (a, b, h0), _, _ = _rglru_args(B, T, W, stateful, dev)
@@ -4056,13 +4068,16 @@ def _rec_bwd_case(kernel: str, name: str, B: int, T: int, W: int, stateful: bool
     ms = _cuda_ms(call, reps)
     parts = {n: _device_ms(call, n, 64) for n, k in REC_BWD_KERNELS.items() if k == kernel}
     plain_ms = _cuda_ms(plain, 1)
-    bound_ms, bound_by = _bound(nbytes, nops)
+    bound_ms, bound_by = _bound(nbytes, nops, ops_per_s)
     device_ms = sum(parts.values())
     print(f"  (k) {kernel} {name:26s} {'bit for bit' if exact else 'max |d| ' + ', '.join(f'{e:.2e}' for e in errs) + ' of max |plain|'}, "
           f"the same from run to run; {ms:.4f} ms (device {device_ms:.4f}: "
           + ", ".join(f"{n} {t:.4f}" for n, t in parts.items()) + f"), plain {plain_ms:.3f}, bound {bound_ms:.5f} "
-          f"({bound_by}: {nbytes / 1e6:.1f} MB, {nops / 1e9:.3f} GFLOP), {100 * bound_ms / device_ms:.1f}% of it; "
-          f"library null: {REC_BWD_NO_LIBRARY}")
+          f"({bound_by}: {nbytes / 1e6:.1f} MB, {nops / 1e9:.3f} GFLOP at {ops_per_s / 1e12:.0f} TFLOP/s), "
+          f"{100 * bound_ms / device_ms:.1f}% of it" + (f" (the token form's operations at the f32 rate: "
+                                                        f"{nops / F32_OPS_PER_S * 1e3:.4f} ms)"
+                                                        if ops_per_s != F32_OPS_PER_S else "")
+          + f"; library null: {REC_BWD_NO_LIBRARY}")
     torch.cuda.empty_cache()
     return dict(max_abs_err=max(errs), ms=ms, device_ms=device_ms, plain_ms=plain_ms, bound_ms=bound_ms,
                 bound_by=bound_by, library_ms=None)

@@ -75,6 +75,12 @@
 // 128 threads: a thread a 4 x 4 tile of S, the partial outputs summed
 // through shared memory.
 //
+// Checkpoints: given ck (the training step's forward, RWKVWKV), the state
+// warps also store the state after each chunk, which they hold anyway,
+// into ck; csrc/rwkv_wkv_bwd.cu starts each chunk's gradient from them.
+// Without ck (serving) nothing else changes: o and S are the same bit for
+// bit either way.
+//
 // Bound on this card: bytes (r, k, v and logw read once, o written once,
 // S read and written once).  The chunk form's products are ~4x the token
 // form's operations, three times over on the tensor cores.
@@ -82,9 +88,10 @@
 #include <cuda_runtime.h>
 #include <cstdint>
 
+#include "wkv_mma.cuh"
+
 namespace {
 
-constexpr int kHead = 64;               // RWKV-6's head size
 constexpr int kHalves = 2;              // value-column halves, a block each
 constexpr int kCols = kHead / kHalves;  // value columns a block
 constexpr int kChunk = 64;              // tokens a chunk (the reference's)
@@ -93,7 +100,6 @@ constexpr int kPrepWarps = 4;
 constexpr int kMath = kMathWarps * 32;
 constexpr int kPrep = kPrepWarps * 32;
 constexpr int kThreads = kMath + kPrep;
-constexpr int kLd = 68;     // floats from one row to the next of a tile read by ldmatrix
 constexpr int kGroups = 8;  // prep: token groups of 8 tokens; 16 lanes a group, 4 channels a lane
 constexpr float kLog2e = 1.4426950408889634f;
 
@@ -130,132 +136,6 @@ constexpr int kSetSmall = 2 * kChunk;
 constexpr int kSmemBytes =
     4 * (2 * kRawFloats + 5 * kWideFloats + 3 * kNarrowFloats + kGroups * kHead + 2 * kSetSmall);
 
-__device__ __forceinline__ void bar_sync(int id, int n) { asm volatile("bar.sync %0, %1;" ::"r"(id), "r"(n) : "memory"); }
-__device__ __forceinline__ void bar_arrive(int id, int n) {
-  asm volatile("bar.arrive %0, %1;" ::"r"(id), "r"(n) : "memory");
-}
-
-__device__ __forceinline__ void cp16(void* smem, const float* gmem, bool in) {
-  const unsigned dst = static_cast<unsigned>(__cvta_generic_to_shared(smem));
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;" ::"r"(dst), "l"(gmem), "r"(in ? 16 : 0) : "memory");
-}
-
-__device__ __forceinline__ float exp2_approx(float x) {
-  float y;
-  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
-  return y;
-}
-
-// x as its leading TF32 bits and the rest (whose own low bits the tensor
-// cores drop): hi + lo keeps ~21 bits
-__device__ __forceinline__ void split(uint32_t x, uint32_t& hi, uint32_t& lo) {
-  hi = x & 0xffffe000u;
-  lo = __float_as_uint(__uint_as_float(x) - __uint_as_float(hi));
-}
-
-// four 8 x 4 float32 blocks of a tile kept row by row (kLd floats a row):
-// the block of rows r0 + 8 (i % 2) .., columns c0 + 4 (i / 2) .. into
-// x[i], thread (g, t) getting each block's element (g, t).  That is an A
-// fragment of rows r0 .., columns c0 ..; of a tile kept as [n][k], the B
-// fragments of two 8-column tiles (x[0], x[2] the first's, x[1], x[3] the
-// second's)
-__device__ __forceinline__ void ldsm4(uint32_t (&x)[4], const float* m, int r0, int c0, int lane) {
-  const float* p = m + (r0 + (lane / 8 % 2) * 8 + lane % 8) * kLd + c0 + (lane / 16) * 4;
-  const unsigned a = static_cast<unsigned>(__cvta_generic_to_shared(p));
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];"
-               : "=r"(x[0]), "=r"(x[1]), "=r"(x[2]), "=r"(x[3])
-               : "r"(a));
-}
-
-__device__ __forceinline__ void mma(float (&d)[4], const uint32_t (&a)[4], uint32_t b0, uint32_t b1) {
-  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 {%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-// four fragment registers, split
-struct Frag {
-  uint32_t hi[4], lo[4];
-  __device__ __forceinline__ explicit Frag(const uint32_t (&x)[4]) {
-#pragma unroll
-    for (int i = 0; i < 4; ++i) split(x[i], hi[i], lo[i]);
-  }
-};
-
-// two 8 x 4 float32 blocks: rows r0 .., columns c0 + 4 i .. into x[i];
-// of a tile kept as [n][k], the B fragment of one 8-column tile
-__device__ __forceinline__ void ldsm2(uint32_t (&x)[2], const float* m, int r0, int c0, int lane) {
-  const float* p = m + (r0 + lane % 8) * kLd + c0 + (lane / 8 % 2) * 4;
-  const unsigned a = static_cast<unsigned>(__cvta_generic_to_shared(p));
-  asm volatile("ldmatrix.sync.aligned.m8n8.x2.shared.b16 {%0,%1}, [%2];" : "=r"(x[0]), "=r"(x[1]) : "r"(a));
-}
-
-// the B fragments (b[n][0], b[n][1]) of N 8-column tiles of a tile kept as
-// [n][k]: rows n0 + 8 n .., columns c0 ..
-template <int N>
-__device__ __forceinline__ void ldsm_b(uint32_t (&b)[N][2], const float* m, int n0, int c0, int lane) {
-  if constexpr (N == 1) {
-    ldsm2(b[0], m, n0, c0, lane);
-  } else {
-    uint32_t x[4];
-    ldsm4(x, m, n0, c0, lane);
-    b[0][0] = x[0], b[0][1] = x[2], b[1][0] = x[1], b[1][1] = x[3];
-  }
-}
-
-// A warp's product of 16 rows by N 8-column tiles in three TF32 passes,
-// each pass into its own accumulators so that no mma waits on the one
-// before it (~24 cycles): acc (hi hi), cl (lo hi), ch (hi lo)
-template <int N>
-struct Acc {
-  static_assert(N == 1 || N == 2, "one or two tiles");
-  static constexpr int kTiles = N;
-  float acc[N][4] = {}, cl[N][4] = {}, ch[N][4] = {};
-  // a b for an A fragment and the tiles' B fragments
-  __device__ __forceinline__ void mma3(const Frag& a, const uint32_t (&b)[N][2]) {
-    uint32_t bh[N][2], bl[N][2];
-#pragma unroll
-    for (int n = 0; n < N; ++n) split(b[n][0], bh[n][0], bl[n][0]), split(b[n][1], bh[n][1], bl[n][1]);
-#pragma unroll
-    for (int n = 0; n < N; ++n) mma(cl[n], a.lo, bh[n][0], bh[n][1]);
-#pragma unroll
-    for (int n = 0; n < N; ++n) mma(ch[n], a.hi, bl[n][0], bl[n][1]);
-#pragma unroll
-    for (int n = 0; n < N; ++n) mma(acc[n], a.hi, bh[n][0], bh[n][1]);
-  }
-  // over k-steps 0 .. k1 - 1 (8-deep each; 8 make a 64-deep product), each
-  // step's fragments (la: A registers, lb: the tiles' B registers, k-step)
-  // loaded while the step before is folded in
-  template <typename LA, typename LB>
-  __device__ __forceinline__ void product(LA la, LB lb, int k1 = kHead / 8) {
-    uint32_t xa[2][4], xb[2][N][2];
-    la(xa[0], 0);
-    lb(xb[0], 0);
-#pragma unroll
-    for (int ks = 0; ks < kHead / 8; ++ks) {
-      if (ks >= k1) break;
-      if (ks + 1 < k1) {
-        la(xa[(ks + 1) % 2], ks + 1);
-        lb(xb[(ks + 1) % 2], ks + 1);
-      }
-      mma3(Frag(xa[ks % 2]), xb[ks % 2]);
-    }
-  }
-  __device__ __forceinline__ float at(int n, int i) const { return acc[n][i] + (cl[n][i] + ch[n][i]); }
-};
-
-// one step of a butterfly sum of 2 N values over the lanes: lanes with bit
-// M keep the upper N, the others the lower N, each adding its partner's
-template <int M, int N, int L>
-__device__ __forceinline__ void fold(float (&x)[L], int lane) {
-  const bool upper = lane & M;
-#pragma unroll
-  for (int i = 0; i < N; ++i) {
-    const float send = upper ? x[i] : x[i + N];
-    x[i] = (upper ? x[i + N] : x[i]) + __shfl_xor_sync(0xffffffffu, send, M);
-  }
-}
-
 // the token form of one step (T = 1), on kTokenThreads threads: a thread a
 // 4 x 4 tile of S (4 key rows, 4 of the half's value columns, 16-byte
 // loads and stores), the partial outputs and sum_d r u k summed through
@@ -266,7 +146,7 @@ constexpr int kTokenPart = (kHead / 4) * kCols + kHead / 4;
 __device__ void token_step(const float* __restrict__ r, const float* __restrict__ k, const float* __restrict__ v,
                            const float* __restrict__ logw, const float* __restrict__ u,
                            const float* __restrict__ S0, int H, float* __restrict__ o, float* __restrict__ S,
-                           float* part) {
+                           float* __restrict__ ck, float* part) {
   constexpr int kKeyGroups = kHead / 4;
   const int half = blockIdx.x % kHalves;
   const int h = blockIdx.x / kHalves;
@@ -288,8 +168,10 @@ __device__ void token_step(const float* __restrict__ r, const float* __restrict_
     const float4 s = *reinterpret_cast<const float4*>(S0 + at);
     acc = make_float4(fmaf(rs[j], s.x, acc.x), fmaf(rs[j], s.y, acc.y), fmaf(rs[j], s.z, acc.z),
                       fmaf(rs[j], s.w, acc.w));
-    *reinterpret_cast<float4*>(S + at) = make_float4(fmaf(ws[j], s.x, ks[j] * v4.x), fmaf(ws[j], s.y, ks[j] * v4.y),
-                                                     fmaf(ws[j], s.z, ks[j] * v4.z), fmaf(ws[j], s.w, ks[j] * v4.w));
+    const float4 next = make_float4(fmaf(ws[j], s.x, ks[j] * v4.x), fmaf(ws[j], s.y, ks[j] * v4.y),
+                                    fmaf(ws[j], s.z, ks[j] * v4.z), fmaf(ws[j], s.w, ks[j] * v4.w));
+    *reinterpret_cast<float4*>(S + at) = next;
+    if (ck) *reinterpret_cast<float4*>(ck + at) = next;  // one chunk: its checkpoint is the final state
   }
   *reinterpret_cast<float4*>(part + kg * kCols + 4 * cg) = acc;
   if (cg == 0) {
@@ -313,10 +195,11 @@ __global__ void __launch_bounds__(kThreads, 1) wkv_kernel(const float* __restric
                                                           const float* __restrict__ v, const float* __restrict__ logw,
                                                           const float* __restrict__ u,
                                                           const float* __restrict__ S0, int T, int H,
-                                                          float* __restrict__ o, float* __restrict__ S) {
+                                                          float* __restrict__ o, float* __restrict__ S,
+                                                          float* __restrict__ ck) {
   extern __shared__ __align__(16) float smem[];
   if (T == 1) {
-    token_step(r, k, v, logw, u, S0, H, o, S, smem);
+    token_step(r, k, v, logw, u, S0, H, o, S, ck, smem);
     return;
   }
   float* raws = smem;                     // two staging sets: r, k, logw [token][key], v [token][column]
@@ -536,6 +419,15 @@ __global__ void __launch_bounds__(kThreads, 1) wkv_kernel(const float* __restric
           for (int nt = 0; nt < 2; ++nt) st[nt][x] = fmaf(dd, st[nt][x], dd * pr.at(nt, x));
         }
         store_state();
+        if (ck) {  // the checkpoint after chunk ci: ck[b, h, ci], as S
+#pragma unroll
+          for (int nt = 0; nt < 2; ++nt)
+#pragma unroll
+            for (int e = 0; e < 2; ++e)
+              *reinterpret_cast<float2*>(ck + (state_base * n_chunks + (size_t)ci * kHead * kHead) +
+                                         (16 * mo + g + 8 * e) * kHead + half * kCols + n0 + 8 * nt + 2 * t4) =
+                  make_float2(st[nt][2 * e], st[nt][2 * e + 1]);
+        }
       }
       if (ci + 2 < n_chunks) bar_arrive(kEmpty + set, kThreads);  // the set is free for chunk ci + 2
     }
@@ -553,13 +445,17 @@ __global__ void __launch_bounds__(kThreads, 1) wkv_kernel(const float* __restric
 }  // namespace
 
 // r, k, v, logw (B, T, H, 64) f32, u (H, 64) f32, S0 (B, H, 64, 64) f32 ->
-// o (B, T, H, 64), S (B, H, 64, 64).  Every pointer 16-byte aligned.
+// o (B, T, H, 64), S (B, H, 64, 64), and where ck is not null the state
+// after each chunk of 64 tokens, ck (B, H, ceil(T / 64), 64, 64) (the last
+// the final state: the backward's checkpoints).  Every pointer 16-byte
+// aligned.
 extern "C" int rwkv_wkv_launch(const float* r, const float* k, const float* v, const float* logw, const float* u,
-                               const float* S0, int B, int T, int H, float* o, float* S, cudaStream_t stream) {
+                               const float* S0, int B, int T, int H, float* o, float* S, float* ck,
+                               cudaStream_t stream) {
   if (B <= 0 || H <= 0) return 0;
   if (T <= 0) return (int)cudaErrorInvalidValue;
   const auto off16 = [](const void* p) { return reinterpret_cast<uintptr_t>(p) % 16 != 0; };
-  if (off16(r) || off16(k) || off16(v) || off16(logw) || off16(u) || off16(S0) || off16(o) || off16(S))
+  if (off16(r) || off16(k) || off16(v) || off16(logw) || off16(u) || off16(S0) || off16(o) || off16(S) || off16(ck))
     return (int)cudaErrorMisalignedAddress;
   static bool sized = false;
   if (!sized) {
@@ -569,8 +465,8 @@ extern "C" int rwkv_wkv_launch(const float* r, const float* k, const float* v, c
   }
   const dim3 grid(H * kHalves, B);
   if (T == 1)
-    wkv_kernel<<<grid, kTokenThreads, 4 * kTokenPart, stream>>>(r, k, v, logw, u, S0, T, H, o, S);
+    wkv_kernel<<<grid, kTokenThreads, 4 * kTokenPart, stream>>>(r, k, v, logw, u, S0, T, H, o, S, ck);
   else
-    wkv_kernel<<<grid, kThreads, kSmemBytes, stream>>>(r, k, v, logw, u, S0, T, H, o, S);
+    wkv_kernel<<<grid, kThreads, kSmemBytes, stream>>>(r, k, v, logw, u, S0, T, H, o, S, ck);
   return (int)cudaGetLastError();
 }

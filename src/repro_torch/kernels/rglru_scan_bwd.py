@@ -55,9 +55,11 @@ def rglru_scan_bwd_cuda(a: torch.Tensor, h0: torch.Tensor, h_seq: torch.Tensor, 
                         dh_last: torch.Tensor, need_a: bool = True, need_b: bool = True,
                         need_h0: bool = True) -> tuple[torch.Tensor | None, torch.Tensor | None, torch.Tensor | None]:
     """``rglru_scan_bwd_plain`` on the card, bit for bit: one launch, a
-    thread a channel in reverse token order, a, h_seq and dh_seq fed
-    through a ring of asynchronous copies (any alignment of the rows).
-    Only the gradients asked for are written; the others are None."""
+    block per (batch row, 32 channels) whose chain warp runs the
+    channels in reverse token order, fed and drained by TMA copies through
+    a ring of stages (4-byte copies for rows TMA cannot take: any
+    alignment).  Only the gradients asked for are written; the others are
+    None."""
     global launches
     build.check_cuda("rglru_scan_bwd", a)
     dev = a.device

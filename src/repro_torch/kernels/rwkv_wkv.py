@@ -28,19 +28,36 @@ CHUNK = 64  # the reference's chunk of tokens (repro/models/recurrent.py:RWKV_CH
 _fn = None
 
 
+def checkpoint_shape(B: int, T: int, H: int) -> tuple[int, ...]:
+    """The shape of the chunk-boundary states of a (B, T, H) call: the state
+    after each chunk of CHUNK tokens, the last one the final state."""
+    return (B, H, -(-T // CHUNK), HEAD, HEAD)
+
+
+def check_checkpoints(name: str, ckpt: torch.Tensor, B: int, T: int, H: int, device: torch.device) -> None:
+    """Raise unless ``ckpt`` is a checkpoint buffer the kernels take."""
+    build.check_arg("ckpt", ckpt, torch.float32, 5, device)
+    if ckpt.shape != checkpoint_shape(B, T, H) or ckpt.data_ptr() % 16:
+        raise ValueError(f"{name}: ckpt {tuple(ckpt.shape)}, need {checkpoint_shape(B, T, H)} on 16 bytes")
+
+
 def wkv_plain(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor, logw: torch.Tensor, u: torch.Tensor,
-              S0: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+              S0: torch.Tensor, ckpt: torch.Tensor | None = None) -> tuple[torch.Tensor, torch.Tensor]:
     """r, k, v, logw (B, T, H, hd) f32, u (H, hd), S0 (B, H, hd, hd) f32 ->
     (o (B, T, H, hd), S (B, H, hd, hd)), in the reference's arithmetic: at
     T = 1 its two contractions and the state update; otherwise its factored
     chunk form over chunks of 64, padded with k = r = v = 0 and logw = 0
-    (keep), so padded steps leave the state as it is."""
+    (keep), so padded steps leave the state as it is.  Given ``ckpt``
+    (``checkpoint_shape``), the state after each chunk is copied into it."""
     B, T, H, hd = r.shape
     if T == 1:
         rt, kt, vt, wt = r[:, 0], k[:, 0], v[:, 0], torch.exp(logw[:, 0])
         kv = torch.einsum("bhk,bhv->bhkv", kt, vt)
         o = torch.einsum("bhk,bhkv->bhv", rt * u[None], kv) + torch.einsum("bhk,bhkv->bhv", rt, S0)
-        return o[:, None], wt[..., None] * S0 + kv
+        S = wt[..., None] * S0 + kv
+        if ckpt is not None:
+            ckpt[:, :, 0].copy_(S.detach())
+        return o[:, None], S
     L = CHUNK
     pad = (-T) % L
     if pad:
@@ -62,6 +79,8 @@ def wkv_plain(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor, logw: torch.Ten
         c_last = c[:, :, -1:, :]
         S = torch.exp(c_last[:, :, 0])[..., None] * S + torch.einsum("bhtk,bhtv->bhkv", kk * torch.exp(c_last - c),
                                                                      vv)
+        if ckpt is not None:
+            ckpt[:, :, i].copy_(S.detach())
         outs.append(o)
     o = torch.stack(outs).permute(1, 0, 3, 2, 4).reshape(B, n * L, H, hd)[:, :T]
     return o, S
@@ -72,18 +91,21 @@ def _launcher():
     if _fn is None:
         fn = build.library("rwkv_wkv").rwkv_wkv_launch
         p, i = ctypes.c_void_p, ctypes.c_int
-        fn.argtypes = [p, p, p, p, p, p, i, i, i, p, p, p]
+        fn.argtypes = [p, p, p, p, p, p, i, i, i, p, p, p, p]
         fn.restype = i
         _fn = fn
     return _fn
 
 
 def rwkv_wkv_cuda(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor, logw: torch.Tensor, u: torch.Tensor,
-                  S0: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+                  S0: torch.Tensor, ckpt: torch.Tensor | None = None) -> tuple[torch.Tensor, torch.Tensor]:
     """``wkv_plain`` on the card: one launch, any T.  Prefill computes the
     plain version's chunk form on the tensor cores (three TF32 passes a
     product), a block per (b, h, half of the value columns) walking its
-    chunks in order; T = 1 takes the token form."""
+    chunks in order; T = 1 takes the token form.  Given ``ckpt``
+    (``checkpoint_shape``), the kernel also writes the state after each
+    chunk into it (the backward's checkpoints); o and S are the same bit for
+    bit either way."""
     global launches
     build.check_cuda("rwkv_wkv", r)
     dev = r.device
@@ -98,10 +120,13 @@ def rwkv_wkv_cuda(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor, logw: torch
                          f"{tuple(logw.shape)}, u {tuple(u.shape)}, S0 {tuple(S0.shape)} (head size {HEAD})")
     # the kernel reads 16 bytes at a time: a view off that alignment is copied
     r, k, v, logw, u, S0 = (t if t.data_ptr() % 16 == 0 else t.clone() for t in (r, k, v, logw, u, S0))
+    if ckpt is not None:
+        check_checkpoints("rwkv_wkv", ckpt, B, T, H, dev)
     o = torch.empty_like(r)
     S = torch.empty_like(S0)
     err = _launcher()(r.data_ptr(), k.data_ptr(), v.data_ptr(), logw.data_ptr(), u.data_ptr(), S0.data_ptr(), B, T,
-                      H, o.data_ptr(), S.data_ptr(), torch.cuda.current_stream(dev).cuda_stream)
+                      H, o.data_ptr(), S.data_ptr(), None if ckpt is None else ckpt.data_ptr(),
+                      torch.cuda.current_stream(dev).cuda_stream)
     if err != 0:
         raise RuntimeError(f"rwkv_wkv launch failed with CUDA error {err}")
     launches += 1

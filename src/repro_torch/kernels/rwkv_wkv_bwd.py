@@ -7,7 +7,8 @@ recurrence the reference leaves to XLA (``repro/models/recurrent.py``,
 ``rwkv_time_mix``'s ``lax.scan`` of ``chunk_step`` and its single step at
 T = 1).  On the card ``kernels.ops.rwkv_wkv`` goes through ``RWKVWKV``
 where autograd records the call; on the CPU autograd runs through
-``rwkv_wkv.wkv_plain``.
+``rwkv_wkv.wkv_plain``.  ``wkv_bwd_chunk_plain`` is the kernels' chunk
+form in PyTorch, for the CPU tests; no path of the port calls it.
 """
 
 from __future__ import annotations
@@ -20,7 +21,7 @@ from repro_torch.kernels import build, rwkv_wkv
 
 launches = 0  # calls that launched the kernels, since the last ops.reset_launch_counts()
 
-CHUNK = 32  # tokens a chunk of the kernel's checkpoints (csrc/rwkv_wkv_bwd.cu:kChunk)
+CHUNK = rwkv_wkv.CHUNK  # tokens a chunk of the checkpoints and of the kernels (csrc/rwkv_wkv_bwd.cu:kChunk)
 _fn = None
 
 
@@ -62,25 +63,97 @@ def wkv_bwd_plain(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor, logw: torch
     return dr, dk, dv, dlogw, du, dS_t
 
 
+def wkv_bwd_chunk_plain(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor, logw: torch.Tensor, u: torch.Tensor,
+                        S0: torch.Tensor, do: torch.Tensor, dS: torch.Tensor, ckpt: torch.Tensor):
+    """``wkv_bwd_plain``'s gradients in the chunk form that
+    ``csrc/rwkv_wkv_bwd.cu`` computes, fed by the forward's checkpoints
+    ``ckpt`` (``rwkv_wkv.checkpoint_shape``: the state after each chunk of
+    CHUNK tokens).  Per chunk, with c = cumsum(logw) (inclusive), e its last
+    token, q_f = r exp(c - logw), k_f = k exp(-c), D = exp(c_e) ⊙_k dS_out,
+    A = tril_-1(q_f k_f^T) + diag(Σ r u k) and M = tril_-1(do v^T)::
+
+        dS_in  = exp(c_e) ⊙_k dS_out + q_f^T do      (in reverse, from dS)
+        dr     = exp(c - logw) ⊙ (do S_in^T + M k_f) + u k (do . v)
+        dk     = exp(-c) ⊙ (v D^T + M^T q_f)         + r u (do . v)
+        dv     = k_f D + A^T do
+        dlogw_t = P + Σ_{s>t} x_s - y_t,   y = k_f ⊙ (v D^T + M^T q_f),
+                  x = q_f ⊙ (do S_in^T + M k_f) - y,   P = Σ_v dS_out ⊙ S_out
+
+    (x and y are r ⊙ drS - k ⊙ dkS and k ⊙ dkS, with drS and dkS the state
+    parts of dr and dk, so dlogw is the token identity dlogw_t = dlogw_{t+1}
+    + r_{t+1} drS_{t+1} - k_t dkS_t summed from the chunk's end), du the
+    chunks' sums of r k (do . v) added over (b, chunk) in order, and dS0 the
+    first chunk's dS_in.  Padded tokens (past T) are zeros with logw = 0."""
+    B, T, H, hd = r.shape
+    L = CHUNK
+    n = -(-T // L)
+    pad = n * L - T
+
+    def chunks(a):  # (B, T, H, hd) -> (n, B, H, L, hd), zeros past T
+        a = torch.nn.functional.pad(a, (0, 0, 0, 0, 0, pad)) if pad else a
+        return a.reshape(B, n, L, H, hd).permute(1, 0, 3, 2, 4)
+
+    rc, kc, vc, wc, dc = (chunks(a) for a in (r, k, v, logw, do))
+    c = torch.cumsum(wc, dim=3)
+    q_f = rc * torch.exp(c - wc)
+    k_f = kc * torch.exp(-c)
+    ece = torch.exp(c[:, :, :, -1])  # (n, B, H, hd)
+    # the reverse state pass: the gradient of the state after each chunk
+    dS_out, cur = [None] * n, dS
+    for i in range(n - 1, -1, -1):
+        dS_out[i] = cur
+        cur = ece[i][..., None] * cur + torch.einsum("bhtk,bhtv->bhkv", q_f[i], dc[i])
+    dS0, dS_out = cur, torch.stack(dS_out)
+    S_out = ckpt.permute(2, 0, 1, 3, 4)
+    S_in = torch.cat([S0[None], S_out[:-1]])
+    D = ece[..., None] * dS_out
+    lower = torch.tril(torch.ones((L, L), dtype=torch.bool, device=r.device), diagonal=-1)
+    ruk = torch.einsum("nbhtk,hk->nbht", rc * kc, u)
+    dov = torch.einsum("nbhtv,nbhtv->nbht", dc, vc)
+    M = torch.where(lower, torch.einsum("nbhtv,nbhsv->nbhts", dc, vc), 0.0)
+    A = torch.where(lower, torch.einsum("nbhtk,nbhsk->nbhts", q_f, k_f), 0.0) + torch.diag_embed(ruk)
+    acc_r = torch.einsum("nbhtv,nbhkv->nbhtk", dc, S_in) + M @ k_f
+    acc_k = torch.einsum("nbhtv,nbhkv->nbhtk", vc, D) + M.transpose(-1, -2) @ q_f
+    dr = torch.exp(c - wc) * acc_r + u[:, None] * kc * dov[..., None]
+    dk = torch.exp(-c) * acc_k + rc * u[:, None] * dov[..., None]
+    dv = k_f @ D + A.transpose(-1, -2) @ dc
+    y = k_f * acc_k
+    x = q_f * acc_r - y
+    after = torch.flip(torch.cumsum(torch.flip(x, [3]), dim=3), [3]) - x  # Σ_{s>t} x_s
+    dlogw = torch.einsum("nbhkv,nbhkv->nbhk", dS_out, S_out)[:, :, :, None] + after - y
+    du_part = torch.einsum("nbhtk,nbht->nbhk", rc * kc, dov)  # a chunk's sum
+    du = torch.zeros_like(u)
+    for b in range(B):
+        for i in range(n):
+            du = du + du_part[i, b]
+
+    def tokens(a):  # (n, B, H, L, hd) -> (B, T, H, hd)
+        return a.permute(1, 0, 3, 2, 4).reshape(B, n * L, H, hd)[:, :T]
+
+    return tokens(dr), tokens(dk), tokens(dv), tokens(dlogw), du, dS0
+
+
 def _launcher():
     global _fn
     if _fn is None:
         fn = build.library("rwkv_wkv_bwd").rwkv_wkv_bwd_launch
         p, i = ctypes.c_void_p, ctypes.c_int
-        fn.argtypes = [p, p, p, p, p, p, p, p, i, i, i, p, p, p, p, p, p, p, p, p, p]
+        fn.argtypes = [p, p, p, p, p, p, p, p, p, i, i, i, p, p, p, p, p, p, p, p, p]
         fn.restype = i
         _fn = fn
     return _fn
 
 
 def rwkv_wkv_bwd_cuda(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor, logw: torch.Tensor, u: torch.Tensor,
-                      S0: torch.Tensor, do: torch.Tensor, dS: torch.Tensor,
+                      S0: torch.Tensor, do: torch.Tensor, dS: torch.Tensor, ckpt: torch.Tensor,
                       need: tuple[bool, ...] = (True,) * 6):
     """``wkv_bwd_plain`` on the card (within 1e-4 of each output's max
-    |plain|, the same from run to run), any T: one call, three launches
-    (the checkpoint sweeps, the chunks, du's fixed-order sum).  ``need``
-    names which of (dr, dk, dv, dlogw, du, dS0) to compute; the others are
-    None."""
+    |plain|, the same from run to run), any T, in the chunk form of
+    ``wkv_bwd_chunk_plain`` on the tensor cores: one call, three launches
+    (the reverse state pass, the chunks, du's fixed-order sum).  ``ckpt``
+    is the forward's checkpoints (``rwkv_wkv.rwkv_wkv_cuda(..., ckpt)``).
+    ``need`` names which of (dr, dk, dv, dlogw, du, dS0) to compute; the
+    others are None."""
     global launches
     build.check_cuda("rwkv_wkv_bwd", r)
     dev = r.device
@@ -97,20 +170,19 @@ def rwkv_wkv_bwd_cuda(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor, logw: t
                          f"dS {tuple(dS.shape)} (head size {rwkv_wkv.HEAD})")
     # the kernels read 16 bytes at a time: a view off that alignment is copied
     r, k, v, logw, u, S0, do, dS = (t if t.data_ptr() % 16 == 0 else t.clone() for t in (r, k, v, logw, u, S0, do, dS))
+    rwkv_wkv.check_checkpoints("rwkv_wkv_bwd", ckpt, B, T, H, dev)
     outs = [torch.empty_like(r) if n else None for n in need[:4]]
     du = torch.empty_like(u) if need[4] else None
     dS0 = torch.empty_like(S0) if need[5] else None
-    nck = -(-T // CHUNK)
-    ckS = torch.empty((B * H * nck, hd, hd), dtype=torch.float32, device=dev)
-    ckdS = torch.empty_like(ckS)
-    du_part = torch.empty((B * H * nck, hd), dtype=torch.float32, device=dev) if need[4] else None
+    dS_ck = torch.empty_like(ckpt)  # the gradient of each checkpoint, from the state pass
+    du_part = torch.empty((B * H * ckpt.shape[2], hd), dtype=torch.float32, device=dev) if need[4] else None
 
     def ptr(t):
         return None if t is None else t.data_ptr()
 
     err = _launcher()(r.data_ptr(), k.data_ptr(), v.data_ptr(), logw.data_ptr(), u.data_ptr(), S0.data_ptr(),
-                      do.data_ptr(), dS.data_ptr(), B, T, H, *(ptr(t) for t in outs), ptr(du), ptr(dS0),
-                      ckS.data_ptr(), ckdS.data_ptr(), ptr(du_part), torch.cuda.current_stream(dev).cuda_stream)
+                      do.data_ptr(), dS.data_ptr(), ckpt.data_ptr(), B, T, H, *(ptr(t) for t in outs), ptr(du),
+                      ptr(dS0), dS_ck.data_ptr(), ptr(du_part), torch.cuda.current_stream(dev).cuda_stream)
     if err != 0:
         raise RuntimeError(f"rwkv_wkv_bwd launch failed with CUDA error {err}")
     launches += 1
@@ -119,15 +191,19 @@ def rwkv_wkv_bwd_cuda(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor, logw: t
 
 class RWKVWKV(torch.autograd.Function):
     """The WKV recurrence on the card with its gradient: the forward kernel
-    (``rwkv_wkv.rwkv_wkv_cuda``), then ``rwkv_wkv_bwd_cuda`` for what
-    ``needs_input_grad`` asks.  Any T; nothing of it calls a plain
-    version."""
+    (``rwkv_wkv.rwkv_wkv_cuda``), which also writes the checkpoints the
+    backward reads, then ``rwkv_wkv_bwd_cuda`` for what ``needs_input_grad``
+    asks.  Any T; nothing of it calls a plain version."""
 
     @staticmethod
     def forward(ctx, r, k, v, logw, u, S0):
-        ctx.save_for_backward(r, k, v, logw, u, S0)
-        return rwkv_wkv.rwkv_wkv_cuda(r, k, v, logw, u, S0)
+        B, T, H, _ = r.shape
+        ckpt = torch.empty(rwkv_wkv.checkpoint_shape(B, T, H), dtype=torch.float32, device=r.device)
+        o, S = rwkv_wkv.rwkv_wkv_cuda(r, k, v, logw, u, S0, ckpt)
+        ctx.save_for_backward(r, k, v, logw, u, S0, ckpt)
+        return o, S
 
     @staticmethod
     def backward(ctx, do, dS):
-        return rwkv_wkv_bwd_cuda(*ctx.saved_tensors, do.contiguous(), dS.contiguous(), need=ctx.needs_input_grad)
+        *args, ckpt = ctx.saved_tensors
+        return rwkv_wkv_bwd_cuda(*args, do.contiguous(), dS.contiguous(), need=ctx.needs_input_grad, ckpt=ckpt)

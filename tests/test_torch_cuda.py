@@ -2230,7 +2230,16 @@ def _wkv_bwd_args(B: int, T: int, H: int, seed: int, dev):
     return [torch.from_numpy(a).to(dev) for a in (*wkv_inputs(B, T, H, seed), do, dS)]
 
 
-WKV_BWD_CASES = [(3, 37, 2), (3, 1, 2), (2, 64, 2), (2, 65, 2), (1, 200, 3), (2, 129, 3), (2, 16, 32), (3, 1000, 2)]
+def _wkv_ckpt(args):
+    """The forward kernel's checkpoints of ``_wkv_bwd_args``' inputs."""
+    B, T, H, _ = args[0].shape
+    ckpt = torch.empty(rwkv_wkv.checkpoint_shape(B, T, H), device=args[0].device)
+    rwkv_wkv.rwkv_wkv_cuda(*args[:6], ckpt)
+    return ckpt
+
+
+WKV_BWD_CASES = [(3, 37, 2), (3, 1, 2), (2, 64, 2), (2, 65, 2), (1, 200, 3), (2, 129, 3), (2, 16, 32), (3, 1000, 2),
+                 (2, 63, 40), (3, 65, 40), (3, 1000, 40)]
 
 
 @pytest.mark.parametrize("unaligned", [False, True])
@@ -2243,7 +2252,7 @@ def test_wkv_bwd_kernel_matches_plain_on_card(cuda, B, T, H, unaligned):
     from repro_torch.kernels import rwkv_wkv_bwd
 
     args = _wkv_bwd_args(B, T, H, seed=B * T + H, dev=cuda)
-    call = [_unaligned(a) if unaligned and i in (0, 6) else a for i, a in enumerate(args)]
+    call = [_unaligned(a) if unaligned and i in (0, 6) else a for i, a in enumerate(args)] + [_wkv_ckpt(args)]
     before = rwkv_wkv_bwd.launches
     got = rwkv_wkv_bwd.rwkv_wkv_bwd_cuda(*call)
     again = rwkv_wkv_bwd.rwkv_wkv_bwd_cuda(*call)
@@ -2260,19 +2269,22 @@ def test_wkv_bwd_kernel_writes_only_what_is_asked_on_card(cuda):
     from repro_torch.kernels import rwkv_wkv_bwd
 
     args = _wkv_bwd_args(2, 70, 2, seed=3, dev=cuda)
-    full = rwkv_wkv_bwd.rwkv_wkv_bwd_cuda(*args)
+    ckpt = _wkv_ckpt(args)
+    full = rwkv_wkv_bwd.rwkv_wkv_bwd_cuda(*args, ckpt)
     need = (True, False, True, True, False, False)
-    part = rwkv_wkv_bwd.rwkv_wkv_bwd_cuda(*args, need=need)
+    part = rwkv_wkv_bwd.rwkv_wkv_bwd_cuda(*args, ckpt, need=need)
     for n, g, f in zip(need, part, full):
         assert (g is None) if not n else torch.equal(g, f)
 
 
 @pytest.mark.parametrize("B,T,R", [(3, 37, 70), (3, 1, 70), (2, 300, 2560), (1, 4096, 33), (3, 1000, 2560),
-                                   (2, 129, 96), (1, 2, 2560), (2, 17, 4)])
+                                   (2, 129, 96), (1, 2, 2560), (2, 17, 4), (3, 63, 2560), (3, 65, 2048), (2, 1000, 48),
+                                   (3, 16, 40)])
 def test_rglru_scan_bwd_kernel_matches_plain_on_card(cuda, B, T, R):
     """da, db and dh0 bit for bit (the same multiplies and adds, each
     rounded on its own, in the same order), at ragged T and R (R not a
-    multiple of 4: the 4-byte copies), and from run to run."""
+    multiple of 4: the 4-byte copies; R not a multiple of the block's 32
+    channels: TMA boxes past the row's end), and from run to run."""
     from repro_torch.kernels import rglru_scan_bwd
 
     a, b, h0 = (torch.from_numpy(x).to(cuda) for x in rglru_inputs(B, T, R, seed=T + R))
@@ -2306,6 +2318,97 @@ def test_rglru_scan_bwd_kernel_takes_unaligned_rows_on_card(cuda, R):
     da, db, dh0 = rglru_scan_bwd.rglru_scan_bwd_cuda(*views, dh_last, need_h0=False)
     torch.cuda.synchronize()
     assert dh0 is None and torch.equal(da, want[0]) and torch.equal(db, want[1])
+
+
+def test_wkv_checkpoints_leave_the_output_as_it_was_on_card(cuda):
+    """The forward with its checkpoint output: o and S bit for bit those of
+    the call without it; each checkpoint the kernel's own final state of
+    the prefix up to it (bit for bit), and within 1e-4 of max |S| of the
+    plain version's checkpoints; the last one S."""
+    for B, T, H in ((2, 1, 3), (2, 64, 2), (2, 300, 3), (1, 1000, 40)):
+        args = [torch.from_numpy(a).to(cuda) for a in wkv_inputs(B, T, H, seed=T + H)]
+        o, S = rwkv_wkv.rwkv_wkv_cuda(*args)
+        ckpt = torch.full(rwkv_wkv.checkpoint_shape(B, T, H), float("nan"), device=cuda)
+        o2, S2 = rwkv_wkv.rwkv_wkv_cuda(*args, ckpt)
+        torch.cuda.synchronize()
+        assert torch.equal(o, o2) and torch.equal(S, S2)
+        assert torch.equal(ckpt[:, :, -1], S)
+        for c in range(ckpt.shape[2] - 1):
+            _, Sc = rwkv_wkv.rwkv_wkv_cuda(*(a[:, :64 * (c + 1)].contiguous() for a in args[:4]), *args[4:])
+            assert torch.equal(ckpt[:, :, c], Sc), (T, c)
+        want = torch.empty_like(ckpt)
+        rwkv_wkv.wkv_plain(*args, want)
+        assert (ckpt - want).abs().max().item() <= WKV_TOL * want.abs().max().item()
+
+
+def _kernel_launches(call, n: int = 4) -> dict[str, int]:
+    """Device kernels that ``n`` calls of ``call()`` launch, by name, from
+    the profiler's events (after 64 fills: the profiler drops a window's
+    first device events)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    pad = torch.empty(1, device="cuda")
+    call()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(64):
+            pad.fill_(0.0)
+        for _ in range(n):
+            call()
+        torch.cuda.synchronize()
+    return {e.key: e.count for e in prof.key_averages() if e.device_type == torch.autograd.DeviceType.CUDA
+            and "FillFunctor" not in e.key}
+
+
+def test_recurrent_bwd_kernels_launch_what_their_wrappers_say_on_card(cuda):
+    """rwkv_wkv_bwd_cuda with the forward's checkpoints: three device
+    launches (the state pass, the chunks, du's sum), two without du;
+    rglru_scan_bwd_cuda one launch."""
+    from repro_torch.kernels import rglru_scan_bwd, rwkv_wkv_bwd
+
+    args = _wkv_bwd_args(2, 300, 3, seed=9, dev=cuda)
+    ckpt = _wkv_ckpt(args)
+    names = ("wkv_bwd_state_kernel", "wkv_bwd_chunk_kernel", "wkv_bwd_du_kernel")
+    got = _kernel_launches(lambda: rwkv_wkv_bwd.rwkv_wkv_bwd_cuda(*args, ckpt=ckpt))
+    assert sorted(got.values()) == [4, 4, 4] and all(any(n in k for k in got) for n in names), got
+    got = _kernel_launches(lambda: rwkv_wkv_bwd.rwkv_wkv_bwd_cuda(*args, need=(True,) * 4 + (False, True), ckpt=ckpt))
+    assert sorted(got.values()) == [4, 4] and not any("du_kernel" in k for k in got), got
+    a, b, h0 = (torch.from_numpy(x).to(cuda) for x in rglru_inputs(2, 300, 2560, seed=9))
+    h_seq, _ = rglru_scan.rglru_scan_cuda(a, b, h0)
+    got = _kernel_launches(lambda: rglru_scan_bwd.rglru_scan_bwd_cuda(a, h0, h_seq, h_seq, h0))
+    assert list(got.values()) == [4] and "rglru_bwd_kernel" in next(iter(got)), got
+
+
+def test_recurrent_bwd_kernels_are_the_same_run_to_run_at_training_shapes_on_card(cuda):
+    """rwkv6's (B 2, T 4,096, H 32) and recurrentgemma's (B 2, T 4,096, R
+    2,560) training shapes: two runs of each backward bit for bit, the WKV's
+    within 1e-4 of each output's max |plain| of the chunk form's plain
+    version, the RG-LRU's the plain version's bit for bit."""
+    from repro_torch.kernels import rglru_scan_bwd, rwkv_wkv_bwd
+
+    g = torch.Generator(device=cuda).manual_seed(3)
+    r, k, v, do = (torch.randn((2, 4096, 32, 64), generator=g, device=cuda) for _ in range(4))
+    logw = torch.clamp(-torch.exp(torch.rand((2, 4096, 32, 64), generator=g, device=cuda) * 4.5 - 4.0), -1.2, -1e-6)
+    u = torch.randn((32, 64), generator=g, device=cuda) * 0.1
+    S0, dS = torch.zeros((2, 32, 64, 64), device=cuda), torch.randn((2, 32, 64, 64), generator=g, device=cuda)
+    ckpt = torch.empty(rwkv_wkv.checkpoint_shape(2, 4096, 32), device=cuda)
+    rwkv_wkv.rwkv_wkv_cuda(r, k, v, logw, u, S0, ckpt)
+    got = rwkv_wkv_bwd.rwkv_wkv_bwd_cuda(r, k, v, logw, u, S0, do, dS, ckpt=ckpt)
+    again = rwkv_wkv_bwd.rwkv_wkv_bwd_cuda(r, k, v, logw, u, S0, do, dS, ckpt=ckpt)
+    want = rwkv_wkv_bwd.wkv_bwd_chunk_plain(r, k, v, logw, u, S0, do, dS, ckpt)
+    torch.cuda.synchronize()
+    for name, x, y, w in zip(("dr", "dk", "dv", "dlogw", "du", "dS0"), got, again, want):
+        assert torch.equal(x, y), name
+        assert (x - w).abs().max().item() <= WKV_TOL * w.abs().max().item(), name
+    del r, k, v, do, logw, got, again, want, ckpt
+    a, b, h0 = (torch.from_numpy(x).to(cuda) for x in rglru_inputs(2, 4096, 2560, seed=3))
+    h_seq, _ = rglru_scan.rglru_scan_cuda(a, b, h0)
+    dh_seq, dh_last = torch.randn(a.shape, generator=g, device=cuda), torch.randn(h0.shape, generator=g, device=cuda)
+    got = rglru_scan_bwd.rglru_scan_bwd_cuda(a, h0, h_seq, dh_seq, dh_last)
+    again = rglru_scan_bwd.rglru_scan_bwd_cuda(a, h0, h_seq, dh_seq, dh_last)
+    want = rglru_scan_bwd.rglru_scan_bwd_plain(a, h0, h_seq, dh_seq, dh_last)
+    for x, y, w in zip(got, again, want):
+        assert torch.equal(x, y) and torch.equal(x, w)
 
 
 def test_recurrent_gradients_are_the_kernels_on_card(cuda):

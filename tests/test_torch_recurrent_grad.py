@@ -32,7 +32,7 @@ from repro_torch.kernels import flash, flash_bwd, ops, rglru_scan, rglru_scan_bw
 from repro_torch.kernels.rglru_scan import rglru_scan_plain
 from repro_torch.kernels.rglru_scan_bwd import rglru_scan_bwd_plain
 from repro_torch.kernels.rwkv_wkv import wkv_plain
-from repro_torch.kernels.rwkv_wkv_bwd import wkv_bwd_plain
+from repro_torch.kernels.rwkv_wkv_bwd import wkv_bwd_chunk_plain, wkv_bwd_plain
 from repro_torch.models import recurrent as PR
 from test_torch_cuda import rglru_inputs, wkv_clamp_inputs, wkv_inputs
 from test_torch_recurrent import B, _cfgs, _torch_tree, _with_mu, _x
@@ -151,7 +151,7 @@ def test_time_mix_gradient_through_the_plain_backward_matches_reference(T, monke
     and the state within 1e-5 of each gradient's max."""
     monkeypatch.setattr(ops, "_route", lambda t: True)
     monkeypatch.setattr(rwkv_wkv, "rwkv_wkv_cuda", wkv_plain)
-    monkeypatch.setattr(rwkv_wkv_bwd, "rwkv_wkv_bwd_cuda", lambda *a, need: wkv_bwd_plain(*a))
+    monkeypatch.setattr(rwkv_wkv_bwd, "rwkv_wkv_bwd_cuda", lambda *a, need, ckpt: wkv_bwd_plain(*a))
     rcfg, cfg = _cfgs("rwkv6-1.6b", "float32")
     p = _with_mu(RR.init_rwkv_time_mix(jax.random.PRNGKey(T), rcfg), 5, 3)
     p = {**p, "u": jnp.asarray(np.random.default_rng(T).standard_normal(p["u"].shape).astype(np.float32))}
@@ -223,8 +223,9 @@ def test_rglru_block_gradient_through_the_plain_backward_matches_reference(T, mo
 @pytest.fixture
 def plain_kernels(monkeypatch):
     """The card's route on CPU tensors: ``ops._route`` true, each kernel
-    call its plain version, the recurrences' calls recorded (with the
-    backwards' ``need``)."""
+    call its plain version (the WKV backward's the chunk form, fed by the
+    checkpoints the forward wrote), the recurrences' calls recorded (with
+    the backwards' ``need``)."""
     calls = {"rwkv_wkv": 0, "rglru_scan": 0, "rwkv_wkv_bwd": [], "rglru_scan_bwd": []}
 
     def count(name, fn):
@@ -233,9 +234,9 @@ def plain_kernels(monkeypatch):
             return fn(*a)
         return call
 
-    def wkv_bwd(*a, need):
+    def wkv_bwd(*a, need, ckpt):
         calls["rwkv_wkv_bwd"].append(tuple(need))
-        return tuple(g if n else None for g, n in zip(wkv_bwd_plain(*a), need))
+        return tuple(g if n else None for g, n in zip(wkv_bwd_chunk_plain(*a, ckpt), need))
 
     def lru_bwd(a, h0, h_seq, dh_seq, dh_last, need_a, need_b, need_h0):
         calls["rglru_scan_bwd"].append((need_a, need_b, need_h0))
