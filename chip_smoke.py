@@ -283,7 +283,22 @@ Phases, each of which fails the run on a wrong result:
    bit from run to run, timed (CUDA events and profiled device time,
    launch by launch) beside the bound (the WKV's products at TF32's rate)
    and the plain version (no single PyTorch call runs a reverse linear
-   recurrence).
+   recurrence);
+17. the port's tooling on the card (``repro_torch.analysis.trace_audit``,
+   ``repro_torch.launch.roofline``): (a) one warm ``simulate_grid`` at
+   phase 3's configuration under ``no_rebuilds``: no kernel library built
+   or loaded, every kernel launched as often as in phase 3's cold run (13
+   segmax, 13 wastage), then a second warm run that must dispatch as many
+   launching aten ops as the first; its read-backs and uploads printed;
+   (b) every floating result of the cluster's placement programs (the
+   windows engine's epoch program, with its rangemax launches, and the
+   sweep's chunk-boundary fold, one compaction launch) float64
+   (``check_dtypes``), on one policy of phase 5's standard configuration
+   at 20 tasks a type (of 120); (c) the roofline of phase 16 (b)'s
+   llama3.2-3b step, counted at dispatch on one more step: 6ND, the counted
+   flops and bytes, flash's and flash_bwd's launches listed as not
+   counted (their work goes through ctypes), the MFU at (b)'s median step
+   wall beside the card's name and power limit.
 
 Prints the card's name and power limit, a ``{"kernels": [...]}`` line, and
 as its last line ``{"ok": true, "device": {...}}``.  Exits non-zero without
@@ -305,11 +320,6 @@ import time
 from pathlib import Path
 from typing import NoReturn
 
-HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory
-F32_OPS_PER_S = 67e12  # H100 SXM float32 outside the tensor cores
-F64_OPS_PER_S = 34e12  # H100 SXM float64 outside the tensor cores
-BF16_OPS_PER_S = 989e12  # H100 SXM bf16 on the tensor cores, dense
-TF32_OPS_PER_S = 495e12  # H100 SXM tf32 on the tensor cores, dense
 CORPUS_SCALE = 1.0  # the paper's corpus: 33 eligible tasks
 FIG8_KS = tuple(range(1, 16))
 GRID_KERNELS = ("segmax", "wastage", "scan")  # the kernels of the engine's paths
@@ -416,11 +426,6 @@ def _profile(fn) -> dict:
     )
 
 
-def _bound(nbytes: float, nops: float, ops_per_s: float = F32_OPS_PER_S) -> tuple[float, str]:
-    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S * 1e3, nops / ops_per_s * 1e3
-    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
-
-
 def _device_ms(call, kernel, n: int) -> float:
     """The profiled device time of one ``call()``: ``n`` calls under the
     profiler, the time of the launches named ``*kernel*`` (a name, or a
@@ -436,32 +441,6 @@ def _device_ms(call, kernel, n: int) -> float:
     return sum(v[0] for v in hits) / max(sum(v[1] for v in hits), 1)
 
 
-# aten ops that launch nothing on the card: allocations, views, and the
-# argument checks' reads of shapes
-NO_LAUNCH_OPS = {"empty", "empty_strided", "select", "slice", "view", "_unsafe_view", "transpose", "alias", "lift_fresh",
-                 "as_strided", "expand", "unsqueeze", "detach", "t", "permute", "reshape", "_reshape_alias"}
-
-
-def _launching_ops(call) -> int:
-    """The aten ops one ``call()`` dispatches that launch work on the card
-    (each launches one or more kernels or copies, or reads back to the
-    host).  Counted at dispatch, so the count is exact, where the profiler
-    drops the first device events of its window.  A hand-written kernel
-    launches through its wrapper, not through aten: its wrapper counts it."""
-    from torch.utils._python_dispatch import TorchDispatchMode
-
-    seen = []
-
-    class Record(TorchDispatchMode):
-        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
-            seen.append(func.__name__.split(".")[0])
-            return func(*args, **(kwargs or {}))
-
-    with Record():
-        call()
-    return sum(op not in NO_LAUNCH_OPS for op in seen)
-
-
 def _ladder_bound(valid, rows_series, attempts, k: int, vsize: int, asize: int, slots: int) -> tuple[float, str]:
     """The retry ladder's bound, the sum of the bounds of its rounds when
     each round is one launch: in every round, each distinct series that one
@@ -470,12 +449,14 @@ def _ladder_bound(valid, rows_series, attempts, k: int, vsize: int, asize: int, 
     once, at the HBM rate.  ``valid`` (S,) holds each series' samples."""
     import torch
 
+    from repro_torch.launch import roofline
+
     rounds = torch.zeros_like(valid, dtype=torch.int64).scatter_reduce_(
         0, rows_series.long(), attempts.to(torch.int64), "amax")
     series_bytes = 4 * (rounds * valid.to(torch.int64)).sum().item()
     R = rows_series.numel()
     out_bytes = R * (asize + 4) + (R * (slots * (k * vsize + 4 + asize) + 4) if slots else 0)
-    return _bound(series_bytes + R * 2 * k * vsize + out_bytes, 0)
+    return roofline.bound_ms(series_bytes + R * 2 * k * vsize + out_bytes, 0)
 
 
 def ladder_phase(y, lengths, series, bounds, values, k_eff, methods, cap_mib, kc) -> dict:
@@ -485,6 +466,7 @@ def ladder_phase(y, lengths, series, bounds, values, k_eff, methods, cap_mib, kc
     and attempt counts exact, waste within the wastage gates."""
     import torch
 
+    from repro_torch.analysis import trace_audit
     from repro_torch.core.predictor import retry_flags
     from repro_torch.kernels import wastage
     from repro_torch.sim import torch_sim
@@ -523,13 +505,13 @@ def ladder_phase(y, lengths, series, bounds, values, k_eff, methods, cap_mib, kc
                                                torch.finfo(acc).bits // 8, slots or 0)
             if slots is None or acc == torch.float64:  # the grid's call, and the cluster's
                 before = wastage.launches
-                site = _launching_ops(lambda: torch_sim._replay(
+                site = trace_audit.launching_ops(lambda: torch_sim._replay(
                     y, lengths, series, bb, vv, k_eff, methods=methods, interval_s=kc.interval_s,
                     factor=kc.retry_factor, cap_mib=cap_mib, max_attempts=slots, acc_dtype=acc))
                 if wastage.launches != before + 1 or site:
                     _fail(f"{name}: torch_sim._replay took {wastage.launches - before} wastage launches and "
                           f"{site} aten ops that launch, where it should take one launch and nothing else")
-                plain = _launching_ops(lambda: wastage.replay_ladder_plain(*args, **kw))
+                plain = trace_audit.launching_ops(lambda: wastage.replay_ladder_plain(*args, **kw))
                 print(f"  {name}: torch_sim._replay is 1 wastage launch and 0 aten ops that launch; "
                       f"the plain loop dispatches {plain} aten ops that launch")
             print(f"  {name}: {N * B * M} rows, {int(attempts.sum())} attempts (max retries "
@@ -584,6 +566,7 @@ def kernels_phase(batch, cfg, dev) -> dict[str, dict]:
     from repro_torch.core.allocation import attempt_outcomes_batch
     from repro_torch.core.segmentation import segment_peaks_dynamic
     from repro_torch.kernels import segmax, wastage
+    from repro_torch.launch import roofline
     from repro_torch.sim import torch_sim
     from repro_torch.sim.batch_engine import GRID_METHODS
 
@@ -612,7 +595,7 @@ def kernels_phase(batch, cfg, dev) -> dict[str, dict]:
         # bytes: each valid sample read once, the lengths, series and k_eff,
         # the peaks written once; operations: one compare a sample
         nbytes = 4 * valid.sum().item() + 4 * 3 * S + 4 * S * k_max
-        bound_ms, bound_by = _bound(nbytes, valid.sum().item())
+        bound_ms, bound_by = roofline.bound_ms(nbytes, valid.sum().item())
         print(f"  segmax k_max={k_max}: exact; kernel {ms:.4f} ms back to back, profiled device {device_ms:.4f} ms "
               f"(a block per row: {SEGMAX_BLOCK_PER_ROW_MS} ms at k_max 4), bound {bound_ms:.5f} ms ({bound_by}), "
               f"plain {plain_ms:.4f} ms")
@@ -656,7 +639,7 @@ def kernels_phase(batch, cfg, dev) -> dict[str, dict]:
     row_len = valid[rs.long()]
     nbytes = 4 * valid.sum().item() + 4 * S + R * (4 + 8 * k + 8)
     nops = (row_len.sum().item() * (k + 5)) + ((f_k[f_k >= 0].to(torch.int64) + 1).sum().item() * (k + 3))
-    bound_ms, bound_by = _bound(nbytes, nops)
+    bound_ms, bound_by = roofline.bound_ms(nbytes, nops)
     print(f"  one attempt f32: bound {bound_ms:.5f} ms ({bound_by})")
     # the cluster ladders' instantiations: float32 decisions with float64
     # sums, and float64 throughout (the x64 ladders)
@@ -721,6 +704,7 @@ def scan_timings(L: int, B: int, k: int, dev, kernels=SCAN_KERNELS, add=None) ->
     import torch
 
     from repro_torch.kernels import scan
+    from repro_torch.launch import roofline
 
     out = {}
     for name, shape, dim, sequential in scan_shapes(L, B, k):
@@ -737,8 +721,9 @@ def scan_timings(L: int, B: int, k: int, dev, kernels=SCAN_KERNELS, add=None) ->
             plain_ms = _cuda_ms(lambda: scan.prefix_sum_plain(a, dim, block), 2)
             library_ms = _cuda_ms(lambda: torch.cumsum(a, dim), 50)  # the yardstick: it adds in another order
             # operations: one add an element, and a second for a block's prefix in XLA's order
-            bound_ms, bound_by = _bound(2 * a.numel() * a.element_size(), a.numel() * (1 if sequential else 2),
-                                        F32_OPS_PER_S if dtype == torch.float32 else F64_OPS_PER_S)
+            peak = roofline.HW["peak_flops_f32" if dtype == torch.float32 else "peak_flops_f64"]
+            bound_ms, bound_by = roofline.bound_ms(2 * a.numel() * a.element_size(),
+                                                   a.numel() * (1 if sequential else 2), peak)
             row = dict(max_abs_err=(got - want).abs().max().item(), ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
                        bound_by=bound_by, library_ms=library_ms, device_ms=device_ms)
             extra = ""
@@ -759,6 +744,7 @@ def scan_phase(batch, cfg, dev) -> dict:
     bucket has executions."""
     import torch
 
+    from repro_torch.analysis import trace_audit
     from repro_torch.kernels import ops, scan
     from repro_torch.sim import torch_sim
     from repro_torch.sim.batch_engine import GRID_METHODS
@@ -801,10 +787,10 @@ def scan_phase(batch, cfg, dev) -> dict:
     kw = dict(methods=GRID_METHODS, k=kc.k, interval_s=kc.interval_s, floor_mib=kc.floor_mib,
               cap_mib=cfg.node_cap_mib, error_mode=kc.error_mode, insample_window=kc.insample_window)
     before = scan.launches
-    site = _launching_ops(lambda: torch_sim.predict_lanes(*args, **kw))
+    site = trace_audit.launching_ops(lambda: torch_sim.predict_lanes(*args, **kw))
     n_scan = scan.launches - before
     with _patched(ops, "prefix_sum", lambda orig: scan.prefix_sum_plain):
-        plain = _launching_ops(lambda: torch_sim.predict_lanes(*args, **kw))
+        plain = trace_audit.launching_ops(lambda: torch_sim.predict_lanes(*args, **kw))
     execs = int(batch.n_execs.sum())
     print(f"  predict_lanes at the largest bucket ({L} lanes, {execs} executions, {len(GRID_METHODS)} methods): "
           f"{site} aten ops that launch and {n_scan} scan launches; with the plain scan {plain} aten ops that launch")
@@ -1170,8 +1156,12 @@ def sched_kernels_phase(cluster_info: dict, dev) -> dict[str, dict]:
     gave them and at L = 256, 1024, 8192."""
     import torch
 
+    from repro_torch.analysis import trace_audit
     from repro_torch.kernels import compaction, rangemax
+    from repro_torch.launch import roofline
     from repro_torch.sim import device_timeline
+
+    F64 = roofline.HW["peak_flops_f64"]
 
     def check_rangemax(x):
         got, want = rangemax.rangemax_cuda(x), rangemax.table_levels(x)
@@ -1182,7 +1172,7 @@ def sched_kernels_phase(cluster_info: dict, dev) -> dict[str, dict]:
         plain_ms = _cuda_ms(lambda: rangemax.table_levels(x), 10)
         B, L = x.shape
         P = rangemax.num_levels(L)
-        bound_ms, bound_by = _bound(x.element_size() * B * L * (1 + P), B * L * (P - 1), F64_OPS_PER_S)
+        bound_ms, bound_by = roofline.bound_ms(x.element_size() * B * L * (1 + P), B * L * (P - 1), F64)
         return dict(max_abs_err=0.0, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by)
 
     def check_fit_tables(t, d, base0):
@@ -1198,7 +1188,7 @@ def sched_kernels_phase(cluster_info: dict, dev) -> dict[str, dict]:
         P = rangemax.num_levels(L)
         # bytes: t and d read once, base0, the table written once; operations:
         # ~2 adds, a compare for the tie mask and P - 1 maxima a slot
-        bound_ms, bound_by = _bound(t.element_size() * (B * L * (2 + P) + B), B * L * (P + 2), F64_OPS_PER_S)
+        bound_ms, bound_by = roofline.bound_ms(t.element_size() * (B * L * (2 + P) + B), B * L * (P + 2), F64)
         return dict(max_abs_err=0.0, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
                     device_ms=device_ms)
 
@@ -1218,7 +1208,7 @@ def sched_kernels_phase(cluster_info: dict, dev) -> dict[str, dict]:
         # base and a compare a shifted slot, the kept row's sum and its add)
         cnt = (t <= now.repeat_interleave(n_nodes)[:, None]).sum().item()
         nops = cnt + 4 * (R * L - cnt) + 2 * want[4].sum().item()
-        bound_ms, bound_by = _bound(es * (5 * R * L + 2 * R + now.numel()) + 8 * R, nops, F64_OPS_PER_S)
+        bound_ms, bound_by = roofline.bound_ms(es * (5 * R * L + 2 * R + now.numel()) + 8 * R, nops, F64)
         out = dict(max_abs_err=0.0, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by)
         if profiled:
             out["device_ms"] = _device_ms(lambda: compaction.fold_compact_cuda(t, d, base, now, n_nodes),
@@ -1233,7 +1223,7 @@ def sched_kernels_phase(cluster_info: dict, dev) -> dict[str, dict]:
         ms = _cuda_ms(lambda: compaction.compaction_cuda(t, d, keep), 100)
         plain_ms = _cuda_ms(lambda: compaction.compact_events_plain(t, d, keep), 10)
         B, L = t.shape
-        bound_ms, bound_by = _bound(B * L * (4 * t.element_size() + 1), B * L * 4, F64_OPS_PER_S)
+        bound_ms, bound_by = roofline.bound_ms(B * L * (4 * t.element_size() + 1), B * L * 4, F64)
         out = dict(max_abs_err=0.0, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by)
         if profiled:
             out["device_ms"] = _device_ms(lambda: compaction.compaction_cuda(t, d, keep), "compact_kernel", 60)
@@ -1268,13 +1258,13 @@ def sched_kernels_phase(cluster_info: dict, dev) -> dict[str, dict]:
     rows = _fit_rows(B, L, torch.float64, 7, dev)
     out = {"rangemax": check_fit_tables(*rows)}
     before = rangemax.launches
-    site = _launching_ops(lambda: device_timeline._fit_tables(*rows))
+    site = trace_audit.launching_ops(lambda: device_timeline._fit_tables(*rows))
     if rangemax.launches != before + 1 or site:
         _fail(f"device_timeline._fit_tables took {rangemax.launches - before} rangemax launches and {site} aten ops "
               f"that launch, where it should take one launch and nothing else")
+    plain = trace_audit.launching_ops(lambda: rangemax.fit_tables_plain(*rows))
     print(f"  device_timeline._fit_tables at the cluster path's shape is 1 rangemax launch and 0 aten ops that "
-          f"launch; the plain chain dispatches {_launching_ops(lambda: rangemax.fit_tables_plain(*rows))} aten ops "
-          f"that launch")
+          f"launch; the plain chain dispatches {plain} aten ops that launch")
     print(f"  fit tables at the cluster path's shape ({B} nodes, L={L}) f64: bitwise; kernel "
           f"{out['rangemax']['ms']:.4f} ms back to back, profiled device {out['rangemax']['device_ms']:.4f} ms, "
           f"plain chain {out['rangemax']['plain_ms']:.4f} ms, bound {out['rangemax']['bound_ms']:.6f} ms")
@@ -1291,11 +1281,11 @@ def sched_kernels_phase(cluster_info: dict, dev) -> dict[str, dict]:
     t, d, base, now = rows
     step = (lambda: device_timeline._fold_and_compact(now, base.view(S, N), t.view(S, N, L), d.view(S, N, L)))
     before = compaction.launches
-    site = _launching_ops(step)
+    site = trace_audit.launching_ops(step)
     if compaction.launches != before + 1 or site > 1:
         _fail(f"device_timeline._fold_and_compact took {compaction.launches - before} compaction launches and {site} "
               "aten ops that launch, where it should take one launch and at most one op (the max over nodes)")
-    plain = _launching_ops(lambda: compaction.fold_compact_plain(t, d, base, now, N))
+    plain = trace_audit.launching_ops(lambda: compaction.fold_compact_plain(t, d, base, now, N))
     print(f"  device_timeline._fold_and_compact at the sweep's shape is 1 compaction launch and {site} aten op that "
           f"launches (the max over nodes); the plain chain dispatches {plain} aten ops that launch")
     print(f"  fold at the sweep's shape ({S} lanes x {N} nodes, L={L}) f64: bitwise; kernel "
@@ -1416,6 +1406,7 @@ def _flash_case(case, seed: int, sms: int, dev) -> dict | None:
     import torch.nn.functional as F
 
     from repro_torch.kernels import flash
+    from repro_torch.launch import roofline
 
     name, (B, T, S, H, KV, hd), causal, window, cap, ragged, timed = case
     kw = dict(causal=causal, window=window, softcap=cap)
@@ -1451,7 +1442,7 @@ def _flash_case(case, seed: int, sms: int, dev) -> dict | None:
             dev_ms, parts = _flash_device_ms(call, 30 if T > 1 else 60)
             pairs = mask.sum().item() * H
             nbytes = 2 * (2 * q.numel() + k.numel() + v.numel()) + 4 * (qp.numel() + kp.numel())
-            bound_ms, bound_by = _bound(nbytes, 4 * hd * pairs, BF16_OPS_PER_S)
+            bound_ms, bound_by = roofline.bound_ms(nbytes, 4 * hd * pairs, roofline.HW["peak_flops_bf16"])
             lib_ms = lib_note = None
             if cap is None:  # SDPA has no softcap
                 qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
@@ -1633,6 +1624,7 @@ def _fitstats_case(name: str, x, peaks, w, reps: int) -> dict:
     import torch
 
     from repro_torch.kernels import fitstats
+    from repro_torch.launch import roofline
 
     got, again = fitstats.fitstats_cuda(x, peaks, w), fitstats.fitstats_cuda(x, peaks, w)
     want = fitstats.fit_stats_plain(x, peaks, w)
@@ -1654,7 +1646,7 @@ def _fitstats_case(name: str, x, peaks, w, reps: int) -> dict:
     B, k = peaks.shape
     # bytes: x, w and the peaks read once, the bank written once; operations:
     # w p, (w u) p and two adds a value, the row's scalars (w u, (w u) u, 3 adds)
-    bound_ms, bound_by = _bound(4 * (B * k + 2 * B + 5 * k), 4 * B * k + 5 * B)
+    bound_ms, bound_by = roofline.bound_ms(4 * (B * k + 2 * B + 5 * k), 4 * B * k + 5 * B)
     print(f"  fitstats {name} B={B} k={k}: {err:.3e} of the terms' sum (limit {FITSTATS_TOL}), two launches "
           f"bitwise equal; kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, bound {bound_ms:.5f} ms ({bound_by}); "
           f"profiled device time {device_ms:.4f} ms a call (pass 1 {device['partial'][0]:.4f} ms over "
@@ -1893,6 +1885,8 @@ def _admission_bound(args, admits) -> tuple[float, str]:
 
     import torch
 
+    from repro_torch.launch import roofline
+
     P, prof, starts, ends, rels, bnd, val, valext, sw, live, valid, _ = args
     lo = torch.searchsorted(P, starts, side="left")
     win = (torch.searchsorted(P, ends, side="right") - lo).clamp(min=0)
@@ -1900,7 +1894,7 @@ def _admission_bound(args, admits) -> tuple[float, str]:
     nbytes = sum(t.numel() * t.element_size() for t in args[:-1]) + admits.numel()
     nops = (int(valid.sum()) * 3 * math.ceil(math.log2(P.numel() + 1)) + 5 * int(win[valid].sum())
             + 2 * int(held[admits].sum()))
-    return _bound(nbytes, nops, F64_OPS_PER_S)
+    return roofline.bound_ms(nbytes, nops, roofline.HW["peak_flops_f64"])
 
 
 def _epoch_bound(args, t0: float, res) -> tuple[tuple[float, str], float]:
@@ -1918,6 +1912,8 @@ def _epoch_bound(args, t0: float, res) -> tuple[tuple[float, str], float]:
     import math
 
     import torch
+
+    from repro_torch.launch import roofline
 
     base0, tl_t, tl_d, tl_c, slot_fold, rel, starts, ends, rels, bnd, val, codes, valid = (a.cpu() for a in args)
     res = res.cpu()
@@ -1941,7 +1937,7 @@ def _epoch_bound(args, t0: float, res) -> tuple[tuple[float, str], float]:
             nops += 5 * (int(((old > st) & (old <= en)).sum()) + int(((q >= st) & (q <= en)).sum()))
             if admits[s, c]:
                 nops += 2 * (int((old >= st).sum()) + int((q >= st).sum()))
-    return _bound(nbytes, nops, F64_OPS_PER_S), nops / F64_OPS_PER_S * 1e3
+    return roofline.bound_ms(nbytes, nops, roofline.HW["peak_flops_f64"]), nops / roofline.HW["peak_flops_f64"] * 1e3
 
 
 def _spread(counts) -> str:
@@ -2017,7 +2013,9 @@ def admission_phase(dev, seed: int) -> tuple[dict[str, dict], dict[str, int]]:
     import numpy as np
     import torch
 
+    from repro_torch.analysis import trace_audit
     from repro_torch.kernels import admission, admission_epoch, ops
+    from repro_torch.launch import roofline
     from repro_torch.serve.admission import AdmissionController, BatchedAdmissionController, ShardedAdmissionController
     from repro_torch.serve.stream import StreamConfig, make_controller, run_stream
     from repro_torch.sim.device_timeline import admission_epoch_plain, admission_scan_plain
@@ -2165,7 +2163,7 @@ def admission_phase(dev, seed: int) -> tuple[dict[str, dict], dict[str, int]]:
             if engine == "sharded":
                 # the epoch's inputs, copied before the next rounds reuse the buffers
                 epoch_args = ([x.clone() for x in epoch_calls[-1][0][:13]], *epoch_calls[-1][0][13:16])
-                aten = _launching_ops(lambda: one_round(ctl, batched, t_probe))
+                aten = trace_audit.launching_ops(lambda: one_round(ctl, batched, t_probe))
             n, t1 = 0, time.perf_counter()
             while time.perf_counter() - t1 < 1.0:
                 one_round(ctl, batched, t_probe)
@@ -2202,7 +2200,7 @@ def admission_phase(dev, seed: int) -> tuple[dict[str, dict], dict[str, int]]:
     device_ms = _device_ms(lambda: ops.admission_scan(*a), "decide_kernel", 40)
     plain_ms = _cuda_ms(lambda: admission_scan_plain(*a), 3)
     bound_ms, bound_by = _admission_bound(a, got)
-    byte_ms = _bound(sum(t.numel() * t.element_size() for t in a[:-1]) + C, 0)[0]
+    byte_ms = roofline.bound_ms(sum(t.numel() * t.element_size() for t in a[:-1]) + C, 0)[0]
     print(f"  decision kernel at the microbench's shape (C {C}, Pp {Pp}, k {k}; {int(got.sum())} admitted; plan "
           f"{plan}): equal to the plain loop, and under a binding budget ({int(got_tight.sum())} admitted); kernel {ms:.4f} ms back to back, profiled {device_ms:.4f} ms; plain "
           f"loop {plain_ms:.3f} ms; bound {bound_ms:.6f} ms ({bound_by}; bytes alone {byte_ms:.6f} ms)")
@@ -2348,6 +2346,7 @@ def _moe_case(name: str, N: int, k: int, E: int, C: int, D: int, skew: float, de
     import torch
 
     from repro_torch.kernels import moe_combine, moe_dispatch
+    from repro_torch.launch import roofline
 
     g = torch.Generator(device=dev).manual_seed(N + E)
     logits = torch.randn((N, E), generator=g, device=dev) - skew * torch.arange(E, device=dev) / E
@@ -2390,7 +2389,7 @@ def _moe_case(name: str, N: int, k: int, E: int, C: int, D: int, skew: float, de
     rows_read = int(kept.any(-1).sum())
     small = 4 * (ids.numel() + pos.numel())
     nbytes, all_bytes = 2 * (buf.numel() + rows_read * D) + small, 2 * (buf.numel() + x.numel()) + small
-    bound_ms, bound_by = _bound(nbytes, 0)
+    bound_ms, bound_by = roofline.bound_ms(nbytes, 0)
     # the card's write and copy rates over a buffer of this size
     zero_ms = _cuda_ms(torch.empty_like(buf).zero_, reps)
     copy_ms = _cuda_ms(lambda: torch.empty_like(buf).copy_(buf), reps)
@@ -2416,7 +2415,7 @@ def _moe_case(name: str, N: int, k: int, E: int, C: int, D: int, skew: float, de
     lib_err = (lib()[:N].float() - got.float()).abs().max().item()
     ccall = lambda: moe_combine.moe_combine_cuda(out_buf, ids, pos, w)  # noqa: E731
     cbytes = 2 * (n_kept * D + N * D) + 4 * 3 * ids.numel()
-    cbound_ms, cbound_by = _bound(cbytes, 2 * n_kept * D)
+    cbound_ms, cbound_by = roofline.bound_ms(cbytes, 2 * n_kept * D)
     out["moe_combine"] = dict(
         max_abs_err=(got.float() - want.float()).abs().max().item(), ms=_cuda_ms(ccall, reps),
         plain_ms=_cuda_ms(lambda: moe_combine.moe_combine_plain(out_buf, ids, pos, w), max(reps // 4, 3)),
@@ -2429,7 +2428,7 @@ def _moe_case(name: str, N: int, k: int, E: int, C: int, D: int, skew: float, de
           + f"; one device launch a call, {prof_calls} of {prof_calls} profiled), plain {d['plain_ms']:.4f}, "
           f"index_select {d['library_ms']:.4f}, bound {d['bound_ms']:.4f} ({d['bound_by']}: {nbytes / 1e6:.1f} MB "
           f"with the {rows_read} rows of tokens with a kept assignment, {all_bytes / 1e6:.1f} MB with all {N} rows, "
-          f"{_bound(all_bytes, 0)[0]:.4f} ms); the card's write rate {buf_bytes / zero_ms / 1e9:.3f} TB/s "
+          f"{roofline.bound_ms(all_bytes, 0)[0]:.4f} ms); the card's write rate {buf_bytes / zero_ms / 1e9:.3f} TB/s "
           f"(buf.zero_ {zero_ms:.4f} ms), copy rate {2 * buf_bytes / copy_ms / 1e9:.3f} TB/s read + write "
           f"(empty_like(buf).copy_(buf) {copy_ms:.4f} ms)")
     print(f"      combine  {c['ms']:.4f} ms (device {c['device_ms']:.4f}), plain {c['plain_ms']:.4f}, index_add_ "
@@ -2691,6 +2690,8 @@ def _kernel_case(kernel: str, name: str, call, plain, nbytes: float, nops: float
     profiled device time beside the bound and the plain version's time."""
     import torch
 
+    from repro_torch.launch import roofline
+
     got, want = call(), plain()
     torch.cuda.synchronize()
     errs = [(g - w).abs().max().item() for g, w in zip(got, want)]
@@ -2708,7 +2709,7 @@ def _kernel_case(kernel: str, name: str, call, plain, nbytes: float, nops: float
     ms = _cuda_ms(call, reps)
     device_ms = _device_ms(call, device_name, n_prof)
     plain_ms = _cuda_ms(plain, 3)
-    bound_ms, bound_by = _bound(nbytes, nops)
+    bound_ms, bound_by = roofline.bound_ms(nbytes, nops)
     print(f"  (e) {kernel} {name:26s} {'bit for bit' if exact else f'max |d| {max(e / s for e, s in zip(errs, scales)):.2e} of max |out|'}; "
           f"{ms:.4f} ms (device {device_ms:.4f}; one device launch a call, {n_prof} of {n_prof} profiled), plain "
           f"{plain_ms:.3f}, bound {bound_ms:.5f} ({bound_by}: {nbytes / 1e6:.1f} MB, {nops / 1e9:.3f} GFLOP), "
@@ -3333,16 +3334,18 @@ def _train_launcher() -> None:
 
 def _train_full(dev) -> int:
     """(b) llama3.2-3b at full width and depth: TRAIN_STEPS steps, then
-    TRAIN_ACCUM_STEPS with accum_steps 2.  Returns flash_bwd's launches in
-    the TRAIN_STEPS steps."""
+    TRAIN_ACCUM_STEPS with accum_steps 2, then one step counted at dispatch
+    for phase 17 (c).  Returns flash_bwd's launches in the TRAIN_STEPS
+    steps, and that step's roofline with the median step wall."""
     import math
 
     import torch
     from torch.profiler import ProfilerActivity, profile
 
-    from repro_torch.configs import get_config
+    from repro_torch.configs import ShapeSpec, get_config
     from repro_torch.data import DataConfig, SyntheticLMData, make_host_batch
     from repro_torch.kernels import ops
+    from repro_torch.launch import roofline
     from repro_torch.models.model import forward, init_params
     from repro_torch.train import OptimizerConfig, TrainConfig, init_train_state, make_train_step
     from repro_torch.train.train_step import cross_entropy
@@ -3413,9 +3416,16 @@ def _train_full(dev) -> int:
     print(f"      accum_steps 2: walls " + ", ".join(f"{w:.4f}" for w in walls2) + " s; (loss, grad_norm) "
           + ", ".join(f"({a:.4f}, {b:.4f})" for a, b in losses2) + f"; peak memory "
           f"{torch.cuda.max_memory_allocated(dev) / 1e9:.2f} GB")
-    del state, step, step2, model, batches
+    # phase 17 (c)'s roofline, counted at dispatch on one more step
+    out = []
+    roof = roofline.derive(lambda: out.append(step(state, batches[TRAIN_STEPS])), cfg,
+                           ShapeSpec("phase 16 (b)", "train", TRAIN_SEQ, TRAIN_BATCH))
+    state, m = out[0]
+    if not math.isfinite(float(m["loss"])):
+        _fail(f"train: the roofline's step gave loss {float(m['loss'])}")
+    del state, step, step2, model, batches, out
     torch.cuda.empty_cache()
-    return counts["flash_bwd"]
+    return counts["flash_bwd"], dict(roofline=roof, step_s=med, n_params=n_params, layers=layers, remat=cfg.remat)
 
 
 def _train_grads(dev) -> None:
@@ -3531,6 +3541,7 @@ def _bwd_case(case, seed: int, dev) -> dict:
     import torch
 
     from repro_torch.kernels import flash, flash_bwd
+    from repro_torch.launch import roofline
 
     name, (B, T, H, KV, hd), causal, window, cap = case
     kw = dict(causal=causal, window=window, softcap=cap)
@@ -3559,7 +3570,7 @@ def _bwd_case(case, seed: int, dev) -> dict:
             mask = _flash_mask(qp, kp, causal, window)
             pairs = mask.sum().item() * H
             nbytes = 2 * (4 * q.numel() + 4 * k.numel()) + 4 * lse.numel() + 4 * (qp.numel() + kp.numel())
-            bound_ms, bound_by = _bound(nbytes, 2.5 * 4 * hd * pairs, BF16_OPS_PER_S)
+            bound_ms, bound_by = roofline.bound_ms(nbytes, 2.5 * 4 * hd * pairs, roofline.HW["peak_flops_bf16"])
             if cap is None:  # SDPA has no softcap
                 lib_ms, how = _sdpa_bwd_ms(q, k, v, dout, mask, causal, window, reps)
                 lib_note = f"sdpa backward {lib_ms:.4f} ms ({how})"
@@ -3765,6 +3776,7 @@ def _moe_bwd_case(name: str, N: int, k: int, E: int, C: int, D: int, skew: float
     import torch
 
     from repro_torch.kernels import moe_combine_bwd, moe_dispatch
+    from repro_torch.launch import roofline
 
     g = torch.Generator(device=dev).manual_seed(N + E)
     logits = torch.randn((N, E), generator=g, device=dev) - skew * torch.arange(E, device=dev) / E
@@ -3813,14 +3825,14 @@ def _moe_bwd_case(name: str, N: int, k: int, E: int, C: int, D: int, skew: float
     # pos and w read, dw written; operations: two products and an add an
     # element of a kept row
     nbytes = 2 * (d_buf.numel() + dout.numel() + n_kept * D) + 4 * 4 * ids.numel()
-    bound_ms, bound_by = _bound(nbytes, 3 * n_kept * D)
+    bound_ms, bound_by = roofline.bound_ms(nbytes, 3 * n_kept * D)
     ms = min(_cuda_ms(call, reps) for _ in range(3))
     parts = {n: _device_ms(call, n, prof_calls) for n in MOE_DEVICE_KERNELS["moe_combine_bwd"]}
     plain_ms = _cuda_ms(lambda: moe_combine_bwd.moe_combine_bwd_plain(dout, out_buf, ids, pos, w), max(reps // 4, 3))
     # the dispatch's backward: the kept rows of dbuf read, dxf written;
     # yardstick: index_add_ of those rows (another order, with atomics)
     dbytes = 2 * (n_kept * D + dxf.numel()) + 4 * 3 * ids.numel()
-    dbound_ms, dbound_by = _bound(dbytes, n_kept * D)
+    dbound_ms, dbound_by = roofline.bound_ms(dbytes, n_kept * D)
     base = torch.zeros((N, D), dtype=torch.bfloat16, device=dev)
     rows = dbuf.view(E * C, D)[slot].contiguous()
     dlib_ms = _cuda_ms(lambda: torch.index_add(base, 0, tok, rows), reps)
@@ -4020,9 +4032,10 @@ def _rec_bwd_case(kernel: str, name: str, B: int, T: int, W: int, stateful: bool
     import torch
 
     from repro_torch.kernels import rglru_scan, rglru_scan_bwd, rwkv_wkv, rwkv_wkv_bwd
+    from repro_torch.launch import roofline
 
     g = torch.Generator(device=dev).manual_seed(B * T + W + 1)
-    ops_per_s = F32_OPS_PER_S
+    ops_per_s = roofline.HW["peak_flops_f32"]
     if kernel == "rwkv_wkv_bwd":
         args, _, _ = _wkv_args(B, T, W, stateful, dev)
         grads = (torch.randn(args[0].shape, generator=g, device=dev), torch.randn(args[5].shape, generator=g,
@@ -4040,7 +4053,7 @@ def _rec_bwd_case(kernel: str, name: str, B: int, T: int, W: int, stateful: bool
         # each), at TF32's rate (the products run on the tensor cores)
         nbytes = 4 * (9 * r.numel() + 3 * S0.numel() + 2 * u.numel())
         nops = 14 * r.numel() * 64
-        ops_per_s = TF32_OPS_PER_S
+        ops_per_s = roofline.HW["peak_flops_tf32"]
         exact = False
     else:
         (a, b, h0), _, _ = _rglru_args(B, T, W, stateful, dev)
@@ -4068,31 +4081,31 @@ def _rec_bwd_case(kernel: str, name: str, B: int, T: int, W: int, stateful: bool
     ms = _cuda_ms(call, reps)
     parts = {n: _device_ms(call, n, 64) for n, k in REC_BWD_KERNELS.items() if k == kernel}
     plain_ms = _cuda_ms(plain, 1)
-    bound_ms, bound_by = _bound(nbytes, nops, ops_per_s)
+    bound_ms, bound_by = roofline.bound_ms(nbytes, nops, ops_per_s)
     device_ms = sum(parts.values())
     print(f"  (k) {kernel} {name:26s} {'bit for bit' if exact else 'max |d| ' + ', '.join(f'{e:.2e}' for e in errs) + ' of max |plain|'}, "
           f"the same from run to run; {ms:.4f} ms (device {device_ms:.4f}: "
           + ", ".join(f"{n} {t:.4f}" for n, t in parts.items()) + f"), plain {plain_ms:.3f}, bound {bound_ms:.5f} "
           f"({bound_by}: {nbytes / 1e6:.1f} MB, {nops / 1e9:.3f} GFLOP at {ops_per_s / 1e12:.0f} TFLOP/s), "
           f"{100 * bound_ms / device_ms:.1f}% of it" + (f" (the token form's operations at the f32 rate: "
-                                                        f"{nops / F32_OPS_PER_S * 1e3:.4f} ms)"
-                                                        if ops_per_s != F32_OPS_PER_S else "")
+                                                        f"{nops / roofline.HW['peak_flops_f32'] * 1e3:.4f} ms)"
+                                                        if ops_per_s != roofline.HW["peak_flops_f32"] else "")
           + f"; library null: {REC_BWD_NO_LIBRARY}")
     torch.cuda.empty_cache()
     return dict(max_abs_err=max(errs), ms=ms, device_ms=device_ms, plain_ms=plain_ms, bound_ms=bound_ms,
                 bound_by=bound_by, library_ms=None)
 
 
-def train_phase(dev) -> tuple[dict[str, dict], dict[str, int]]:
+def train_phase(dev) -> tuple[dict[str, dict], dict[str, int], dict]:
     """Phase 16: training.  Returns flash_bwd's numbers at llama's shape,
     moe_combine_bwd's at qwen3-moe's and the recurrent backwards' at their
-    models' own, and their launches in (b)'s, (e)'s, (h)'s and (i)'s
-    steps."""
+    models' own, their launches in (b)'s, (e)'s, (h)'s and (i)'s steps, and
+    (b)'s roofline for phase 17."""
     print(f"train phase (a): the launcher, reduced {TRAIN_ARCH}")
     t0 = time.perf_counter()
     _train_launcher()
     print(f"train phase (b): {TRAIN_ARCH} at full width and depth ({time.perf_counter() - t0:.2f} s so far)")
-    launches = _train_full(dev)
+    launches, roof = _train_full(dev)
     print(f"train phase (c): gradients through the kernels against the plain path ({time.perf_counter() - t0:.2f} s)")
     _train_grads(dev)
     print(f"train phase (d): flash_bwd alone; kernel vs plain bf16 <= 2e-2, f32 <= 1e-4 of max |plain| "
@@ -4121,7 +4134,116 @@ def train_phase(dev) -> tuple[dict[str, dict], dict[str, int]]:
     return ({"flash_bwd": cases["llama"], "moe_combine_bwd": moe_cases[0], "rwkv_wkv_bwd": wkv[0],
              "rglru_scan_bwd": lru[0]},
             {"flash_bwd": launches, "moe_combine_bwd": moe_launches,
-             **{k: rec_launches[k] for k in ("rwkv_wkv_bwd", "rglru_scan_bwd")}})
+             **{k: rec_launches[k] for k in ("rwkv_wkv_bwd", "rglru_scan_bwd")}},
+            roof)
+
+
+# Phase 17 (b): one policy of the standard configuration (phase 5), cut to
+# AUDIT_TASKS_PER_TYPE tasks a type: every call of the two placement
+# programs runs under the dtype audit's dispatch mode.  "default" waits
+# most (24 epoch programs and 84 folds on the CPU at this cut)
+AUDIT_POLICY = "default"
+AUDIT_TASKS_PER_TYPE = 20  # of CLUSTER_KW's 120
+
+
+def _audit_grid(wfs, cfg, cold: dict[str, int]) -> None:
+    """(a) the warm grid under ``no_rebuilds``, twice."""
+    from repro_torch.analysis import trace_audit
+    from repro_torch.sim.batch_engine import simulate_grid
+
+    runs = []
+    for i in range(2):
+        try:
+            with trace_audit.no_rebuilds(f"warm grid run {i + 1}", launches=cold,
+                                         launching_ops=runs[0].launching_ops if runs else None) as lc:
+                simulate_grid(wfs, cfg=cfg)
+        except trace_audit.RebuildError as e:
+            _fail(f"audit (a): {e}")
+        runs.append(lc)
+    a = runs[0]
+    print(f"  (a) warm grid x 2 under no_rebuilds: launches {a.snapshot()['launches']} (phase 3's cold run: "
+          f"{ {k: n for k, n in cold.items() if n} }); launching aten ops {a.launching_ops} and "
+          f"{runs[1].launching_ops}; read-backs {a.readbacks}; uploads {len(a.uploads)} "
+          f"({a.upload_bytes / 1e6:.3f} MB, largest {max((u.nbytes for u in a.uploads), default=0) / 1e6:.3f} MB); "
+          f"operand and result bytes of the launching ops {a.launching_bytes / 1e9:.3f} GB; no library built or "
+          "loaded")
+    print("      most dispatched launching ops: " + ", ".join(f"{op} {n}" for op, n in a.aten.most_common(8)))
+
+
+def _audit_cluster_dtypes(wfs) -> None:
+    """(b) every floating result of the epoch program and the sweep's fold
+    float64."""
+    import torch
+
+    from repro_torch.analysis import trace_audit
+    from repro_torch.sim import cluster, device_timeline
+
+    calls: collections.Counter = collections.Counter()
+    problems: list[str] = []
+
+    def audited(name):
+        def make(orig):
+            def run(*a, **kw):
+                out = []
+                found = trace_audit.check_dtypes(lambda: out.append(orig(*a, **kw)), forbid_dtypes=(torch.float32,))
+                problems.extend(f"{name}: {p}" for p in found)
+                calls[name] += 1
+                return out[0]
+
+            return run
+
+        return make
+
+    kw = {**CLUSTER_KW, "max_tasks_per_type": AUDIT_TASKS_PER_TYPE}
+    kernel = {"windows": "rangemax", "sweep": "compaction"}
+    program = {"windows": "epoch program", "sweep": "sweep fold"}
+    with _patched(device_timeline, "_schedule_program", audited("epoch program")), \
+            _patched(device_timeline, "_fold_and_compact", audited("sweep fold")):
+        for placement in ("windows", "sweep"):
+            with trace_audit.LaunchCounter() as lc:
+                res = cluster.run_cluster_batched(wfs, (AUDIT_POLICY,), placement=placement, **kw)
+            rows = len(res[AUDIT_POLICY].records)
+            print(f"  (b) {AUDIT_POLICY} on {placement}, {AUDIT_TASKS_PER_TYPE} tasks a type ({rows} records): "
+                  f"{calls[program[placement]]} {program[placement]} calls audited, {kernel[placement]} "
+                  f"launches {lc.launches[kernel[placement]]}, read-backs {lc.readbacks}, uploads "
+                  f"{len(lc.uploads)}")
+            if not calls[program[placement]] or not lc.launches[kernel[placement]]:
+                _fail(f"audit (b): the {placement} run did not reach its {program[placement]} and {kernel[placement]}")
+    if problems:
+        _fail(f"audit (b): float32 results in the float64 placement programs: {problems[:8]}")
+    print("      every floating result of both programs float64")
+
+
+def _audit_roofline(roof: dict, smi: str) -> None:
+    """(c) phase 16 (b)'s step against its roofline, at its median wall."""
+    from repro_torch.launch import roofline
+
+    rf = roof["roofline"]
+    s = rf.summary()
+    want = {"flash": (2 if roof["remat"] else 1) * roof["layers"], "flash_bwd": roof["layers"]}
+    print(f"  (c) {TRAIN_ARCH} train step, B {TRAIN_BATCH} x T {TRAIN_SEQ}: model flops 6ND "
+          f"{rf.model_flops_global:.4e} (N {roof['n_params'] / 1e9:.3f} B); counted at dispatch "
+          f"{rf.flops_per_device:.4e} flop, {rf.bytes_per_device:.4e} bytes (useful_flops_ratio "
+          f"{s['useful_flops_ratio']:.4f}; compute {1e3 * s['compute_s']:.2f} ms, memory {1e3 * s['memory_s']:.2f} ms, "
+          f"the larger {1e3 * s['bound_s']:.2f} ms, {s['dominant']}; mfu_bound {s['mfu_bound']:.4f})")
+    print(f"      not counted (launched through ctypes, out of dispatch's sight): "
+          + ", ".join(f"{k} {n} launches" for k, n in rf.not_counted.items()))
+    print(f"      MFU at the median step wall {roof['step_s']:.4f} s: {100 * rf.mfu(roof['step_s']):.2f}% of "
+          f"{roofline.HW['peak_flops_bf16'] / 1e12:.0f} TFLOP/s bf16 (data sheet); card {smi}")
+    if rf.not_counted != want or rf.flops_per_device <= 0 or rf.bytes_per_device <= 0:
+        _fail(f"audit (c): not counted {rf.not_counted} (want {want}), flops {rf.flops_per_device}, bytes "
+              f"{rf.bytes_per_device}")
+
+
+def audit_phase(wfs, cfg, grid_counts: dict[str, int], roof: dict, smi: str) -> None:
+    """Phase 17: the tooling on the card.  Fails the run on any failed audit."""
+    t0 = time.perf_counter()
+    print("audit phase (a): the warm grid's launches, read-backs and uploads")
+    _audit_grid(wfs, cfg, grid_counts)
+    print(f"audit phase (b): the placement programs' dtypes ({time.perf_counter() - t0:.2f} s)")
+    _audit_cluster_dtypes(wfs)
+    print(f"audit phase (c): the llama step's roofline ({time.perf_counter() - t0:.2f} s)")
+    _audit_roofline(roof, smi)
 
 
 def main() -> int:
@@ -4169,6 +4291,7 @@ def main() -> int:
     per_kernel = kernels_phase(largest, cfg, dev)
     per_kernel["scan"] = scan_phase(largest, cfg, dev)
     counts, _, _ = grid_phase(wfs, cfg)
+    grid_counts = dict(counts)
     sweep_phase(wfs, cfg)
     cluster_info = cluster_phase(wfs)
     per_kernel.update(sched_kernels_phase(cluster_info, dev))
@@ -4199,10 +4322,13 @@ def main() -> int:
     frontend_phase(dev)
     print(f"frontend phase: {time.perf_counter() - t0:.2f} s")
     t0 = time.perf_counter()
-    train_kernels, train_counts = train_phase(dev)
+    train_kernels, train_counts, roof = train_phase(dev)
     per_kernel.update(train_kernels)
     counts.update(train_counts)
     print(f"train phase: {time.perf_counter() - t0:.2f} s")
+    t0 = time.perf_counter()
+    audit_phase(wfs, cfg, grid_counts, roof, smi)
+    print(f"audit phase: {time.perf_counter() - t0:.2f} s")
 
     sources = {
         "segmax": ("src/repro_torch/kernels/csrc/segmax.cu", "src/repro/kernels/segmax.py:55"),

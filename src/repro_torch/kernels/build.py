@@ -71,6 +71,8 @@ SOURCES = {
 _lock = threading.Lock()
 _libs: dict[str, ctypes.CDLL] = {}
 build_logs: dict[str, str] = {}  # compiler output of the builds this process ran
+builds = 0  # libraries this process compiled (read by analysis.trace_audit.LaunchCounter)
+loads = 0  # libraries this process loaded
 
 
 def _nvcc() -> str:
@@ -98,6 +100,7 @@ def library_path(name: str) -> Path:
 
 def build_all() -> list[str]:
     """Compile every missing library, all at once; returns the names built."""
+    global builds
     with _lock:
         todo = [n for n in SOURCES if not library_path(n).exists()]
         if not todo:
@@ -118,6 +121,7 @@ def build_all() -> list[str]:
                 os.replace(tmp, library_path(name))
             else:
                 failed.append(f"{name}.cu (exit {proc.returncode}):\n{log}")
+        builds += len(todo) - len(failed)
         if failed:
             raise RuntimeError("kernel build failed: " + "\n".join(failed))
         return todo
@@ -132,12 +136,15 @@ def build_log(name: str) -> str:
 
 def library(name: str) -> ctypes.CDLL:
     """The loaded library of ``csrc/<name>.cu``, built on first use."""
+    global loads
     lib = _libs.get(name)
     if lib is None:
         build_all()
         with _lock:
-            lib = _libs.get(name) or ctypes.CDLL(str(library_path(name)))
-            _libs[name] = lib
+            lib = _libs.get(name)
+            if lib is None:
+                lib = _libs[name] = ctypes.CDLL(str(library_path(name)))
+                loads += 1
     return lib
 
 

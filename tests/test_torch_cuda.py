@@ -49,6 +49,7 @@ import torch
 from repro_torch.core.allocation import attempt_outcomes_batch
 from repro_torch.core.segmentation import segment_peaks_dynamic
 from repro_torch import kernels
+from repro_torch.analysis import trace_audit
 from repro_torch.kernels import (compaction, fitstats, flash, moe_combine, moe_dispatch, ops, rangemax, rglru_scan,
                                   rwkv_wkv, scan, segmax, wastage)
 
@@ -165,24 +166,11 @@ def test_segmax_kernel_edge_cases_on_card(cuda, T, offset, k_max):
     assert torch.equal(got, want)
 
 
+# Kept apart from ``trace_audit.NO_LAUNCH_OPS`` on purpose, as an independent
+# reference: it lacks ``lift_fresh`` (a ``torch.tensor(..., device=)`` upload,
+# which the audit counts apart), so a one-launch path here may not upload.
 _NO_LAUNCH_OPS = {"empty", "empty_strided", "select", "slice", "view", "_unsafe_view", "transpose", "alias",
                   "as_strided", "expand", "unsqueeze", "detach", "t", "permute", "reshape", "_reshape_alias"}
-
-
-def _aten_ops(fn):
-    """The aten ops ``fn()`` dispatches (their base names), and its result."""
-    from torch.utils._python_dispatch import TorchDispatchMode
-
-    seen = []
-
-    class Record(TorchDispatchMode):
-        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
-            seen.append(func.__name__.split(".")[0])
-            return func(*args, **(kwargs or {}))
-
-    with Record():
-        out = fn()
-    return seen, out
 
 
 def _fit_rows(N: int, L: int, dtype, seed: int, dev):
@@ -219,7 +207,7 @@ def test_fit_tables_is_one_launch_on_card(cuda):
 
     t, d, base0 = _fit_rows(16, 224, torch.float64, 3, cuda)
     before = rangemax.launches
-    seen, (csm, tbl) = _aten_ops(lambda: device_timeline._fit_tables(t, d, base0))
+    seen, (csm, tbl) = trace_audit.dispatched_ops(lambda: device_timeline._fit_tables(t, d, base0))
     assert rangemax.launches == before + 1
     assert set(seen) <= _NO_LAUNCH_OPS, seen
     assert torch.equal(tbl, rangemax.fit_tables_plain(t, d, base0)[1])
@@ -278,7 +266,7 @@ def test_replay_is_one_wastage_launch_on_card(cuda, max_attempts):
 
     t = _ladder_inputs(torch.float32, 22, cuda)
     before = wastage.launches
-    seen, out = _aten_ops(lambda: torch_sim._replay(
+    seen, out = trace_audit.dispatched_ops(lambda: torch_sim._replay(
         t["y"], t["lengths"], t["series"], t["bounds"], t["values"], t["k_eff"], methods=LADDER_METHODS,
         interval_s=2.0, factor=2.0, cap_mib=4096.0, max_attempts=max_attempts, acc_dtype=torch.float64))
     assert wastage.launches == before + 1
@@ -357,8 +345,8 @@ def test_fold_and_compact_is_one_launch_on_card(cuda):
     S, N, L = 4, 16, 1024
     t, d, base, now = _fold_rows(S, N, L, torch.float64, 5, cuda)
     before = compaction.launches
-    seen, out = _aten_ops(lambda: device_timeline._fold_and_compact(now, base.view(S, N), t.view(S, N, L),
-                                                                    d.view(S, N, L)))
+    seen, out = trace_audit.dispatched_ops(
+        lambda: device_timeline._fold_and_compact(now, base.view(S, N), t.view(S, N, L), d.view(S, N, L)))
     assert compaction.launches == before + 1
     launching = [op for op in seen if op not in _NO_LAUNCH_OPS]
     assert launching == ["amax"], seen
@@ -2563,3 +2551,74 @@ def test_checkpoint_of_cuda_tensors_round_trips_on_card(cuda, tmp_path):
             assert back["params"][k].device.type == "cpu" and torch.equal(back["params"][k], t.cpu())
         assert all(torch.equal(got["batch"][k], v) for k, v in tree["batch"].items())
         assert int(got["opt"][1]) == 7
+
+
+def test_launch_counter_sees_one_segmax_launch_a_call_on_card(cuda):
+    """``trace_audit.LaunchCounter`` on the card: one segmax launch for each
+    ``segment_peaks`` call, no aten op that launches beside it; an upload,
+    read-backs and their counts."""
+    from repro_torch.analysis.trace_audit import LaunchCounter
+
+    y, lengths = _series(13, 64, 256)
+    yt, lt = torch.from_numpy(y).to(cuda), torch.from_numpy(lengths).to(cuda)
+    series = torch.arange(64, dtype=torch.int32, device=cuda)
+    k_eff = torch.full((64,), 4, dtype=torch.int32, device=cuda)
+    ops.segment_peaks(yt, lt, series, k_eff, 4)
+    with LaunchCounter() as lc:
+        for _ in range(3):
+            ops.segment_peaks(yt, lt, series, k_eff, 4)
+    assert lc.launches["segmax"] == 3 and sum(lc.launches.values()) == 3
+    assert lc.launching_ops == 0 and lc.readbacks == 0 and lc.uploads == []
+    with LaunchCounter() as lc:
+        up = torch.from_numpy(y).to(cuda)
+        made = torch.tensor([1.0, 2.0], device=cuda)
+        host = up.cpu()
+        total = up.sum().item()
+    assert host.shape == y.shape and made.is_cuda and total > 0
+    assert [u.nbytes for u in lc.uploads] == [y.nbytes, 8]
+    assert lc.readbacks == 2 and lc.aten["sum"] == 1
+
+
+def test_second_call_builds_and_loads_nothing_on_card(cuda):
+    from repro_torch.analysis.trace_audit import no_rebuilds
+
+    y, lengths = _series(14, 32, 128)
+    args = (torch.from_numpy(y).to(cuda), torch.from_numpy(lengths).to(cuda),
+            torch.arange(32, dtype=torch.int32, device=cuda), torch.full((32,), 3, dtype=torch.int32, device=cuda), 4)
+    ops.segment_peaks(*args)
+    with no_rebuilds("a warm segment_peaks", launches={"segmax": 1}, launching_ops=0) as lc:
+        ops.segment_peaks(*args)
+    assert lc.builds == 0 and lc.loads == 0
+
+
+@pytest.mark.parametrize("dtype,clean", [(torch.float64, True), (torch.float32, False)])
+def test_check_dtypes_on_the_fit_table_on_card(cuda, dtype, clean):
+    """The fit table's one rangemax launch in float64 dispatches no float32
+    result (its outputs are allocated in the rows' dtype); float32 rows do."""
+    from repro_torch.analysis.trace_audit import LaunchCounter, check_dtypes
+    from repro_torch.sim import device_timeline
+
+    t, d, base0 = _fit_rows(16, 224, dtype, 4, cuda)
+    with LaunchCounter() as lc:
+        problems = check_dtypes(device_timeline._fit_tables, t, d, base0, forbid_dtypes=(torch.float32,))
+    assert lc.launches["rangemax"] == 1
+    assert (problems == []) == clean, problems
+
+
+def test_derive_reports_flash_launches_as_not_counted_on_card(cuda):
+    """On CUDA tensors flash launches through ctypes, where dispatch cannot
+    count its work: ``derive`` lists the launch as not counted; the plain
+    version on the CPU is counted."""
+    from repro_torch.configs import ShapeSpec, get_config
+    from repro_torch.launch.roofline import derive
+
+    case = (1, 256, 256, 4, 2, 64, True, None, None, False)
+    q, k, v, qp, kp, kw = _flash_inputs(case, torch.bfloat16, cuda)
+    cfg, shape = get_config("llama3.2-3b"), ShapeSpec("prefill", "prefill", 256, 1)
+    ops.flash_attention(q, k, v, qp, kp, **kw)
+    rf = derive(lambda: ops.flash_attention(q, k, v, qp, kp, **kw), cfg, shape)
+    assert rf.not_counted == {"flash": 1} and rf.summary()["not_counted"] == {"flash": 1}
+    assert rf.flops_per_device == 0
+    cpu = [t.cpu() for t in (q, k, v, qp, kp)]
+    plain = derive(lambda: ops.flash_attention(*cpu, **kw), cfg, shape)
+    assert plain.not_counted == {} and plain.flops_per_device > 0

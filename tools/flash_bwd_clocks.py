@@ -20,6 +20,7 @@ object a line.  They need a CUDA card and ``nvcc``.
 from __future__ import annotations
 
 import argparse
+import functools
 import json
 import subprocess
 import sys
@@ -27,6 +28,19 @@ from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent.parent
 PROF_CALLS = 10
+
+
+@functools.cache
+def _roofline():
+    """This checkout's ``repro_torch.launch.roofline``, loaded from its file:
+    the bound is the tool's own, whichever tree's ``src`` is first on the
+    path (trees older than the module have none)."""
+    import importlib.util
+
+    spec = importlib.util.spec_from_file_location("_checkout_roofline", ROOT / "src/repro_torch/launch/roofline.py")
+    mod = sys.modules.setdefault(spec.name, importlib.util.module_from_spec(spec))
+    spec.loader.exec_module(mod)
+    return mod
 
 
 def _part(name: str) -> str:
@@ -41,6 +55,7 @@ def _case(case, seed: int, dev) -> dict:
     import chip_smoke
     from repro_torch.kernels import flash, flash_bwd
 
+    roofline = _roofline()
     name, (B, T, H, KV, hd), causal, window, cap = case
     kw = dict(causal=causal, window=window, softcap=cap)
     q, k, v, qp, kp = chip_smoke._flash_case_inputs(B, T, T, H, KV, hd, torch.bfloat16, seed, dev)
@@ -61,7 +76,7 @@ def _case(case, seed: int, dev) -> dict:
     mask = chip_smoke._flash_mask(qp, kp, causal, window)
     pairs = mask.sum().item() * H
     nbytes = 2 * (4 * q.numel() + 4 * k.numel()) + 4 * lse.numel() + 4 * (qp.numel() + kp.numel())
-    bound_ms, bound_by = chip_smoke._bound(nbytes, 2.5 * 4 * hd * pairs, chip_smoke.BF16_OPS_PER_S)
+    bound_ms, bound_by = roofline.bound_ms(nbytes, 2.5 * 4 * hd * pairs, roofline.HW["peak_flops_bf16"])
     sdpa_ms = None if cap is not None else chip_smoke._sdpa_bwd_ms(q, k, v, dout, mask, causal, window, 10)[0]
     del mask
     torch.cuda.empty_cache()

@@ -37,6 +37,7 @@ They need a CUDA card and ``nvcc``.
 from __future__ import annotations
 
 import argparse
+import functools
 import hashlib
 import inspect
 import json
@@ -47,6 +48,19 @@ from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent.parent
 PROF_CALLS = 64
+
+
+@functools.cache
+def _roofline():
+    """This checkout's ``repro_torch.launch.roofline``, loaded from its file:
+    the bound is the tool's own, whichever tree's ``src`` is first on the
+    path (trees older than the module have none)."""
+    import importlib.util
+
+    spec = importlib.util.spec_from_file_location("_checkout_roofline", ROOT / "src/repro_torch/launch/roofline.py")
+    mod = sys.modules.setdefault(spec.name, importlib.util.module_from_spec(spec))
+    spec.loader.exec_module(mod)
+    return mod
 
 
 def _digest(tensors) -> str:
@@ -67,6 +81,7 @@ def _case(kernel: str, args: tuple, nbytes: float, nops: float) -> dict:
     import chip_smoke
     from repro_torch.kernels import rglru_scan, rwkv_wkv
 
+    roofline = _roofline()
     if kernel == "rwkv_wkv":
         call, plain = (lambda: rwkv_wkv.rwkv_wkv_cuda(*args)), (lambda: rwkv_wkv.wkv_plain(*args))
     else:
@@ -78,7 +93,7 @@ def _case(kernel: str, args: tuple, nbytes: float, nops: float) -> dict:
     out = dict(ok=ok, rel_err=err, digest=_digest(got))
     device_name = chip_smoke.RECURRENT_KERNELS[kernel]
     launched = chip_smoke._device_launches(call, PROF_CALLS)
-    bound_ms, bound_by = chip_smoke._bound(nbytes, nops)
+    bound_ms, bound_by = roofline.bound_ms(nbytes, nops)
     device_ms = chip_smoke._device_ms(call, device_name, PROF_CALLS)
     reps = 20 if nbytes > 1e8 else 200
     out.update(ms=chip_smoke._cuda_ms(call, reps), device_ms=device_ms,
