@@ -1,0 +1,11 @@
+"""Model FLOPs of the traced calls over the stretch's time at the bf16
+peak, in % (``counts.prefill_flops``)."""
+
+from perfbench import counts
+
+
+def read(ctx):
+    if ctx.kind != "prefill":
+        return None
+    flops = sum(counts.prefill_flops(ctx.cfg, B, T) for B, T in ctx.units)
+    return 100.0 * flops / (ctx.stretch.window * counts.PEAK["bf16"])
